@@ -1,0 +1,164 @@
+"""Full match enumeration and counting on the pruned solution subgraph (§4).
+
+Per the paper, enumeration is Alg. 6 with the full template as the
+constraint, work aggregation off, and every possible match verified. The
+host join (core/join.py) walks the complete edge-cover walk of the template;
+omega from pruning filters candidates.
+
+Two result modes:
+  materialize  every embedding as a row of `EnumerationResult.embeddings`
+               (template-vertex column order).
+  count        completion counts only; symmetry restrictions from the
+               template's automorphism group are enforced in-flight, and
+               `n_embeddings` is restricted_count * |Aut|.
+
+On a TdsOverflow that survives chunk back-off to a single source, that
+source is finished by the streaming emitter instead of raising.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Optional
+
+import numpy as np
+
+from repro_torch.core.state import PruneState
+from repro_torch.core.template import Template, _edge_cover_walk
+from repro_torch.core.tds import compact_active, TdsOverflow
+from repro_torch.core import join as join_mod
+
+MODE_MATERIALIZE = "materialize"
+MODE_COUNT = "count"
+
+
+@dataclasses.dataclass
+class EnumerationResult:
+    embeddings: np.ndarray  # int32[count, n0]: column q = background vertex for q
+    n_embeddings: int
+    n_distinct_vertex_sets: int  # -1 in count mode (needs materialized rows)
+    automorphisms: int
+    mode: str = MODE_MATERIALIZE
+    n_canonical: Optional[int] = None  # symmetry-restricted row count, if broken
+
+
+def template_walk(template: Template, label_freq: Optional[np.ndarray] = None):
+    freq = label_freq if label_freq is not None else np.ones(int(template.labels.max()) + 1)
+    rank = {q: float(freq[template.labels[q]]) for q in range(template.n0)}
+    start = min(range(template.n0), key=lambda q: (rank[q], q))
+    return _edge_cover_walk(
+        set(range(template.n0)), set(template.edge_set), start,
+        {q: list(template.adj[q]) for q in range(template.n0)}, rank,
+    )
+
+
+def count_automorphisms(template: Template) -> int:
+    """|Aut(T)|, cached on the template."""
+    return max(template.automorphism_count(), 1)
+
+
+def _run_engine(engine, chunk: int, max_rows: int, count_only: bool,
+                stats: Optional[Dict]):
+    """Chunked source loop with overflow back-off; at chunk 1 an overflowing
+    source is finished by the streaming emitter (bounded memory)."""
+    sources = engine.sources()
+    blocks = []
+    total = 0
+    off, cur_chunk = 0, chunk
+    while off < sources.size:
+        ids = sources[off: off + cur_chunk]
+        try:
+            rows = engine.seed(ids)
+            for r in range(1, len(engine.steps) + 1):
+                if engine.nrows(rows) == 0:
+                    break
+                rows = engine.step(rows, r)
+            if engine.nrows(rows):
+                if count_only:
+                    total += engine.count(rows)
+                else:
+                    blocks.append(engine.emit(rows))
+        except TdsOverflow:
+            if cur_chunk == 1:
+                if stats is not None:
+                    stats["enum_stream_fallbacks"] = (
+                        stats.get("enum_stream_fallbacks", 0) + 1)
+                for blk in join_mod.stream_join(engine, ids, 1, max_rows):
+                    if count_only:
+                        total += blk.shape[0]
+                    else:
+                        blocks.append(blk)
+                off += ids.size
+                continue
+            cur_chunk = max(1, cur_chunk // 4)  # paper's rate control
+            continue
+        off += ids.size
+        if cur_chunk < chunk:  # recover toward the configured chunk
+            cur_chunk = min(chunk, cur_chunk * 2)
+    return total, blocks
+
+
+def enumerate_matches(
+    dg,
+    state: Optional[PruneState] = None,
+    template: Optional[Template] = None,
+    label_freq: Optional[np.ndarray] = None,
+    chunk: int = 4096,
+    max_rows: int = 5_000_000,
+    stats: Optional[Dict] = None,
+    *,
+    mode: str = MODE_MATERIALIZE,
+    symmetry_break: Optional[bool] = None,
+) -> EnumerationResult:
+    """Enumerate (or count) all template embeddings in the pruned graph with
+    the host join (the device-resident join is not ported yet).
+
+    `dg` may be a `PruneResult` (then `state`/`template` default from it).
+    `mode` is "materialize" (default) or "count"; `symmetry_break` defaults
+    to True exactly in count mode."""
+    if state is None and hasattr(dg, "dg") and hasattr(dg, "state"):
+        result = dg
+        template = template if template is not None else result.template
+        dg, state = result.dg, result.state
+    if mode not in (MODE_MATERIALIZE, MODE_COUNT):
+        raise ValueError(f"unknown enumeration mode {mode!r}")
+    aut = count_automorphisms(template)
+    if template.n0 == 1:
+        verts = np.flatnonzero(state.omega[:, 0].cpu().numpy())
+        emb = verts.astype(np.int32).reshape(-1, 1)
+        if mode == MODE_COUNT:
+            return EnumerationResult(
+                np.zeros((0, 1), np.int32), emb.shape[0], -1, 1, mode=mode)
+        return EnumerationResult(emb, emb.shape[0], emb.shape[0], 1)
+
+    sb = symmetry_break if symmetry_break is not None else (mode == MODE_COUNT)
+    if stats is not None:
+        stats["enumerate_mode"] = mode
+    walk = template_walk(template, label_freq)
+    engine = join_mod.HostJoin(compact_active(dg, state), template, walk,
+                               max_rows, symmetry_break=sb, stats=stats)
+    total, blocks = _run_engine(engine, chunk, max_rows,
+                                count_only=(mode == MODE_COUNT), stats=stats)
+    if mode == MODE_COUNT:
+        n_emb = total * aut if sb else total
+        return EnumerationResult(
+            np.zeros((0, template.n0), np.int32), n_emb, -1, aut,
+            mode=mode, n_canonical=(total if sb else None))
+    if blocks:
+        emb = np.unique(np.concatenate(blocks, axis=0), axis=0)
+    else:
+        emb = np.zeros((0, template.n0), np.int32)
+    vsets = np.unique(np.sort(emb, axis=1), axis=0)
+    n_emb = emb.shape[0] * aut if sb else emb.shape[0]
+    return EnumerationResult(
+        embeddings=emb,
+        n_embeddings=n_emb,
+        n_distinct_vertex_sets=vsets.shape[0],
+        automorphisms=aut,
+        mode=mode,
+        n_canonical=(emb.shape[0] if sb else None),
+    )
+
+
+def count_matches(dg, state=None, template=None, **kw) -> EnumerationResult:
+    """The counting fast path: `enumerate_matches(..., mode="count")`."""
+    return enumerate_matches(dg, state, template, mode=MODE_COUNT, **kw)

@@ -1,0 +1,60 @@
+"""Kernel routing: route names, the kernel-or-plain choice, launch counts.
+
+A wrapper in `ops.py` runs its CUDA kernel for a tensor on a CUDA device and
+its plain PyTorch version (`ref.py`) for a tensor on the CPU, and raises for
+any other device. The choice follows the tensor's device only: there is no
+fallback from a kernel to its plain version.
+
+Each kernel has a plain-integer launch count that its wrapper raises by one
+for every kernel launch, and nowhere else, so a run can show that it went
+through the kernels.
+
+Route names are the JAX package's. Without a pin, the LCC sweep takes the
+packed route (`bitset_spmm`) and NLCC waves take the fused route
+(`bitset_wave`); the capability gates of `core/lcc.py` and `core/nlcc.py`
+send a run to the boolean planes where the packed words cannot express it.
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+
+ROUTE_PACKED = "packed"
+ROUTE_UNPACKED = "unpacked"
+ROUTE_FUSED = "fused"
+
+LCC_ROUTES = (ROUTE_PACKED, ROUTE_UNPACKED)
+NLCC_ROUTES = (ROUTE_PACKED, ROUTE_UNPACKED, ROUTE_FUSED)
+
+KERNELS = ("bitset_spmm", "bitset_wave")
+_launches: Dict[str, int] = {name: 0 for name in KERNELS}
+
+
+def uses_kernel(t: torch.Tensor) -> bool:
+    """True for a CUDA tensor (launch the kernel), False for a CPU tensor
+    (run the plain version)."""
+    if t.device.type == "cuda":
+        return True
+    if t.device.type == "cpu":
+        return False
+    raise ValueError(f"no kernel or plain version for device {t.device}")
+
+
+def count_launch(name: str, k: int = 1) -> None:
+    _launches[name] += k
+
+
+def reset_launches() -> None:
+    for name in _launches:
+        _launches[name] = 0
+
+
+def launch_counts() -> Dict[str, int]:
+    return dict(_launches)
+
+
+def check_route(route: str, allowed) -> str:
+    if route not in allowed:
+        raise ValueError(f"unknown route {route!r}; expected one of {allowed}")
+    return route

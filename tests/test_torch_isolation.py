@@ -1,0 +1,67 @@
+"""The PyTorch port stands alone: it imports neither JAX nor the JAX package,
+and it never falls back to the CPU on its own."""
+import os
+import re
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
+
+import pytest
+
+pytest.importorskip("torch")
+
+ROOT = Path(__file__).resolve().parents[1]
+IMPORT_RE = re.compile(r"^\s*(import|from)\s+(jax|repro)\b")
+
+# Runs in a fresh interpreter: a tiny CPU prune through the whole main path,
+# then checks that nothing of JAX or the JAX package was loaded, and that
+# the default device is CUDA (which raises where there is none).
+SCRIPT = textwrap.dedent("""
+    import sys
+    import numpy as np
+    import torch
+    from repro_torch.graph import generators as gen
+    from repro_torch.core.template import Template
+    from repro_torch.core.pipeline import prune
+    from repro_torch.core.enumerate import count_matches
+
+    g = gen.cycle_graph(4, [0, 1, 2, 3])
+    t = Template([0, 1, 2, 3], [(0, 1), (1, 2), (2, 3), (3, 0)])
+    res = prune(g, t, device="cpu")
+    assert count_matches(res).n_embeddings == 1
+    loaded = sorted(m for m in sys.modules
+                    if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+    assert not loaded, loaded
+    if torch.cuda.is_available():
+        assert prune(g, t).state.omega.device.type == "cuda"
+    else:
+        try:
+            prune(g, t)
+        except RuntimeError as e:
+            assert "CUDA" in str(e), e
+        else:
+            raise AssertionError("prune() without device= ran on the CPU")
+    print("isolated")
+""")
+
+
+def test_port_runs_without_jax_or_the_reference_package():
+    env = {"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"}
+    env.update({k: v for k, v in os.environ.items()
+                if k in ("HOME", "TMPDIR", "LD_LIBRARY_PATH")})
+    proc = subprocess.run([sys.executable, "-c", SCRIPT], capture_output=True,
+                          text=True, env=env, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert proc.stdout.strip().endswith("isolated")
+
+
+def test_no_port_source_imports_jax_or_the_reference_package():
+    files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
+    files.append(ROOT / "chip_smoke.py")
+    assert len(files) > 10
+    bad = [f"{f.relative_to(ROOT)}:{i}: {line.strip()}"
+           for f in files
+           for i, line in enumerate(f.read_text().splitlines(), 1)
+           if IMPORT_RE.match(line)]
+    assert not bad, bad

@@ -16,12 +16,33 @@ From the root of a checkout, on a machine with a CUDA device and `nvcc`:
             the card must agree too;
 4. full     the main path at R-MAT Graph500 scale 20 (edge factor 16, degree
             labels, seed 3): prune and count-mode enumeration on the card,
-            with per-phase seconds, peak device memory and each kernel's
-            launch count, which must be nonzero; then the planted-needle
-            quickstart scenario.
+            with per-phase seconds, peak device memory and the launch count
+            of each prune kernel, which must be nonzero; then the
+            planted-needle quickstart scenario.
+5. GNN      the GNN inference path (GraphSAGE's sampled forward):
+            a. `segment_agg` against its plain version on the card over
+               NT x D x F in {1,7,16,33} x {1,4,10,25} x {1,3,128,602}, f32
+               and bf16, with all-False rows and NaN / Inf in masked slots:
+               min and max bit-exact, sum and sum of squares within
+               rtol = atol = 1e-5;
+            b. its times and the plain version's beside the bound at the
+               three shapes of the full-width forward;
+            c. card against CPU, logits within rtol = atol = 1e-4: the
+               graphsage-reddit config on a small graph (one batch of 64
+               seeds), and the pattern-filtered PNA scenario of
+               examples/pattern_gnn.py (identical pruned graph and omega);
+            d. full width: graphsage-reddit on the minibatch_lg shape
+               (1024 seeds, fanouts 15-10, 602 features, 41 classes) over an
+               Erdos-Renyi graph of the shape's size (232,965 vertices,
+               114,615,892 arcs), the feature table resident on the card:
+               ten batches with host sampling and device seconds, the loss,
+               peak device memory, and `segment_agg` launches, which must be
+               3 per batch; the first batch's logits equal a CPU forward;
+               then device time by kernel and the device's busy share over
+               three more batches (torch.profiler).
 
 The line before the last is a JSON object listing each kernel with its
-launches on the main path, its error against the plain version and its
+launches on its path's run, its error against the plain version and its
 times; the last line is {"ok": true, "device": {...}}. Without a CUDA device,
 or when any check fails, the script exits non-zero and prints no result.
 """
@@ -37,15 +58,19 @@ import torch
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
+from repro_torch.configs import get_arch  # noqa: E402
+from repro_torch.configs.base import GNN_CLASSES  # noqa: E402
 from repro_torch.core import nlcc  # noqa: E402
 from repro_torch.core.enumerate import count_matches, enumerate_matches  # noqa: E402
 from repro_torch.core.lcc import TemplateDev, lcc_fixpoint  # noqa: E402
 from repro_torch.core.pipeline import prune  # noqa: E402
 from repro_torch.core.state import init_state, pack_bits  # noqa: E402
 from repro_torch.core.template import Template, generate_constraints  # noqa: E402
+from repro_torch.data.graphs import PatternFilteredDataset, SampledBatchStream  # noqa: E402
 from repro_torch.graph import generators as gen  # noqa: E402
 from repro_torch.graph.structs import DeviceGraph, Graph  # noqa: E402
 from repro_torch.kernels import build, ops, ref, registry  # noqa: E402
+from repro_torch.models.gnn import GNN  # noqa: E402
 
 SEED = 3
 EDGE_FACTOR = 16
@@ -60,6 +85,15 @@ RMAT2 = ([2, 3, 4, 5, 6, 7, 1],
          [(0, 1), (1, 2), (2, 3), (3, 4), (4, 5), (5, 0), (1, 6)])
 WAVE = 1024
 DEVICE = "cuda"
+# Phase 5: graphsage-reddit on the minibatch_lg shape, over an Erdos-Renyi
+# graph of that shape's size (Reddit: 232,965 vertices, 114,615,892 arcs).
+GNN_ARCH = "graphsage-reddit"
+GNN_SHAPE = "minibatch_lg"
+GNN_BATCHES = 10
+GNN_PARITY_N = 3000
+GNN_PARITY_SEEDS = 64
+AGG_TOL = 1e-5   # segment_agg sums: f32, another order of the same terms
+LOGIT_TOL = 1e-4  # forward passes: f32 matmuls in another order
 # H100 SXM (NVIDIA data sheet, 700 W): device memory rate, and the float32
 # rate outside the tensor cores, taken as the peak for 32-bit bitwise ops.
 HBM_BYTES_PER_S = 3.35e12
@@ -341,7 +375,7 @@ def phase_full(g, dg):
         f"lcc_iterations {res.stats['lcc_iterations']}, "
         f"routes {res.stats['dispatch_routes']}")
     log(f"max_memory_allocated {peak / 2**30:.3f} GiB; launches {launches}")
-    for name in registry.KERNELS:
+    for name in registry.PRUNE_KERNELS:
         check(launches[name] > 0, f"{name} never launched on the main path")
     check(cnt.n_embeddings > 0, "the scale-20 main path found no match")
 
@@ -364,12 +398,299 @@ def phase_full(g, dg):
     check(eq.n_embeddings >= 5 * eq.automorphisms, "planted needles missing")
     return launches
 
+# ------------------------------------------------------------- phase 5: GNN
+def gnn_setup():
+    """(config, shape, classes) of the GNN path."""
+    mod = get_arch(GNN_ARCH)
+    return mod.CONFIG, mod.SHAPES[GNN_SHAPE], GNN_CLASSES[GNN_SHAPE]
+
+
+def agg_shapes(shape, cfg):
+    """The [NT, D, F] of the three segment_agg calls of one sampled forward:
+    second-hop neighbours, first-hop neighbours, layer-1 representations."""
+    b, (f1, f2) = shape.batch_nodes, shape.fanout
+    return [(b * f1, f2, shape.d_feat), (b, f1, shape.d_feat),
+            (b, f1, cfg.d_hidden)]
+
+
+def agg_close(got, want):
+    """min and max bit-exact, sum and sum of squares within AGG_TOL."""
+    return (torch.equal(got[:, 1:3], want[:, 1:3])
+            and torch.allclose(got[:, 0::3], want[:, 0::3],
+                               rtol=AGG_TOL, atol=AGG_TOL))
+
+
+def phase_segment_agg_small():
+    """segment_agg against its plain version on the card."""
+    log("== phase 5a: segment_agg vs its plain version")
+    rng = np.random.default_rng(SEED)
+    dev = DEVICE
+    n_checks = 0
+    for nt in (1, 7, 16, 33):
+        for d in (1, 4, 10, 25):
+            for f in (1, 3, 128, 602):
+                for dtype in (torch.float32, torch.bfloat16):
+                    x = rng.standard_normal((nt, d, f), dtype=np.float32)
+                    m = rng.random((nt, d)) < 0.7
+                    m[nt // 2] = False            # a row with no neighbour
+                    x[~m] = np.nan if n_checks % 2 else np.inf  # must not leak
+                    xt = torch.from_numpy(x).to(dev).to(dtype)
+                    mt = torch.from_numpy(m).to(dev)
+                    got = ops.segment_agg(xt, mt)
+                    want = ref.segment_agg_ref(xt, mt)
+                    sync()
+                    check(agg_close(got, want) and bool(torch.isfinite(got).all()),
+                          f"segment_agg [{nt},{d},{f}] {dtype} differs")
+                    n_checks += 1
+    # base pointers that are not aligned to a vector load (V falls to 1)
+    for f, dtype in ((128, torch.float32), (602, torch.bfloat16)):
+        flat = torch.randn(7 * 5 * f + 1, device=dev).to(dtype)
+        xt = flat[1:].view(7, 5, f)
+        mt = torch.from_numpy(rng.random((7, 5)) < 0.7).to(dev)
+        check(agg_close(ops.segment_agg(xt, mt), ref.segment_agg_ref(xt, mt)),
+              f"segment_agg on an unaligned [7,5,{f}] {dtype} view differs")
+        n_checks += 1
+    try:
+        ops.segment_agg(torch.ones((2, 3, 4), device=dev, requires_grad=True),
+                        torch.ones((2, 3), dtype=torch.bool, device=dev))
+    except RuntimeError:
+        pass
+    else:
+        check(DEVICE != "cuda", "segment_agg ran on an input that requires grad")
+    log(f"{n_checks} kernel/plain comparisons: min/max bit-exact, sum/sumsq "
+        f"within {AGG_TOL}, NaN/Inf in masked slots did not leak")
+
+
+def segment_agg_cost(nt, d, f, elem_bytes):
+    """(bytes, operations) of one segment_agg call: feats and mask read
+    once, the f32 [NT, 4, F] output written once; per valid element an
+    add, a min, a max, a multiply and an add."""
+    return (nt * d * f * elem_bytes + nt * d + nt * 4 * f * 4,
+            5 * nt * d * f)
+
+
+def phase_segment_agg_timing(shapes):
+    """Kernel, plain and bound times at the full-width forward's shapes
+    (f32, every neighbour valid, as the sampled forward calls it)."""
+    log("== phase 5b: segment_agg times at the full-width forward's shapes")
+    gen_t = torch.Generator(device=DEVICE).manual_seed(SEED)
+    rows = []
+    for nt, d, f in shapes:
+        x = torch.randn((nt, d, f), generator=gen_t, device=DEVICE)
+        m = torch.ones((nt, d), dtype=torch.bool, device=DEVICE)
+        got, want = ops.segment_agg(x, m), ref.segment_agg_ref(x, m)
+        check(agg_close(got, want), f"segment_agg [{nt},{d},{f}] differs")
+        t = {"shape": [nt, d, f],
+             "max_abs_err": float((got - want).abs().max()),
+             "ms": time_ms(lambda: ops.segment_agg(x, m), 20),
+             "device_ms": kernel_device_ms(lambda: ops.segment_agg(x, m), 20,
+                                           "segment_agg_kernel"),
+             "plain_ms": time_ms(lambda: ref.segment_agg_ref(x, m), 5)}
+        cost = segment_agg_cost(nt, d, f, x.element_size())
+        t["bound_ms"], t["bound_by"] = bound(cost)
+        log(f"segment_agg [{nt},{d},{f}] f32: {t['ms']:.4f} ms kernel "
+            f"({t['device_ms']:.4f} ms on the device, profiler), "
+            f"{t['plain_ms']:.4f} ms plain, {t['bound_ms']:.4f} ms bound "
+            f"({t['bound_by']}, {cost[0] / 1e6:.1f} MB), "
+            f"{t['ms'] / t['bound_ms']:.2f}x bound, max_abs_err "
+            f"{t['max_abs_err']:.3g}")
+        rows.append(t)
+        del x, m, got, want
+    return rows
+
+
+def gnn_features(n, d_feat, n_classes, seed):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((n, d_feat), dtype=np.float32),
+            rng.integers(0, n_classes, n))
+
+
+def logits_close(a, b):
+    return torch.allclose(a.cpu(), b.cpu(), rtol=LOGIT_TOL, atol=LOGIT_TOL)
+
+
+def phase_gnn_parity(shape=None):
+    """Card against CPU: the sampled graphsage-reddit forward on a small
+    graph, and the pattern-filtered PNA scenario of examples/pattern_gnn.py."""
+    cfg, full_shape, n_classes = gnn_setup()
+    shape = shape or full_shape
+    log(f"== phase 5c: GNN card vs CPU ({cfg.name}, {GNN_PARITY_SEEDS} seeds; "
+        f"pattern-filtered PNA)")
+    g = gen.erdos_renyi_graph(GNN_PARITY_N, 20.0, seed=SEED)
+    feats, labels = gnn_features(g.n, shape.d_feat, n_classes, SEED)
+    out = {}
+    for dev in (DEVICE, "cpu"):
+        stream = SampledBatchStream(g, feats, labels, shape.fanout,
+                                    GNN_PARITY_SEEDS, seed=SEED, device=dev)
+        batch = stream(0)
+        model = GNN(cfg, shape.d_feat, n_classes, device=dev, seed=SEED)
+        logits = model.forward_sampled(batch)
+        out[dev] = (batch, logits, float(model.loss(batch, logits)))
+    (bc, lc, lossc), (bp, lp, lossp) = out[DEVICE], out["cpu"]
+    for k in bp:
+        check(torch.equal(bc[k].cpu(), bp[k]), f"sampled batch {k} differs")
+    check(logits_close(lc, lp), "sampled GraphSAGE logits differ card vs CPU")
+    log(f"graphsage-reddit sampled forward: batch identical, logits "
+        f"{list(lc.shape)} max |card - CPU| {float((lc.cpu() - lp).abs().max()):.3g}, "
+        f"loss {lossc:.6f} (CPU {lossp:.6f})")
+
+    bg = gen.rmat_graph(11, edge_factor=8, seed=0, labeler="random", n_labels=6)
+    needle = Graph.from_undirected_pairs(3, [(0, 1), (1, 2), (2, 0)], [4, 5, 3])
+    gp = gen.planted_pattern_graph(bg, needle, n_copies=30, seed=2)
+    template = Template([4, 5, 3], [(0, 1), (1, 2), (2, 0)])
+    pna = get_arch("pna").smoke()
+    runs = {}
+    for dev in (DEVICE, "cpu"):
+        ds = PatternFilteredDataset(gp, template, 16, 4, seed=0, device=dev)
+        model = GNN(pna, 16 + template.n0, 4, device=dev, seed=0)
+        logits = model(ds(0))
+        runs[dev] = (ds, logits, float(model.loss(ds(0), logits)))
+    (dc, lc, lossc), (dp, lp, lossp) = runs[DEVICE], runs["cpu"]
+    check(dc.prune_counts == dp.prune_counts and dc.pruned.n == dp.pruned.n
+          and np.array_equal(dc.pruned.src, dp.pruned.src)
+          and np.array_equal(dc.pruned.dst, dp.pruned.dst)
+          and np.array_equal(dc.omega, dp.omega), "pruned graph differs")
+    check(logits_close(lc, lp), "pattern-filtered PNA logits differ")
+    log(f"pattern-filtered PNA: background n={gp.n} m={gp.m}, pruned to "
+        f"{dc.prune_counts} on both; logits max |card - CPU| "
+        f"{float((lc.cpu() - lp).abs().max()):.3g}, loss {lossc:.6f} "
+        f"(CPU {lossp:.6f})")
+
+
+def phase_gnn_full(shape=None):
+    """The GNN main path at full width, with launch counts read around it."""
+    cfg, full_shape, n_classes = gnn_setup()
+    shape = shape or full_shape
+    n, avg_degree = shape.n_nodes, shape.n_edges / shape.n_nodes
+    log(f"== phase 5d: {cfg.name} on {shape.name} (B={shape.batch_nodes}, "
+        f"fanouts {shape.fanout}, d_feat {shape.d_feat}, {n_classes} classes)")
+    t0 = time.perf_counter()
+    g = gen.erdos_renyi_graph(n, avg_degree, seed=SEED)
+    t1 = time.perf_counter()
+    feats, labels = gnn_features(g.n, shape.d_feat, n_classes, SEED)
+    t2 = time.perf_counter()
+    stream = SampledBatchStream(g, feats, labels, shape.fanout,
+                                shape.batch_nodes, seed=SEED, device=DEVICE)
+    sync()
+    t3 = time.perf_counter()
+    log(f"background: n={g.n} m={g.m} (generated on the host in "
+        f"{t1 - t0:.1f} s; features {feats.nbytes / 1e6:.0f} MB made in "
+        f"{t2 - t1:.1f} s; CSR built and table staged on the device in "
+        f"{t3 - t2:.1f} s)")
+    del feats
+    model = GNN(cfg, shape.d_feat, n_classes, device=DEVICE, seed=SEED)
+    model.forward_sampled(stream(GNN_BATCHES))  # warm-up, outside the count
+    sync()
+    if DEVICE == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    registry.reset_launches()
+    rows, first = [], None
+    for step in range(GNN_BATCHES):
+        ta = time.perf_counter()
+        layers = stream.sample_ids(step)
+        tb = time.perf_counter()
+        batch = stream.gather(layers)
+        sync()
+        tc = time.perf_counter()
+        logits = model.forward_sampled(batch)
+        loss = model.loss(batch, logits)
+        sync()
+        td = time.perf_counter()
+        lv = float(loss)
+        check(logits.shape == (shape.batch_nodes, n_classes)
+              and bool(torch.isfinite(logits).all()) and np.isfinite(lv),
+              f"batch {step}: logits not finite or of the wrong shape")
+        rows.append((tb - ta, tc - tb, td - tc, lv))
+        log(f"  batch {step}: sample {tb - ta:.6f} s (host), gather "
+            f"{tc - tb:.6f} s, forward+loss {td - tc:.6f} s, loss {lv:.6f}")
+        if first is None:
+            first = ({k: v.cpu() for k, v in batch.items()}, logits.cpu())
+    launches = registry.launch_counts()
+    peak = torch.cuda.max_memory_allocated() if DEVICE == "cuda" else 0
+    med = [float(np.median([r[i] for r in rows])) for i in range(3)]
+    log(f"median per batch: sample {med[0]:.6f} s, gather {med[1]:.6f} s, "
+        f"forward+loss {med[2]:.6f} s; max_memory_allocated "
+        f"{peak / 2**30:.3f} GiB; launches {launches}")
+    check(launches["segment_agg"] == 3 * GNN_BATCHES,
+          f"segment_agg launched {launches['segment_agg']} times, "
+          f"expected {3 * GNN_BATCHES}")
+    cpu_model = GNN(cfg, shape.d_feat, n_classes, device="cpu", seed=SEED)
+    lp = cpu_model.forward_sampled(first[0])
+    check(logits_close(first[1], lp), "full-width logits differ card vs CPU")
+    log(f"batch 0 at full width: logits max |card - CPU| "
+        f"{float((first[1] - lp).abs().max()):.3g}")
+    profile_batches(stream, model, range(GNN_BATCHES, GNN_BATCHES + 3))
+    return launches
+
+
+def device_events(prof):
+    """The profiler's averages of device activity (kernels, copies)."""
+    from torch.autograd import DeviceType
+
+    return [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+
+
+def kernel_device_ms(fn, reps, name):
+    """Mean device milliseconds per launch of the kernels whose name holds
+    `name`, over `reps` calls of fn() under torch.profiler: the kernel's own
+    time, without the host's launch cost between calls."""
+    from torch.profiler import ProfilerActivity, profile
+
+    if DEVICE != "cuda":
+        return float("nan")
+    fn()
+    sync()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        sync()
+    ev = [e for e in device_events(prof) if name in e.key]
+    check(ev and sum(e.count for e in ev) == reps,
+          f"profiler saw {sum(e.count for e in ev)} {name} launches, not {reps}")
+    return sum(e.self_device_time_total for e in ev) / 1e3 / reps
+
+
+def profile_batches(stream, model, steps):
+    """Device time by kernel and the device's busy share over whole batches
+    (host sampling, gather, forward, loss), read from torch.profiler's CUDA
+    activity. The profiler's own cost lands in the wall time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    if DEVICE != "cuda":
+        return
+    sync()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for step in steps:
+            batch = stream(step)
+            model.loss(batch, model.forward_sampled(batch))
+        sync()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kern = sorted(device_events(prof), key=lambda e: -e.self_device_time_total)
+    busy_ms = sum(e.self_device_time_total for e in kern) / 1e3
+    n = len(steps)
+    if not kern:
+        log("profiler: no device activity recorded; device time not measured")
+        return
+    log(f"profiler over {n} batches: wall {wall_ms / n:.3f} ms per batch, "
+        f"device busy {busy_ms / n:.3f} ms per batch "
+        f"({100 * busy_ms / wall_ms:.1f}% busy, "
+        f"{100 - 100 * busy_ms / wall_ms:.1f}% idle)")
+    for e in kern[:12]:
+        log(f"  {e.self_device_time_total / 1e3 / n:9.4f} ms/batch "
+            f"x{e.count // n:<3d} {e.key[:90]}")
+
 
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
 
+    # f32 products in full f32 on the card, as on the CPU (PyTorch's
+    # defaults, stated): TF32 would move the GNN logits past LOGIT_TOL
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
     kind = phase_device()
     phase_kernels_small()
@@ -386,6 +707,15 @@ def main():
     timing = phase_kernel_timing(dg, Template(*HEX), g.label_frequency())
     phase_parity()
     launches = phase_full(g, dg)
+    del g, dg
+
+    cfg, shape, _ = gnn_setup()
+    phase_segment_agg_small()
+    agg_rows = phase_segment_agg_timing(agg_shapes(shape, cfg))
+    phase_gnn_parity()
+    gnn_launches = phase_gnn_full()
+    for name in registry.GNN_KERNELS:
+        launches[name] = gnn_launches[name]
 
     kernels = []
     for name, replaces in (("bitset_spmm", "src/repro/kernels/bitset_spmm.py:77"),
@@ -399,6 +729,20 @@ def main():
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": None, "bit_exact": True,
         })
+    t = agg_rows[0]  # the largest call: second-hop neighbours
+    kernels.append({
+        "name": "segment_agg", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/segment_agg.cu",
+        "replaces": "src/repro/kernels/segment_agg.py:47",
+        "launches": launches["segment_agg"], "max_abs_err": t["max_abs_err"],
+        "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+        "bound_by": t["bound_by"], "library_ms": None, "shape": t["shape"],
+        "tolerance": f"min/max bit-exact, sum/sumsq rtol=atol={AGG_TOL}",
+        "device_ms": t["device_ms"],
+        "other_shapes": [{k: r[k] for k in ("shape", "ms", "device_ms",
+                                            "plain_ms", "bound_ms")}
+                         for r in agg_rows[1:]],
+    })
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

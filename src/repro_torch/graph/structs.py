@@ -12,7 +12,7 @@ v are the arcs `dst_ptr[v] .. dst_ptr[v+1]-1`.
 from __future__ import annotations
 
 import dataclasses
-from typing import Union
+from typing import Optional, Union
 
 import numpy as np
 import torch
@@ -84,12 +84,30 @@ class Graph:
                      labels=np.asarray(labels))
 
     def csr(self):
-        """Return (offsets int64[n+1], neighbors int32[m]) sorted by (src, dst)."""
-        order = np.lexsort((self.dst, self.src))
+        """Return (offsets int64[n+1], neighbors int32[m]) sorted by (src, dst).
+
+        A stable sort of the 1-D (src, dst) keys: the order of the
+        reference's `np.lexsort((dst, src))`, and close to linear time on
+        arcs already in that order, as `from_undirected_pairs` leaves them."""
+        order = np.argsort(_pair_keys(self.src, self.dst, self.n), kind="stable")
         s, d = self.src[order], self.dst[order]
         offsets = np.zeros(self.n + 1, dtype=np.int64)
         offsets[1:] = np.cumsum(np.bincount(s, minlength=self.n))
         return offsets, d
+
+    def subgraph(self, vmask: np.ndarray, emask: Optional[np.ndarray] = None) -> "Graph":
+        """Induced subgraph on active vertices (and optionally active edges), re-indexed."""
+        vmask = np.asarray(vmask, dtype=bool)
+        keep = vmask[self.src] & vmask[self.dst]
+        if emask is not None:
+            keep &= np.asarray(emask, dtype=bool)
+        new_id = np.cumsum(vmask, dtype=np.int64) - 1
+        return Graph(
+            n=int(vmask.sum()),
+            src=new_id[self.src[keep]],
+            dst=new_id[self.dst[keep]],
+            labels=self.labels[vmask],
+        )
 
     def degrees(self) -> np.ndarray:
         return np.bincount(self.src, minlength=self.n).astype(np.int64)

@@ -1,9 +1,9 @@
-"""Public wrappers of the bitset kernels.
+"""Public wrappers of the kernels.
 
 Argument order and results follow the JAX package's `kernels/ops.py`, with
 the device graph in place of (src, dst, n, blocked). A CUDA tensor goes to
-the hand-written kernel (`csrc/bitset.cu`), a CPU tensor to its plain
-PyTorch version (`ref.py`); see `registry.py`.
+the hand-written kernel (`csrc/bitset.cu`, `csrc/segment_agg.cu`), a CPU
+tensor to its plain PyTorch version (`ref.py`); see `registry.py`.
 
 The kernels take any packed width W and any graph that fits the card's
 memory: they keep no frontier in shared memory, so the TPU's VMEM budget
@@ -12,6 +12,8 @@ one hard limit is the grid: ceil(n / 8) blocks for W > 2, below CUDA's
 2^31 - 1.
 """
 from __future__ import annotations
+
+from typing import Dict
 
 import torch
 
@@ -110,3 +112,76 @@ def bitset_wave(
     if registry.uses_kernel(vals):
         return _bitset_wave_cuda(vals, dg, edge_active, cand)
     return _ref.bitset_wave_ref(vals, dg.src, dg.dst, dg.n, edge_active, cand)
+
+
+# ------------------------------------------------------------- segment_agg
+_SEGMENT_AGG_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _segment_agg_cuda(feats, mask):
+    from repro_torch.kernels import build
+
+    if torch.is_grad_enabled() and feats.requires_grad:
+        raise RuntimeError(
+            "segment_agg's CUDA kernel has no backward: run it under "
+            "torch.no_grad() or on tensors that do not require grad")
+    if mask.device != feats.device:
+        raise ValueError(f"mask is on {mask.device}, feats on {feats.device}")
+    feats = feats.contiguous()
+    mask = mask.contiguous()
+    nt, d, f = feats.shape
+    out = torch.empty((nt, 4, f), dtype=torch.float32, device=feats.device)
+    if out.numel() == 0:
+        return out
+    lib = build.library()
+    code = lib.segment_agg_launch(
+        feats.data_ptr(), mask.data_ptr(), out.data_ptr(), nt, d, f,
+        _SEGMENT_AGG_DTYPES[feats.dtype], feats.device.index or 0,
+        _stream(feats))
+    build.check(code, "segment_agg")
+    registry.count_launch("segment_agg")
+    return out
+
+
+def segment_agg(
+    feats: torch.Tensor,  # [NT, D, F] f32 or bf16 gathered neighbour features
+    mask: torch.Tensor,   # bool[NT, D] valid-neighbour mask
+) -> torch.Tensor:
+    """Sum / min / max / sum of squares over the valid neighbours ->
+    f32[NT, 4, F]. A row without a valid neighbour holds 0, +3e38, -3e38, 0.
+
+    Any NT, D and F: the TPU tile's NT % 8 and F % 128 gate has no
+    counterpart here."""
+    if feats.dim() != 3 or feats.dtype not in _SEGMENT_AGG_DTYPES:
+        raise ValueError(
+            f"feats must be f32 or bf16 [NT, D, F], got {feats.dtype}{list(feats.shape)}")
+    if mask.dtype != torch.bool or mask.shape != feats.shape[:2]:
+        raise ValueError(f"mask must be bool{list(feats.shape[:2])}, got "
+                         f"{mask.dtype}{list(mask.shape)}")
+    if registry.uses_kernel(feats):
+        return _segment_agg_cuda(feats, mask)
+    return _ref.segment_agg_ref(feats, mask)
+
+
+def neighborhood_agg(
+    feats: torch.Tensor,    # [NT, D, F] gathered neighbour features
+    mask: torch.Tensor,     # bool[NT, D]
+    degrees: torch.Tensor,  # f32[NT] true degrees (for mean / std)
+) -> Dict[str, torch.Tensor]:
+    """Fused sum/mean/min/max/std neighbourhood aggregation (PNA's bank),
+    through one `segment_agg` call. A row of degree 0 gets min = max = 0."""
+    raw = segment_agg(feats, mask)
+    s, mn, mx, sq = raw[:, 0], raw[:, 1], raw[:, 2], raw[:, 3]
+    deg = degrees.clamp_min(1.0)[:, None]
+    empty = (degrees <= 0)[:, None]
+    mean = s / deg
+    var = (sq / deg - mean * mean).clamp_min(0.0)
+    zero = torch.zeros_like(s)
+    return {
+        "sum": s,
+        "mean": mean,
+        "min": torch.where(empty, zero, mn),
+        "max": torch.where(empty, zero, mx),
+        # +eps: sqrt has an infinite derivative at 0 (NaN in a backward)
+        "std": torch.sqrt(var + 1e-12),
+    }

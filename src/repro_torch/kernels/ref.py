@@ -1,6 +1,6 @@
-"""Plain PyTorch versions of the bitset kernels.
+"""Plain PyTorch versions of the kernels.
 
-They compute what the CUDA kernels in `csrc/bitset.cu` compute, with plain
+They compute what the CUDA kernels in `csrc/` compute, with plain
 tensor operations, on any device. The CPU path of every wrapper in `ops.py`
 runs them, the tests hold them against the JAX package's oracles, and
 `chip_smoke.py` holds each CUDA kernel against them on the card. Nothing on
@@ -58,3 +58,21 @@ def bitset_wave_ref(
         packed = (bitset_spmm_ref(packed, src, dst, n, edge_active)
                   & cand[r][:, None])
     return packed
+
+
+# BIG of the JAX package's `segment_agg`: the min / max identity, not FLT_MAX.
+SEGMENT_AGG_BIG = 3.0e38
+
+
+def segment_agg_ref(feats: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """feats [NT, D, F], mask bool[NT, D] -> f32[NT, 4, F]: sum, min, max and
+    sum of squares over the valid neighbours, in f32; a row without one
+    holds 0, +BIG, -BIG, 0. Masked slots are replaced, never multiplied by
+    the mask, so a NaN or Inf there cannot leak."""
+    x = feats.float()
+    valid = mask[:, :, None]
+    s = torch.where(valid, x, 0.0).sum(1)
+    mn = torch.where(valid, x, SEGMENT_AGG_BIG).amin(1)
+    mx = torch.where(valid, x, -SEGMENT_AGG_BIG).amax(1)
+    sq = torch.where(valid, x * x, 0.0).sum(1)
+    return torch.stack([s, mn, mx, sq], dim=1)

@@ -27,7 +27,10 @@ ROUTE_FUSED = "fused"
 LCC_ROUTES = (ROUTE_PACKED, ROUTE_UNPACKED)
 NLCC_ROUTES = (ROUTE_PACKED, ROUTE_UNPACKED, ROUTE_FUSED)
 
-KERNELS = ("bitset_spmm", "bitset_wave")
+# the kernels of the prune path, and of the GNN path
+PRUNE_KERNELS = ("bitset_spmm", "bitset_wave")
+GNN_KERNELS = ("segment_agg",)
+KERNELS = PRUNE_KERNELS + GNN_KERNELS
 _launches: Dict[str, int] = {name: 0 for name in KERNELS}
 
 

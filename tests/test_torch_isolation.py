@@ -14,9 +14,10 @@ pytest.importorskip("torch")
 ROOT = Path(__file__).resolve().parents[1]
 IMPORT_RE = re.compile(r"^\s*(import|from)\s+(jax|repro)\b")
 
-# Runs in a fresh interpreter: a tiny CPU prune through the whole main path,
-# then checks that nothing of JAX or the JAX package was loaded, and that
-# the default device is CUDA (which raises where there is none).
+# Runs in a fresh interpreter: a tiny CPU prune through the whole main path
+# and a tiny sampled GNN forward, then checks that nothing of JAX or the JAX
+# package was loaded, and that the default device is CUDA (which raises
+# where there is none).
 SCRIPT = textwrap.dedent("""
     import sys
     import numpy as np
@@ -30,18 +31,33 @@ SCRIPT = textwrap.dedent("""
     t = Template([0, 1, 2, 3], [(0, 1), (1, 2), (2, 3), (3, 0)])
     res = prune(g, t, device="cpu")
     assert count_matches(res).n_embeddings == 1
+
+    from repro_torch.configs import get_arch
+    from repro_torch.data.graphs import SampledBatchStream
+    from repro_torch.models.gnn import GNN
+    rng = np.random.default_rng(0)
+    gg = gen.erdos_renyi_graph(40, 4.0, seed=1)
+    cfg = get_arch("graphsage-reddit").smoke()
+    stream = SampledBatchStream(gg, rng.standard_normal((gg.n, 6)),
+                                rng.integers(0, 3, gg.n), (3, 2), 4,
+                                device="cpu")
+    model = GNN(cfg, 6, 3, device="cpu")
+    assert model.forward_sampled(stream(0)).shape == (4, 3)
     loaded = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "repro"))
     assert not loaded, loaded
     if torch.cuda.is_available():
         assert prune(g, t).state.omega.device.type == "cuda"
+        assert GNN(cfg, 6, 3).device.type == "cuda"
     else:
-        try:
-            prune(g, t)
-        except RuntimeError as e:
-            assert "CUDA" in str(e), e
-        else:
-            raise AssertionError("prune() without device= ran on the CPU")
+        for name, call in (("prune()", lambda: prune(g, t)),
+                           ("GNN()", lambda: GNN(cfg, 6, 3))):
+            try:
+                call()
+            except RuntimeError as e:
+                assert "CUDA" in str(e), e
+            else:
+                raise AssertionError(f"{name} without device= ran on the CPU")
     print("isolated")
 """)
 

@@ -164,7 +164,9 @@ def test_cpu_tensors_take_the_plain_versions():
     ops.bitset_or_aggregate(vals, dg, torch.ones(dg.m, dtype=torch.bool))
     ops.bitset_wave(vals, dg, torch.ones(dg.m, dtype=torch.bool),
                     torch.full((3, g.n), -1, dtype=torch.int32))
-    assert registry.launch_counts() == {"bitset_spmm": 0, "bitset_wave": 0}
+    ops.segment_agg(torch.ones((4, 3, 5)), torch.ones((4, 3), dtype=torch.bool))
+    assert registry.launch_counts() == {
+        "bitset_spmm": 0, "bitset_wave": 0, "segment_agg": 0}
     with pytest.raises(ValueError):
         registry.uses_kernel(torch.zeros(1, device="meta"))
 

@@ -40,12 +40,52 @@ From the root of a checkout, on a machine with a CUDA device and `nvcc`:
                3 per batch; the first batch's logits equal a CPU forward;
                then device time by kernel and the device's busy share over
                three more batches (torch.profiler).
+6. LM       qwen2-1.5b prefill and greedy serving:
+            a. `flash_attention` against its plain version on the card: the
+               six shapes of tests/test_kernels.py, S in {1, 77, 1000} at
+               D = 64 with causal off and windows, D = 256, a strided k/v
+               view; f32 and bf16 (tolerances at ATTN_F32_TOL and in
+               `attention_close`);
+            b. its times (CUDA events; device time without the host's
+               cost between calls, see `kernel_device_ms`), the plain
+               version's and SDPA's beside the bound, bf16 causal, at one
+               prefill_32k sequence [1,12/2,32768,128] and the serving
+               prefill [8,12/2,2048,128];
+            c. card against CPU: qwen2-1.5b at full width cut to 2 layers,
+               f32, B=2 S=256 prompts: last logits within LM_PARITY_TOL and
+               8 greedy tokens equal;
+            d. full width (28 layers, bf16, random weights): the prefill_32k
+               program on one sequence of 32,768 tokens, then greedy serving
+               of 8 requests of 2,048-token prompts and 64 new tokens, with
+               seconds, peak memory and exactly 28 `flash_attention`
+               launches each; then a decode step's device time (CUDA events
+               over replays of the step captured in a CUDA graph) and the
+               device's busy share over eager decode steps alone and over a
+               serving prefill;
+            e. the serving CLI (`launch/serve.py --arch qwen2-1.5b`) on the
+               card, with the config it serves there.
+7. recsys   bert4rec scoring and retrieval:
+            a. `embedding_bag` against its plain version on the card: the
+               four cases of tests/test_kernels.py, L in {1, 4, 32} x D in
+               {32, 64, 128, 602}, sum and mean, f32 and bf16 tables,
+               negative and out-of-range ids, an unaligned table;
+            b. its times, the plain version's and F.embedding_bag's beside
+               the bound at the retrieval_cand shape (1,000,000 bags of one
+               id over the [1,000,002, 64] bf16 table);
+            c. card against CPU: the bert4rec smoke config in f32, catalog
+               and retrieval scores within LOGIT_TOL;
+            d. full width: serve_p99 (512 users, top-10 of the catalog) and
+               retrieval_cand (1 user x 1,000,000 candidates, exactly one
+               `embedding_bag` launch), seconds and peak memory;
+            e. the serving CLI (`launch/serve.py --arch bert4rec`).
 
 The line before the last is a JSON object listing each kernel with its
 launches on its path's run, its error against the plain version and its
 times; the last line is {"ok": true, "device": {...}}. Without a CUDA device,
 or when any check fails, the script exits non-zero and prints no result.
 """
+import copy
+import dataclasses
 import json
 import subprocess
 import sys
@@ -59,7 +99,7 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch.configs import get_arch  # noqa: E402
-from repro_torch.configs.base import GNN_CLASSES  # noqa: E402
+from repro_torch.configs.base import GNN_CLASSES, LMConfig  # noqa: E402
 from repro_torch.core import nlcc  # noqa: E402
 from repro_torch.core.enumerate import count_matches, enumerate_matches  # noqa: E402
 from repro_torch.core.lcc import TemplateDev, lcc_fixpoint  # noqa: E402
@@ -67,10 +107,16 @@ from repro_torch.core.pipeline import prune  # noqa: E402
 from repro_torch.core.state import init_state, pack_bits  # noqa: E402
 from repro_torch.core.template import Template, generate_constraints  # noqa: E402
 from repro_torch.data.graphs import PatternFilteredDataset, SampledBatchStream  # noqa: E402
+from repro_torch.data.recsys import MaskedSequenceStream  # noqa: E402
+from repro_torch.data.tokens import SyntheticTokenStream  # noqa: E402
 from repro_torch.graph import generators as gen  # noqa: E402
 from repro_torch.graph.structs import DeviceGraph, Graph  # noqa: E402
 from repro_torch.kernels import build, ops, ref, registry  # noqa: E402
+from repro_torch.launch import serve as serve_cli  # noqa: E402
+from repro_torch.models.bert4rec import Bert4Rec  # noqa: E402
 from repro_torch.models.gnn import GNN  # noqa: E402
+from repro_torch.models.transformer import Transformer  # noqa: E402
+from repro_torch.serve.engine import build_decode_step, build_prefill, greedy_generate  # noqa: E402
 
 SEED = 3
 EDGE_FACTOR = 16
@@ -94,10 +140,35 @@ GNN_PARITY_N = 3000
 GNN_PARITY_SEEDS = 64
 AGG_TOL = 1e-5   # segment_agg sums: f32, another order of the same terms
 LOGIT_TOL = 1e-4  # forward passes: f32 matmuls in another order
-# H100 SXM (NVIDIA data sheet, 700 W): device memory rate, and the float32
-# rate outside the tensor cores, taken as the peak for 32-bit bitwise ops.
+# Phase 6: qwen2-1.5b. Card vs CPU at full width cut to 2 layers, in f32;
+# the prefill_32k program on one sequence (global_batch 32 cut to 1, one
+# chip); serving 8 requests of 2,048-token prompts and 64 new tokens (the
+# decode_32k batch of 128 cut to 8).
+LM_ARCH = "qwen2-1.5b"
+LM_PARITY_LAYERS, LM_PARITY_BATCH, LM_PARITY_LEN, LM_PARITY_NEW = 2, 2, 256, 8
+LM_PREFILL_SHAPE = "prefill_32k"
+LM_SERVE_BATCH, LM_SERVE_PROMPT, LM_SERVE_NEW = 8, 2048, 64
+# decode steps timed (graph replays) and profiled (eager) after the serving run
+LM_DECODE_TIMED, LM_DECODE_PROFILED = 16, 8
+# flash_attention timing shapes (B, Hq, Hkv, S, D, timed calls): one
+# prefill_32k sequence, and the serving prefill
+ATTN_TIMING_SHAPES = [(1, 12, 2, 32768, 128, 3), (8, 12, 2, 2048, 128, 10)]
+ATTN_F32_TOL = 1e-4   # flash_attention f32: sums of S terms in another order
+LM_PARITY_TOL = 1e-3  # last logits card vs CPU: 1536-wide f32 products, 2 layers
+# Phase 7: bert4rec; the retrieval_cand shape is 1,000,000 bags of one id
+# over the [1,000,002, 64] item table.
+RECSYS_ARCH = "bert4rec"
+BAG_TOL = 1e-5        # embedding_bag f32: sums of at most L products
+# H100 SXM (NVIDIA data sheet, 700 W): device memory rate; the float32
+# rate outside the tensor cores, taken as the peak for 32-bit bitwise ops and
+# for f32 attention; and the dense bf16 tensor-core rate, the peak for bf16
+# attention.
 HBM_BYTES_PER_S = 3.35e12
 PEAK_INT32_OPS_PER_S = 67e12
+# a device-side spin of about 25 ms at the H100's 1.98 GHz boost clock, ahead
+# of a timed burst of launches (kernel_device_ms)
+SPIN_CYCLES, SPIN_MS = 50_000_000, 25.0
+PEAK_BF16_FLOPS_PER_S = 989e12
 
 
 def check(cond, msg):
@@ -119,6 +190,15 @@ def random_words(rng, n, w, device):
 def sync():
     if DEVICE == "cuda":
         torch.cuda.synchronize()
+
+
+def reset_peak():
+    if DEVICE == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+
+
+def peak_gib():
+    return torch.cuda.max_memory_allocated() / 2**30 if DEVICE == "cuda" else 0.0
 
 
 def max_abs_err(a, b):
@@ -176,12 +256,12 @@ def wave_cost(dg, edge_active, cand, w):
     return nbytes, ops
 
 
-def bound(cost):
+def bound(cost, peak=PEAK_INT32_OPS_PER_S):
     """(bound_ms, bound_by): the larger of bytes over the memory rate and
-    operations over the peak rate."""
+    operations over the peak rate for their type."""
     nbytes, ops = cost
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_INT32_OPS_PER_S * 1e3
+    t_ops = ops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -281,13 +361,16 @@ def phase_kernel_timing(dg, template, label_freq):
     spmm = {
         "max_abs_err": max_abs_err(out_k, out_p),
         "ms": time_ms(lambda: ops.bitset_or_aggregate(vals, dg, ea0), 20),
+        "device_ms": kernel_device_ms(
+            lambda: ops.bitset_or_aggregate(vals, dg, ea0), 20, "bitset_spmm"),
         "plain_ms": time_ms(
             lambda: ref.bitset_spmm_ref(vals, dg.src, dg.dst, dg.n, ea0), 2),
     }
     spmm["bound_ms"], spmm["bound_by"] = bound(spmm_cost(dg, ea0, vals.shape[1]))
     check(spmm["max_abs_err"] == 0, "bitset_spmm differs at scale 20")
     log(f"bitset_spmm  W={vals.shape[1]} n={dg.n} m={dg.m}: "
-        f"{spmm['ms']:.4f} ms kernel, {spmm['plain_ms']:.4f} ms plain, "
+        f"{spmm['ms']:.4f} ms kernel ({spmm['device_ms']:.4f} ms on the device), "
+        f"{spmm['plain_ms']:.4f} ms plain, "
         f"{spmm['bound_ms']:.4f} ms bound ({spmm['bound_by']})")
 
     # NLCC wave input: the first wave after the initial LCC fixpoint
@@ -300,6 +383,9 @@ def phase_kernel_timing(dg, template, label_freq):
     wave = {
         "max_abs_err": max_abs_err(out_k, out_p),
         "ms": time_ms(lambda: ops.bitset_wave(packed, dg, ea1, cand), 20),
+        "device_ms": kernel_device_ms(
+            lambda: ops.bitset_wave(packed, dg, ea1, cand), 20, "bitset_wave",
+            per_call=cand.shape[0]),
         "plain_ms": time_ms(lambda: ref.bitset_wave_ref(
             packed, dg.src, dg.dst, dg.n, ea1, cand), 2),
     }
@@ -309,7 +395,8 @@ def phase_kernel_timing(dg, template, label_freq):
     live = [int((cand[r] != 0).sum()) for r in range(cand.shape[0])]
     log(f"bitset_wave  W={packed.shape[1]} L={cand.shape[0]} "
         f"active arcs={int(ea1.sum())} candidates per hop={live}: "
-        f"{wave['ms']:.4f} ms kernel, {wave['plain_ms']:.4f} ms plain, "
+        f"{wave['ms']:.4f} ms kernel ({wave['device_ms']:.4f} ms on the device), "
+        f"{wave['plain_ms']:.4f} ms plain, "
         f"{wave['bound_ms']:.4f} ms bound ({wave['bound_by']})")
     return {"bitset_spmm": spmm, "bitset_wave": wave}
 
@@ -484,12 +571,12 @@ def phase_segment_agg_timing(shapes):
              "max_abs_err": float((got - want).abs().max()),
              "ms": time_ms(lambda: ops.segment_agg(x, m), 20),
              "device_ms": kernel_device_ms(lambda: ops.segment_agg(x, m), 20,
-                                           "segment_agg_kernel"),
+                                           "segment_agg"),
              "plain_ms": time_ms(lambda: ref.segment_agg_ref(x, m), 5)}
         cost = segment_agg_cost(nt, d, f, x.element_size())
         t["bound_ms"], t["bound_by"] = bound(cost)
         log(f"segment_agg [{nt},{d},{f}] f32: {t['ms']:.4f} ms kernel "
-            f"({t['device_ms']:.4f} ms on the device, profiler), "
+            f"({t['device_ms']:.4f} ms on the device), "
             f"{t['plain_ms']:.4f} ms plain, {t['bound_ms']:.4f} ms bound "
             f"({t['bound_by']}, {cost[0] / 1e6:.1f} MB), "
             f"{t['ms'] / t['bound_ms']:.2f}x bound, max_abs_err "
@@ -631,70 +718,599 @@ def device_events(prof):
             if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
 
 
-def kernel_device_ms(fn, reps, name):
-    """Mean device milliseconds per launch of the kernels whose name holds
-    `name`, over `reps` calls of fn() under torch.profiler: the kernel's own
-    time, without the host's launch cost between calls."""
-    from torch.profiler import ProfilerActivity, profile
-
+def kernel_device_ms(fn, reps, name, per_call=1):
+    """Mean device milliseconds per call of fn(), whose only device work is
+    `per_call` launches of the kernel `name`: CUDA events around `reps`
+    calls queued behind a device-side spin, so that the device runs them
+    back to back and the host's cost between calls is hidden. (Kernel events
+    of torch.profiler went missing on this machine after an earlier
+    profiling session in the same process.) The kernel's launch count must
+    rise by reps * per_call."""
     if DEVICE != "cuda":
         return float("nan")
     fn()
     sync()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        sync()
-    ev = [e for e in device_events(prof) if name in e.key]
-    check(ev and sum(e.count for e in ev) == reps,
-          f"profiler saw {sum(e.count for e in ev)} {name} launches, not {reps}")
-    return sum(e.self_device_time_total for e in ev) / 1e3 / reps
+    before = registry.launch_counts()[name]
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SPIN_CYCLES)
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(reps):
+        fn()
+    stop.record()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    launched = registry.launch_counts()[name] - before
+    check(launched == reps * per_call,
+          f"{name} launched {launched} times, not {reps * per_call}")
+    if host_ms > SPIN_MS:
+        log(f"  ({name}: queueing {reps} calls took {host_ms:.1f} ms, longer "
+            f"than the spin: gaps may count in the device time)")
+    return start.elapsed_time(stop) / reps
 
 
 def profile_batches(stream, model, steps):
     """Device time by kernel and the device's busy share over whole batches
-    (host sampling, gather, forward, loss), read from torch.profiler's CUDA
-    activity. The profiler's own cost lands in the wall time."""
-    from torch.profiler import ProfilerActivity, profile
-
-    if DEVICE != "cuda":
-        return
-    sync()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
+    (host sampling, gather, forward, loss)."""
+    def run():
         for step in steps:
             batch = stream(step)
             model.loss(batch, model.forward_sampled(batch))
+    profile_device(run, len(steps), "batch", "segment_agg")
+
+
+def profile_device(fn, n, unit, kernel=None, device_ms=None):
+    """Device time by kernel and the device's busy share over fn(), which
+    runs n units of work, read from torch.profiler's CUDA activity. The
+    profiler's own cost lands in the wall time. It checks that the profiler
+    lost no events: it must have recorded as many launches of our `kernel`
+    (registry name) as its wrapper counted, or, for work without one of our
+    kernels, at least 80% of `device_ms` per unit (the same work's device
+    time by CUDA events). Where the check fails, the busy share is reported
+    as not measured. Returns the device ms per unit, or None."""
+    from torch.profiler import ProfilerActivity, profile
+
+    if DEVICE != "cuda":
+        return None
+    sync()
+    before = registry.launch_counts()[kernel] if kernel else 0
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
         sync()
         wall_ms = (time.perf_counter() - t0) * 1e3
     kern = sorted(device_events(prof), key=lambda e: -e.self_device_time_total)
     busy_ms = sum(e.self_device_time_total for e in kern) / 1e3
-    n = len(steps)
-    if not kern:
-        log("profiler: no device activity recorded; device time not measured")
-        return
-    log(f"profiler over {n} batches: wall {wall_ms / n:.3f} ms per batch, "
-        f"device busy {busy_ms / n:.3f} ms per batch "
+    if kernel:
+        launched = registry.launch_counts()[kernel] - before
+        seen = sum(e.count for e in kern if f"{kernel}_kernel" in e.key)
+        lost = seen != launched
+        what = f"{seen} of {launched} {kernel} launches"
+    else:
+        lost = busy_ms / n < 0.8 * device_ms
+        what = (f"{busy_ms / n:.3f} ms of device work per {unit}, against "
+                f"{device_ms:.3f} ms by CUDA events")
+    if lost:
+        log(f"profiler recorded {what}: it lost events, so the busy share over "
+            f"{n} x {unit} is not measured")
+        return None
+    log(f"profiler over {n} x {unit} ({what}): wall {wall_ms / n:.3f} ms per "
+        f"{unit}, device busy {busy_ms / n:.3f} ms per {unit} "
         f"({100 * busy_ms / wall_ms:.1f}% busy, "
         f"{100 - 100 * busy_ms / wall_ms:.1f}% idle)")
     for e in kern[:12]:
-        log(f"  {e.self_device_time_total / 1e3 / n:9.4f} ms/batch "
+        log(f"  {e.self_device_time_total / 1e3 / n:9.4f} ms/{unit} "
             f"x{e.count // n:<3d} {e.key[:90]}")
+    return busy_ms / n
 
 
-def main():
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device available", file=sys.stderr)
-        return 1
+def graph_device_ms(fn, n):
+    """Mean device milliseconds of fn()'s work: fn() captured once in a CUDA
+    graph (after a warm-up call on a side stream) and the graph replayed n
+    times back to back between CUDA events, so that no host time between
+    launches counts. A measuring aid only: no path runs a graph. (Launches
+    queued behind a device spin do not serve here: a decode step makes some
+    900 launches, and the launch queue fills long before the spin ends.)"""
+    if DEVICE != "cuda":
+        return float("nan")
+    sync()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    graph.replay()
+    sync()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n):
+        graph.replay()
+    stop.record()
+    torch.cuda.synchronize()
+    del graph
+    return start.elapsed_time(stop) / n
 
-    # f32 products in full f32 on the card, as on the CPU (PyTorch's
-    # defaults, stated): TF32 would move the GNN logits past LOGIT_TOL
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    t_start = time.perf_counter()
-    kind = phase_device()
+
+# ------------------------------------------------------------- phase 6: LM
+def attention_pairs(s, causal, window):
+    """(query, key) pairs that attend: the logits the kernel must compute."""
+    q = np.arange(s)
+    lo = np.maximum(0, q - window + 1) if window else np.zeros_like(q)
+    hi = q if causal else np.full_like(q, s - 1)
+    return int(np.maximum(0, hi - lo + 1).sum())
+
+
+def attention_cost(b, hq, hkv, s, d, elem_bytes, causal=True, window=None):
+    """(bytes, operations) of one attention call: q, k, v read once and the
+    output written once; two multiply-adds per live (query, key) pair and
+    head dimension (q k^T and p v)."""
+    nbytes = (2 * b * hq * s * d + 2 * b * hkv * s * d) * elem_bytes
+    return nbytes, 4 * b * hq * d * attention_pairs(s, causal, window)
+
+
+def bf16_close(got, want, floor):
+    """Elementwise |got - want| <= 2 bf16 ulps of |want| + floor."""
+    w, g = want.float(), got.float()
+    ulp = torch.exp2(torch.floor(torch.log2(w.abs().clamp_min(2.0 ** -126))) - 7)
+    return bool(((g - w).abs() <= 2 * ulp + floor).all())
+
+
+def attention_want(q, k, v, causal=True, window=None):
+    """What the kernel is held to: f32 arithmetic on the inputs, rounded once
+    to their dtype. That is the plain version, except for bf16 past the
+    blockwise cutoff, where the plain version rounds p to bf16 before p v:
+    there, the blockwise version on the inputs widened to f32 (which rounds
+    nothing), cast to bf16."""
+    if q.dtype == torch.bfloat16 and q.shape[2] > ref.ATTENTION_BLOCKWISE_CUTOFF:
+        return ref.attention_blockwise(q.float(), k.float(), v.float(), causal=causal,
+                                       window=window).to(q.dtype)
+    return ref.attention_plain(q, k, v, causal=causal, window=window)
+
+
+def attention_close(got, want):
+    """f32: within ATTN_F32_TOL. bf16: within 2 bf16 ulps plus 1e-6."""
+    if got.dtype == torch.float32:
+        return torch.allclose(got, want, rtol=ATTN_F32_TOL, atol=ATTN_F32_TOL)
+    return bf16_close(got, want, 1e-6)
+
+
+ATTN_SMALL_CASES = (
+    # the six cases of tests/test_kernels.py's flash_attention test
+    [(1, 4, 4, 256, 128, True, None), (2, 8, 2, 256, 128, True, None),
+     (1, 4, 1, 384, 128, False, None), (1, 2, 2, 512, 128, True, 128),
+     (1, 2, 2, 256, 256, True, None), (3, 6, 3, 128, 128, True, 64)]
+    # any S, D = 64, causal off, windows
+    + [(2, 4, 2, s, 64, causal, window) for s in (1, 77, 1000)
+       for causal, window in ((True, None), (False, None), (True, 33), (False, 33))]
+    + [(1, 2, 1, 77, 256, True, None), (2, 3, 1, 130, 128, False, 7)])
+
+
+def phase_attention_small():
+    """flash_attention against its plain version on the card."""
+    log("== phase 6a: flash_attention vs its plain version")
+    rng = np.random.default_rng(SEED)
+    worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    n_checks = 0
+    for b, hq, hkv, s, d, causal, window in ATTN_SMALL_CASES:
+        arrays = [rng.standard_normal(shape, dtype=np.float32) * 0.3
+                  for shape in ((b, hq, s, d), (b, hkv, s, d), (b, hkv, s, d))]
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = (torch.from_numpy(a).to(DEVICE).to(dtype) for a in arrays)
+            got = ops.attention(q, k, v, causal=causal, window=window)
+            want = attention_want(q, k, v, causal, window)
+            sync()
+            check(got.dtype == dtype and attention_close(got, want),
+                  f"flash_attention [{b},{hq}/{hkv},{s},{d}] causal={causal} "
+                  f"window={window} {dtype} differs")
+            worst[dtype] = max(worst[dtype],
+                               float((got.float() - want.float()).abs().max()))
+            n_checks += 1
+    # k, v as the model passes v: a [B, S, H, D] projection viewed as [B, H, S, D]
+    q = torch.randn((2, 4, 70, 128), device=DEVICE)
+    v = torch.randn((2, 70, 2, 128), device=DEVICE).transpose(1, 2)
+    check(not v.is_contiguous() and attention_close(
+        ops.attention(q, v, v), attention_want(q, v, v)),
+        "flash_attention on a strided k, v view differs")
+    n_checks += 1
+    log(f"{n_checks} kernel/plain comparisons within tolerance (f32 rtol = atol "
+        f"= {ATTN_F32_TOL}; bf16 2 ulps + 1e-6): max |diff| f32 "
+        f"{worst[torch.float32]:.3g}, bf16 {worst[torch.bfloat16]:.3g}")
+
+
+def sdpa_ms(q, k, v, reps):
+    """The library row: one causal scaled_dot_product_attention call on the
+    same inputs, k and v repeated to the query heads beforehand (not timed).
+    Timed here only; the port never calls it."""
+    import torch.nn.functional as F
+
+    group = q.shape[1] // k.shape[1]
+    ke, ve = k.repeat_interleave(group, 1), v.repeat_interleave(group, 1)
+    return time_ms(lambda: F.scaled_dot_product_attention(q, ke, ve, is_causal=True),
+                   reps)
+
+
+def phase_attention_timing(shapes):
+    """Kernel, plain, library and bound times at the LM path's shapes (bf16,
+    causal): the prefill of one prefill_32k sequence and the serving prefill."""
+    log("== phase 6b: flash_attention times at the LM path's shapes")
+    rows = []
+    for b, hq, hkv, s, d, reps in shapes:
+        g = torch.Generator(device=DEVICE).manual_seed(SEED)
+        q, k, v = (torch.randn(shape, generator=g, device=DEVICE).to(torch.bfloat16)
+                   for shape in ((b, hq, s, d), (b, hkv, s, d), (b, hkv, s, d)))
+        got, want = ops.attention(q, k, v), attention_want(q, k, v)
+        check(attention_close(got, want), f"flash_attention [{b},{hq},{s},{d}] differs")
+        t = {"shape": [b, hq, hkv, s, d], "dtype": "bfloat16",
+             "max_abs_err": float((got.float() - want.float()).abs().max())}
+        del got, want
+        t["ms"] = time_ms(lambda: ops.attention(q, k, v), reps)
+        t["device_ms"] = kernel_device_ms(lambda: ops.attention(q, k, v), reps,
+                                          "flash_attention")
+        t["plain_ms"] = time_ms(lambda: ref.attention_plain(q, k, v), 1)
+        t["library_ms"] = sdpa_ms(q, k, v, reps)
+        cost = attention_cost(b, hq, hkv, s, d, 2)
+        t["bound_ms"], t["bound_by"] = bound(cost, PEAK_BF16_FLOPS_PER_S)
+        log(f"flash_attention [{b},{hq}/{hkv},{s},{d}] bf16 causal: {t['ms']:.4f} ms "
+            f"kernel ({t['device_ms']:.4f} ms on the device), {t['plain_ms']:.4f} ms "
+            f"plain, {t['library_ms']:.4f} ms SDPA, {t['bound_ms']:.4f} ms bound "
+            f"({t['bound_by']}: {cost[1] / 1e12:.3f} TFLOP, {cost[0] / 1e6:.1f} MB), "
+            f"{t['device_ms'] / t['bound_ms']:.1f}x bound, "
+            f"{cost[1] / t['device_ms'] / 1e9:.1f} "
+            f"TFLOP/s, max_abs_err {t['max_abs_err']:.3g}")
+        rows.append(t)
+        del q, k, v
+    return rows
+
+
+def phase_lm_parity(n_layers=LM_PARITY_LAYERS, batch=LM_PARITY_BATCH,
+                    prompt_len=LM_PARITY_LEN, new=LM_PARITY_NEW, cfg=None):
+    """Card against CPU: qwen2-1.5b at full width, cut to n_layers, in f32,
+    the same weights on both; prefill logits and greedy tokens."""
+    cfg = dataclasses.replace(cfg or get_arch(LM_ARCH).CONFIG, n_layers=n_layers,
+                              dtype="float32")
+    log(f"== phase 6c: {cfg.name} card vs CPU ({n_layers} layers, f32, "
+        f"B={batch}, S={prompt_len}, {new} greedy tokens)")
+    cpu = Transformer(cfg, device="cpu", seed=SEED)
+    card = copy.deepcopy(cpu).to(DEVICE)
+    prompt = SyntheticTokenStream(cfg.vocab, batch, prompt_len, seed=SEED,
+                                  device="cpu")(0)["tokens"]
+    out = {}
+    registry.reset_launches()
+    for dev, model in ((DEVICE, card), ("cpu", cpu)):
+        t0 = time.perf_counter()
+        _, logits = build_prefill(model)(prompt.to(dev), prompt_len + new)
+        toks = greedy_generate(model, prompt.to(dev), new, prompt_len + new)
+        sync()
+        out[dev] = (logits.cpu(), toks.cpu(), time.perf_counter() - t0)
+    (lc, tc, sc), (lp, tp, sp) = out[DEVICE], out["cpu"]
+    if DEVICE == "cuda":
+        check(registry.launch_counts()["flash_attention"] == 2 * n_layers,
+              "the card's prefills did not run through flash_attention")
+    diff = float((lc - lp).abs().max())
+    check(torch.allclose(lc, lp, rtol=LM_PARITY_TOL, atol=LM_PARITY_TOL),
+          f"prefill logits differ card vs CPU by {diff:.3g}")
+    check(torch.equal(tc, tp), f"greedy tokens differ: {tc.tolist()} vs {tp.tolist()}")
+    log(f"last logits [{batch}, {cfg.vocab}] max |card - CPU| {diff:.3g} "
+        f"(tolerance {LM_PARITY_TOL}); {new} greedy tokens equal: {tc[0].tolist()}; "
+        f"card {sc:.2f} s, CPU {sp:.2f} s")
+
+
+def phase_lm_full(cfg=None, prefill_len=None, serve=None):
+    """The LM path at full width: the prefill_32k program on one sequence,
+    then greedy serving, with launch counts read around each."""
+    cfg = cfg or get_arch(LM_ARCH).CONFIG
+    prefill_len = prefill_len or get_arch(LM_ARCH).SHAPES[LM_PREFILL_SHAPE].seq_len
+    b, p, new = serve or (LM_SERVE_BATCH, LM_SERVE_PROMPT, LM_SERVE_NEW)
+    log(f"== phase 6d: {cfg.name} at full width ({cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads, d_ff {cfg.d_ff}, "
+        f"vocab {cfg.vocab}, {cfg.dtype})")
+    t0 = time.perf_counter()
+    model = Transformer(cfg, device=DEVICE, seed=SEED)
+    sync()
+    n_bytes = sum(t.numel() * t.element_size() for t in model.params.values())
+    log(f"random weights made on the device in {time.perf_counter() - t0:.2f} s: "
+        f"{cfg.n_params()} parameters (+ biases), {n_bytes / 1e9:.3f} GB")
+    res = {}
+
+    # (i) prefill_32k: forward_hidden + last-position logits, one sequence
+    toks = SyntheticTokenStream(cfg.vocab, 1, prefill_len, seed=SEED,
+                                device=DEVICE)(0)["tokens"]
+    model.forward_hidden(toks[:, :256])   # warm-up, outside the count
+    sync()
+    reset_peak()
+    registry.reset_launches()
+    t0 = time.perf_counter()
+    h = model.forward_hidden(toks)
+    logits = model.logits_from_hidden(h[:, -1:])[:, 0]
+    sync()
+    res["prefill_32k_s"] = time.perf_counter() - t0
+    res["prefill_32k_launches"] = registry.launch_counts()["flash_attention"]
+    res["prefill_32k_peak_gib"] = peak_gib()
+    check(logits.shape == (1, cfg.vocab) and bool(torch.isfinite(logits).all()),
+          "prefill_32k logits not finite or of the wrong shape")
+    check(DEVICE != "cuda" or res["prefill_32k_launches"] == cfg.n_layers,
+          f"prefill_32k launched flash_attention {res['prefill_32k_launches']} "
+          f"times, expected {cfg.n_layers}")
+    log(f"(i) prefill_32k, 1 x {prefill_len} tokens (global_batch 32 cut to 1): "
+        f"{res['prefill_32k_s']:.3f} s, {prefill_len / res['prefill_32k_s']:.0f} "
+        f"tokens/s, flash_attention launches {res['prefill_32k_launches']}, "
+        f"max_memory_allocated {res['prefill_32k_peak_gib']:.3f} GiB")
+    del h, logits, toks
+
+    # (ii) serving: greedy generation for b requests of p-token prompts
+    prompts = SyntheticTokenStream(cfg.vocab, b, p, seed=SEED + 1,
+                                   device=DEVICE)(0)["tokens"]
+    greedy_generate(model, prompts[:, :64], 2, 66)   # warm-up, outside the count
+    sync()
+    reset_peak()
+    registry.reset_launches()
+    t0 = time.perf_counter()
+    out = greedy_generate(model, prompts, new, p + new)
+    sync()
+    res["serve_s"] = time.perf_counter() - t0
+    launches = registry.launch_counts()
+    res["serve_peak_gib"] = peak_gib()
+    check(out.shape == (b, new) and bool(((out >= 0) & (out < cfg.vocab)).all()),
+          "generated tokens of the wrong shape or out of the vocabulary")
+    check(DEVICE != "cuda" or launches["flash_attention"] == cfg.n_layers,
+          f"serving launched flash_attention {launches['flash_attention']} times, "
+          f"expected {cfg.n_layers} (one prefill)")
+    # the same requests step by step, for the split of prefill and decode
+    t0 = time.perf_counter()
+    cache, logits = build_prefill(model)(prompts, p + new)
+    sync()
+    res["serve_prefill_s"] = time.perf_counter() - t0
+    step = build_decode_step(model)
+    tok = logits.argmax(-1).to(torch.int32)
+    toks, step_s = [tok], []
+    for _ in range(new - 1):
+        t0 = time.perf_counter()
+        tok, _, cache = step(cache, tok)
+        sync()
+        step_s.append(time.perf_counter() - t0)
+        toks.append(tok)
+    check(torch.equal(torch.stack(toks, 1), out), "step-by-step tokens differ")
+    res["decode_ms_median"] = float(np.median(step_s)) * 1e3
+    res["serve_tokens_per_s"] = b * new / res["serve_s"]
+    log(f"(ii) serving {b} requests x {p}-token prompts, {new} new tokens "
+        f"(decode_32k's batch 128 cut to {b}): {res['serve_s']:.3f} s end to end, "
+        f"{res['serve_tokens_per_s']:.1f} generated tokens/s; prefill "
+        f"{res['serve_prefill_s']:.3f} s, decode {res['decode_ms_median']:.3f} ms "
+        f"per token (median of {len(step_s)}); flash_attention launches "
+        f"{launches['flash_attention']}; max_memory_allocated "
+        f"{res['serve_peak_gib']:.3f} GiB; first tokens {out[0, :8].tolist()}")
+    del cache
+
+    # (iii) device time of a decode step alone, and the device's busy share
+    # over a serving prefill and over decode steps alone
+    cache, logits = build_prefill(model)(prompts, p + 4 + LM_DECODE_PROFILED)
+    tok = [logits.argmax(-1).to(torch.int32)]
+
+    def decode():
+        tok[0], _, _ = step(cache, tok[0])
+    decode()
+    res["decode_device_ms"] = graph_device_ms(decode, LM_DECODE_TIMED)
+    res["decode_busy_share"] = res["decode_device_ms"] / res["decode_ms_median"]
+    log(f"(iii) decode step on the device: {res['decode_device_ms']:.4f} ms "
+        f"(CUDA events over {LM_DECODE_TIMED} replays of the step captured in "
+        f"a CUDA graph), {100 * res['decode_busy_share']:.1f}% of the "
+        f"{res['decode_ms_median']:.3f} ms per token of (ii)")
+
+    def decode_window():
+        for _ in range(LM_DECODE_PROFILED):
+            decode()
+    res["decode_profiled_device_ms"] = profile_device(
+        decode_window, LM_DECODE_PROFILED, "decode step",
+        device_ms=res["decode_device_ms"])
+    del cache
+    profile_device(lambda: build_prefill(model)(prompts, p + new), 1,
+                   "serving prefill", "flash_attention")
+    return launches, res
+
+
+def phase_serve_cli(label, arch):
+    """The serving CLI (`launch/serve.py --arch`) on the device, with its
+    own config and sizes."""
+    log(f"== phase {label}: the serving CLI, --arch {arch} --device {DEVICE}")
+    cfg = serve_cli.serve_config(arch)
+    before = registry.launch_counts()["flash_attention"]
+    out = serve_cli.main(["--arch", arch, "--device", DEVICE])
+    sync()
+    launched = registry.launch_counts()["flash_attention"] - before
+    if isinstance(cfg, LMConfig):
+        check(out.ndim == 2 and bool(((out >= 0) & (out < cfg.vocab)).all()),
+              "the CLI's tokens are out of the vocabulary")
+        check(DEVICE != "cuda" or launched == cfg.n_layers,
+              f"the CLI's prefill launched flash_attention {launched} times")
+    else:
+        check(out.shape[1] == 10 and bool(((out >= 0) & (out < cfg.n_items + 2)).all()),
+              "the CLI's top-10 is out of the catalog")
+
+
+# --------------------------------------------------------- phase 7: recsys
+BAG_SMALL_CASES = (
+    # the four cases of tests/test_kernels.py's embedding_bag test
+    [(1000, 128, 8, 4, "sum"), (5000, 256, 16, 10, "mean"),
+     (128, 128, 4, 1, "sum"), (2048, 512, 2, 32, "mean")]
+    + [(1000, d, 37, l, mode) for l in (1, 4, 32) for d in (32, 64, 128, 602)
+       for mode in ("sum", "mean")])
+
+
+def bag_close(got, want):
+    """f32: within BAG_TOL. bf16: within 2 bf16 ulps plus 1e-6 (f32 sums of
+    the same products in another order, rounded once)."""
+    if got.dtype == torch.float32:
+        return torch.allclose(got, want, rtol=BAG_TOL, atol=BAG_TOL)
+    return bf16_close(got, want, 1e-6)
+
+
+def phase_embedding_bag_small():
+    """embedding_bag against its plain version on the card."""
+    log("== phase 7a: embedding_bag vs its plain version")
+    rng = np.random.default_rng(SEED)
+    n_checks = 0
+    for v, d, b, l, mode in BAG_SMALL_CASES:
+        table = torch.from_numpy(rng.standard_normal((v, d), dtype=np.float32))
+        ids = torch.from_numpy(rng.integers(0, v, (b, l)).astype(np.int32))
+        weights = torch.from_numpy((rng.random((b, l)) < 0.9).astype(np.float32))
+        weights[0] = 0.0                           # an all-padding bag
+        if l > 1:
+            weights[1] *= 2.5                      # real-valued weights
+        for dtype in (torch.float32, torch.bfloat16):
+            args = (table.to(DEVICE).to(dtype), ids.to(DEVICE), weights.to(DEVICE))
+            got = ops.embedding_bag(*args, mode=mode)
+            want = ref.embedding_bag_ref(*args, mode=mode)
+            sync()
+            check(got.dtype == dtype and bag_close(got, want),
+                  f"embedding_bag V={v} D={d} B={b} L={l} {mode} {dtype} differs")
+            n_checks += 1
+    # ids as jnp.take reads them (negative from the end, outside [-V, V) NaN),
+    # on a table whose base is not aligned to a vector load
+    table = torch.randn((6 * 64 + 1,), device=DEVICE).to(torch.bfloat16)[1:].view(6, 64)
+    ids = torch.tensor([[-1, 0], [2, 6], [-7, 1], [5, 5]], dtype=torch.int32,
+                       device=DEVICE)
+    got, want = ops.embedding_bag(table, ids), ref.embedding_bag_ref(
+        table, ids, torch.ones(ids.shape, device=DEVICE))
+    check(torch.equal(got[[0, 3]], want[[0, 3]]) and bool(got[1:3].isnan().all())
+          and bool(want[1:3].isnan().all()),
+          "embedding_bag on negative / out-of-range ids or an unaligned table differs")
+    n_checks += 1
+    log(f"{n_checks} kernel/plain comparisons within tolerance (f32 rtol = atol = "
+        f"{BAG_TOL}, bf16 2 ulps + 1e-6)")
+
+
+def phase_embedding_bag_timing(n_rows, d, n_cand):
+    """Kernel, plain, library and bound times at the retrieval_cand shape:
+    n_cand bags of one id (a permutation of the item ids) over the bf16 item
+    table, weights 1."""
+    log(f"== phase 7b: embedding_bag times at the retrieval_cand shape "
+        f"({n_cand} bags of 1 over [{n_rows}, {d}] bf16)")
+    import torch.nn.functional as F
+
+    g = torch.Generator(device=DEVICE).manual_seed(SEED)
+    table = torch.randn((n_rows, d), generator=g, device=DEVICE).to(torch.bfloat16)
+    ids = (torch.randperm(n_cand, generator=g, device=DEVICE) + 1).to(torch.int32)[:, None]
+    w = torch.ones(ids.shape, device=DEVICE)
+    got, want = ops.embedding_bag(table, ids, w), ref.embedding_bag_ref(table, ids, w)
+    check(torch.equal(got, want), "embedding_bag at the retrieval shape differs")
+    t = {"shape": [n_rows, d, n_cand, 1], "dtype": "bfloat16",
+         "max_abs_err": float((got.float() - want.float()).abs().max()),
+         "ms": time_ms(lambda: ops.embedding_bag(table, ids, w), 20),
+         "device_ms": kernel_device_ms(lambda: ops.embedding_bag(table, ids, w), 20,
+                                       "embedding_bag"),
+         "plain_ms": time_ms(lambda: ref.embedding_bag_ref(table, ids, w), 5)}
+    ids64, w16 = ids.long(), w.to(table.dtype)
+    t["library_ms"] = time_ms(lambda: F.embedding_bag(
+        ids64, table, per_sample_weights=w16, mode="sum"), 20)
+    rows = int(torch.unique(ids).numel())
+    # ids and weights read once, each distinct row read once, one row written
+    # per bag; one multiply-add per element per slot
+    cost = (ids.numel() * 8 + rows * d * 2 + n_cand * d * 2, ids.numel() * d * 2)
+    t["bound_ms"], t["bound_by"] = bound(cost)
+    log(f"embedding_bag: {t['ms']:.4f} ms kernel ({t['device_ms']:.4f} ms on the "
+        f"device), {t['plain_ms']:.4f} ms plain, {t['library_ms']:.4f} ms "
+        f"F.embedding_bag, {t['bound_ms']:.4f} ms bound ({t['bound_by']}, "
+        f"{cost[0] / 1e6:.1f} MB), {t['device_ms'] / t['bound_ms']:.2f}x "
+        f"bound; bit-exact with the plain version")
+    return t
+
+
+def phase_recsys_parity(n_users=8):
+    """Card against CPU: the bert4rec smoke config in f32, the same weights on
+    both; catalog scores and retrieval scores over every item."""
+    cfg = get_arch(RECSYS_ARCH).smoke()
+    log(f"== phase 7c: {cfg.name} card vs CPU ({n_users} users, f32)")
+    cpu = Bert4Rec(cfg, device="cpu", seed=SEED)
+    card = copy.deepcopy(cpu).to(DEVICE)
+    items = MaskedSequenceStream(cfg.n_items, n_users, cfg.seq_len, seed=SEED,
+                                 device="cpu")(0)["items"]
+    cands = torch.arange(1, cfg.n_items + 1, dtype=torch.int32)
+    registry.reset_launches()
+    out = {}
+    for dev, model in ((DEVICE, card), ("cpu", cpu)):
+        out[dev] = (model.serve_scores(items.to(dev)).cpu(),
+                    model.retrieval_scores(items.to(dev), cands.to(dev)).cpu())
+    if DEVICE == "cuda":
+        check(registry.launch_counts()["embedding_bag"] == 1,
+              "the card's retrieval did not run through embedding_bag")
+    for name, a, b in (("serve", out[DEVICE][0], out["cpu"][0]),
+                       ("retrieval", out[DEVICE][1], out["cpu"][1])):
+        check(logits_close(a, b), f"{name} scores differ card vs CPU")
+        log(f"{name} scores {list(a.shape)}: max |card - CPU| "
+            f"{float((a - b).abs().max()):.3g}")
+
+
+def phase_recsys_full(cfg=None, serve_batch=None, n_cand=None):
+    """The recsys path at full width: serve_p99 (catalog scores + top-10) and
+    retrieval_cand (one user against every item), launches read around
+    each."""
+    cfg = cfg or get_arch(RECSYS_ARCH).CONFIG
+    shapes = get_arch(RECSYS_ARCH).SHAPES
+    serve_batch = serve_batch or shapes["serve_p99"].batch
+    n_cand = n_cand or shapes["retrieval_cand"].n_candidates
+    log(f"== phase 7d: {cfg.name} at full width (embed {cfg.embed_dim}, "
+        f"{cfg.n_blocks} blocks, {cfg.n_heads} heads, seq {cfg.seq_len}, "
+        f"{cfg.n_items} items, {cfg.dtype}); serve_bulk (262,144 x "
+        f"{cfg.n_items + 2} logits) does not fit and is cut")
+    model = Bert4Rec(cfg, device=DEVICE, seed=SEED)
+    items = MaskedSequenceStream(cfg.n_items, serve_batch, cfg.seq_len, seed=SEED,
+                                 device=DEVICE)(0)["items"]
+    res = {}
+
+    def serve():
+        return torch.topk(model.serve_scores(items), 10).indices
+
+    serve()                                   # warm-up
+    sync()
+    reset_peak()
+    registry.reset_launches()
+    t0 = time.perf_counter()
+    top = serve()
+    sync()
+    res["serve_p99_s"] = time.perf_counter() - t0
+    res["serve_p99_peak_gib"] = peak_gib()
+    check(top.shape == (serve_batch, 10) and bool((top >= 0).all()),
+          "serve_p99 top-10 of the wrong shape")
+    log(f"serve_p99: {serve_batch} users -> top-10 of {cfg.n_items + 2} items in "
+        f"{res['serve_p99_s'] * 1e3:.3f} ms; launches {registry.launch_counts()}; "
+        f"max_memory_allocated {res['serve_p99_peak_gib']:.3f} GiB")
+
+    g = torch.Generator(device=DEVICE).manual_seed(SEED)
+    cands = (torch.randperm(n_cand, generator=g, device=DEVICE) + 1).to(torch.int32)
+    user = items[:1]
+    model.retrieval_scores(user, cands)       # warm-up
+    sync()
+    reset_peak()
+    registry.reset_launches()
+    t0 = time.perf_counter()
+    scores = model.retrieval_scores(user, cands)
+    sync()
+    res["retrieval_s"] = time.perf_counter() - t0
+    launches = registry.launch_counts()
+    res["retrieval_peak_gib"] = peak_gib()
+    check(DEVICE != "cuda" or launches["embedding_bag"] == 1,
+          f"retrieval launched embedding_bag {launches['embedding_bag']} times, expected 1")
+    h = model.encode(user)[:, -1].float()
+    table, bias = model.params["items"], model.params["out_bias"]
+    want = h @ table[cands.long()].float().T + bias[cands.long()].float()
+    check(scores.shape == (1, n_cand) and bool(torch.isfinite(scores).all())
+          and torch.allclose(scores, want, rtol=1e-5, atol=1e-5),
+          "retrieval scores differ from a plain gather of the candidates")
+    log(f"retrieval_cand: 1 user x {n_cand} candidates in "
+        f"{res['retrieval_s'] * 1e3:.3f} ms; embedding_bag launches "
+        f"{launches['embedding_bag']}; max_memory_allocated "
+        f"{res['retrieval_peak_gib']:.3f} GiB; scores equal a plain gather")
+    return launches, res
+
+
+def run_prune():
+    """The prune path (phases 2-4) -> its kernels' entries of the JSON line."""
     phase_kernels_small()
-
     t0 = time.perf_counter()
     g = gen.rmat_graph(SCALE_FULL, edge_factor=EDGE_FACTOR, seed=SEED)
     t1 = time.perf_counter()
@@ -708,29 +1324,27 @@ def main():
     phase_parity()
     launches = phase_full(g, dg)
     del g, dg
+    return [{
+        "name": name, "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/bitset.cu",
+        "replaces": replaces, "launches": launches[name],
+        "max_abs_err": timing[name]["max_abs_err"], "ms": timing[name]["ms"],
+        "device_ms": timing[name]["device_ms"],
+        "plain_ms": timing[name]["plain_ms"], "bound_ms": timing[name]["bound_ms"],
+        "bound_by": timing[name]["bound_by"], "library_ms": None, "bit_exact": True,
+    } for name, replaces in (("bitset_spmm", "src/repro/kernels/bitset_spmm.py:77"),
+                             ("bitset_wave", "src/repro/kernels/bitset_wave.py:89"))]
 
+
+def run_gnn():
+    """The GNN path (phase 5) -> its kernel's entry of the JSON line."""
     cfg, shape, _ = gnn_setup()
     phase_segment_agg_small()
     agg_rows = phase_segment_agg_timing(agg_shapes(shape, cfg))
     phase_gnn_parity()
-    gnn_launches = phase_gnn_full()
-    for name in registry.GNN_KERNELS:
-        launches[name] = gnn_launches[name]
-
-    kernels = []
-    for name, replaces in (("bitset_spmm", "src/repro/kernels/bitset_spmm.py:77"),
-                           ("bitset_wave", "src/repro/kernels/bitset_wave.py:89")):
-        t = timing[name]
-        kernels.append({
-            "name": name, "route": "cuda",
-            "source": "src/repro_torch/kernels/csrc/bitset.cu",
-            "replaces": replaces, "launches": launches[name],
-            "max_abs_err": t["max_abs_err"], "ms": t["ms"],
-            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-            "bound_by": t["bound_by"], "library_ms": None, "bit_exact": True,
-        })
+    launches = phase_gnn_full()
     t = agg_rows[0]  # the largest call: second-hop neighbours
-    kernels.append({
+    return [{
         "name": "segment_agg", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/segment_agg.cu",
         "replaces": "src/repro/kernels/segment_agg.py:47",
@@ -742,7 +1356,74 @@ def main():
         "other_shapes": [{k: r[k] for k in ("shape", "ms", "device_ms",
                                             "plain_ms", "bound_ms")}
                          for r in agg_rows[1:]],
-    })
+    }]
+
+
+def run_lm():
+    """The LM path (phase 6) -> its kernel's entry of the JSON line."""
+    phase_attention_small()
+    attn_rows = phase_attention_timing(ATTN_TIMING_SHAPES)
+    phase_lm_parity()
+    launches, lm = phase_lm_full()
+    phase_serve_cli("6e", LM_ARCH)
+    t = attn_rows[0]  # the prefill_32k sequence
+    return [{
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:89",
+        "launches": launches["flash_attention"],
+        "launches_prefill_32k": lm["prefill_32k_launches"],
+        "max_abs_err": t["max_abs_err"], "ms": t["ms"],
+        "device_ms": t["device_ms"], "plain_ms": t["plain_ms"],
+        "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+        "library_ms": t["library_ms"], "shape": t["shape"],
+        "tolerance": f"f32 rtol=atol={ATTN_F32_TOL}; bf16 2 ulps + 1e-6 of "
+                     "f32 arithmetic rounded once",
+        "other_shapes": [{k: r[k] for k in ("shape", "ms", "device_ms",
+                                            "plain_ms", "library_ms",
+                                            "bound_ms", "max_abs_err")}
+                         for r in attn_rows[1:]],
+        "lm": lm,
+    }]
+
+
+def run_recsys():
+    """The recsys path (phase 7) -> its kernel's entry of the JSON line."""
+    cfg = get_arch(RECSYS_ARCH).CONFIG
+    phase_embedding_bag_small()
+    t = phase_embedding_bag_timing(
+        cfg.n_items + 2, cfg.embed_dim,
+        get_arch(RECSYS_ARCH).SHAPES["retrieval_cand"].n_candidates)
+    phase_recsys_parity()
+    launches, rec = phase_recsys_full()
+    phase_serve_cli("7e", RECSYS_ARCH)
+    return [{
+        "name": "embedding_bag", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/embedding_bag.cu",
+        "replaces": "src/repro/kernels/embedding_bag.py:45",
+        "launches": launches["embedding_bag"],
+        "max_abs_err": t["max_abs_err"], "ms": t["ms"],
+        "device_ms": t["device_ms"], "plain_ms": t["plain_ms"],
+        "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+        "library_ms": t["library_ms"], "shape": t["shape"],
+        "tolerance": f"f32 rtol=atol={BAG_TOL}; bf16 2 ulps + 1e-6; "
+                     "bit-exact at the retrieval shape",
+        "recsys": rec,
+    }]
+
+
+def main():
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available", file=sys.stderr)
+        return 1
+
+    # f32 products in full f32 on the card, as on the CPU (PyTorch's
+    # defaults, stated): TF32 would move the GNN logits past LOGIT_TOL
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
+    kind = phase_device()
+    kernels = run_prune() + run_gnn() + run_lm() + run_recsys()
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

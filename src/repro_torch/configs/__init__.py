@@ -1,6 +1,8 @@
 """Architecture registry: arch id -> (CONFIG, SHAPES, smoke()).
 
-The GNN ids only; the LM and recsys ids come with their slices of the port.
+The ids of the architectures the port runs: the four GNNs, qwen2-1.5b (LM)
+and bert4rec (recsys). The JAX package's other LM ids (starcoder2, qwen3,
+the deepseek MLA/MoE models) need code paths the port does not have yet.
 """
 from __future__ import annotations
 
@@ -12,6 +14,8 @@ _MODULES: Dict[str, str] = {
     "graphsage-reddit": "repro_torch.configs.graphsage_reddit",
     "gin-tu": "repro_torch.configs.gin_tu",
     "gat-cora": "repro_torch.configs.gat_cora",
+    "qwen2-1.5b": "repro_torch.configs.qwen2_1_5b",
+    "bert4rec": "repro_torch.configs.bert4rec",
 }
 
 ARCH_IDS = tuple(_MODULES)

@@ -1,21 +1,70 @@
-"""Config dataclasses and input-shape descriptors of the GNN family.
+"""Config dataclasses and input-shape descriptors of the GNN, LM and recsys
+families.
 
 One module per architecture lives next to this file; each exposes
   CONFIG  — the exact published configuration
   SHAPES  — the arch's own input-shape set
   smoke() — a reduced same-family config for CPU tests
 
-The GNN fields of the JAX package's `configs/base.py` that the port reads.
-Left out: the knobs of its sharded message passing (`distributed`,
-`message_dtype`), which the one-device port does not have; `sample_sizes`,
-since the sampled path takes its fanouts from `ShapeSpec.fanout`; and
-`dtype`, since the port builds its models in f32 only. The LM and recsys
-families come with their slices of the port.
+Of `LMConfig` the port keeps the fields the dense GQA path reads and
+those it refuses: `attention`, `moe`, `mtp`, `qk_norm`, `mlp`, `norm`,
+`fused_ce`, `dtype` and a `window` in the decode cache raise
+`NotImplementedError` in the model (`models/transformer.py`). Left out: the
+MLA ranks and head dims, the MoE sizes and routing knobs, and the JAX
+package's training and sharding knobs, which no port code reads.
+`RecsysConfig` is the JAX package's field for field (`fused_ce` and
+`n_negatives` raise in `models/bert4rec.py`). Of `GNNConfig` the port keeps
+the fields it reads. Left out: the knobs of the JAX package's sharded
+message passing (`distributed`, `message_dtype`), which the one-device port
+does not have; `sample_sizes`, since the sampled path takes its fanouts
+from `ShapeSpec.fanout`; and `dtype`, since the port builds its GNNs in f32
+only.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
+
+
+# ---------------------------------------------------------------- LM family
+@dataclasses.dataclass(frozen=True)
+class LMConfig:
+    name: str
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab: int
+    head_dim: Optional[int] = None          # default d_model // n_heads
+    attention: str = "gqa"                  # "gqa" | "mla"
+    qkv_bias: bool = False                  # qwen2
+    qk_norm: bool = False                   # qwen3
+    window: Optional[int] = None            # starcoder2 sliding window
+    mlp: str = "swiglu"                     # "swiglu" | "gelu"
+    norm: str = "rmsnorm"                   # "rmsnorm" | "layernorm"
+    rope_theta: float = 10000.0
+    tie_embeddings: bool = False
+    moe: bool = False                       # deepseek MoE
+    mtp: bool = False                       # deepseek-v3 multi-token prediction
+    fused_ce: int = 0            # >0: blockwise cross-entropy (training)
+    # numerics
+    dtype: str = "bfloat16"
+    norm_eps: float = 1e-6
+
+    @property
+    def hd(self) -> int:
+        return self.head_dim if self.head_dim is not None else self.d_model // self.n_heads
+
+    def n_params(self) -> int:
+        """Total parameter count of the dense GQA model (biases left out)."""
+        if self.attention != "gqa" or self.moe:
+            raise NotImplementedError(f"{self.name}: MLA and MoE are not ported")
+        d, hd = self.d_model, self.hd
+        emb = self.vocab * d * (1 if self.tie_embeddings else 2)
+        attn = 2 * d * self.n_heads * hd + 2 * d * self.n_kv_heads * hd
+        mlp = (3 if self.mlp == "swiglu" else 2) * d * self.d_ff
+        return emb + self.n_layers * (attn + mlp)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -30,18 +79,55 @@ class GNNConfig:
     eps_learnable: bool = False          # gin
 
 
+# ------------------------------------------------------------ RecSys family
+@dataclasses.dataclass(frozen=True)
+class RecsysConfig:
+    name: str
+    embed_dim: int
+    n_blocks: int
+    n_heads: int
+    seq_len: int
+    n_items: int = 1_000_000   # embedding table rows
+    dtype: str = "bfloat16"
+    # the JAX package's training knobs: 0 = full-catalog softmax
+    fused_ce: int = 0          # >0: blockwise CE over item chunks (exact)
+    n_negatives: int = 0       # >0: sampled-softmax with shared negatives
+
+    def n_params(self) -> int:
+        d = self.embed_dim
+        per_block = 4 * d * d + 8 * d * d  # attn + 4x ffn
+        return self.n_items * d + self.n_blocks * per_block + self.seq_len * d
+
+
+# ------------------------------------------------------------------- shapes
 @dataclasses.dataclass(frozen=True)
 class ShapeSpec:
-    """One cell: what program to run and with which sizes (GNN fields)."""
+    """One cell: what program to run and with which sizes."""
 
     name: str
-    step: str                  # "train" | ...
+    step: str                  # "train" | "prefill" | "decode" | "serve" | "retrieval"
+    # lm
+    seq_len: int = 0
+    global_batch: int = 0
+    # gnn
     n_nodes: int = 0
     n_edges: int = 0
     d_feat: int = 0
     batch_nodes: int = 0
     fanout: Tuple[int, ...] = ()
     n_graphs: int = 0
+    # recsys
+    batch: int = 0
+    n_candidates: int = 0
+    skip: Optional[str] = None  # reason this cell is skipped
+
+
+LM_SHAPES = {
+    "train_4k": ShapeSpec("train_4k", "train", seq_len=4096, global_batch=256),
+    "prefill_32k": ShapeSpec("prefill_32k", "prefill", seq_len=32768, global_batch=32),
+    "decode_32k": ShapeSpec("decode_32k", "decode", seq_len=32768, global_batch=128),
+    "long_500k": ShapeSpec("long_500k", "decode", seq_len=524288, global_batch=1),
+}
 
 
 GNN_SHAPES = {
@@ -52,6 +138,13 @@ GNN_SHAPES = {
     ),
     "ogb_products": ShapeSpec("ogb_products", "train", n_nodes=2449029, n_edges=61859140, d_feat=100),
     "molecule": ShapeSpec("molecule", "train", n_nodes=30, n_edges=64, n_graphs=128, d_feat=16),
+}
+
+RECSYS_SHAPES = {
+    "train_batch": ShapeSpec("train_batch", "train", batch=65536),
+    "serve_p99": ShapeSpec("serve_p99", "serve", batch=512),
+    "serve_bulk": ShapeSpec("serve_bulk", "serve", batch=262144),
+    "retrieval_cand": ShapeSpec("retrieval_cand", "retrieval", batch=1, n_candidates=1_000_000),
 }
 
 # classes per GNN shape (the JAX package's launch/cells.py)

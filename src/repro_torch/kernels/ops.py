@@ -2,8 +2,9 @@
 
 Argument order and results follow the JAX package's `kernels/ops.py`, with
 the device graph in place of (src, dst, n, blocked). A CUDA tensor goes to
-the hand-written kernel (`csrc/bitset.cu`, `csrc/segment_agg.cu`), a CPU
-tensor to its plain PyTorch version (`ref.py`); see `registry.py`.
+the hand-written kernel (`csrc/bitset.cu`, `csrc/segment_agg.cu`,
+`csrc/flash_attention.cu`, `csrc/embedding_bag.cu`), a CPU tensor to its
+plain PyTorch version (`ref.py`); see `registry.py`.
 
 The kernels take any packed width W and any graph that fits the card's
 memory: they keep no frontier in shared memory, so the TPU's VMEM budget
@@ -13,7 +14,8 @@ one hard limit is the grid: ceil(n / 8) blocks for W > 2, below CUDA's
 """
 from __future__ import annotations
 
-from typing import Dict
+import ctypes
+from typing import Dict, Optional
 
 import torch
 
@@ -39,6 +41,18 @@ def _check_inputs(vals: torch.Tensor, dg: DeviceGraph,
 
 def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+# dtype codes of the float kernels' C interfaces
+_KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _no_grad_input(name: str, *ts: torch.Tensor) -> None:
+    """The float kernels have no backward yet: refuse inputs that need one."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in ts):
+        raise RuntimeError(
+            f"{name}'s CUDA kernel has no backward: run it under "
+            "torch.no_grad() or on tensors that do not require grad")
 
 
 # ------------------------------------------------------------- bitset_spmm
@@ -115,16 +129,10 @@ def bitset_wave(
 
 
 # ------------------------------------------------------------- segment_agg
-_SEGMENT_AGG_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-
-
 def _segment_agg_cuda(feats, mask):
     from repro_torch.kernels import build
 
-    if torch.is_grad_enabled() and feats.requires_grad:
-        raise RuntimeError(
-            "segment_agg's CUDA kernel has no backward: run it under "
-            "torch.no_grad() or on tensors that do not require grad")
+    _no_grad_input("segment_agg", feats)
     if mask.device != feats.device:
         raise ValueError(f"mask is on {mask.device}, feats on {feats.device}")
     feats = feats.contiguous()
@@ -136,7 +144,7 @@ def _segment_agg_cuda(feats, mask):
     lib = build.library()
     code = lib.segment_agg_launch(
         feats.data_ptr(), mask.data_ptr(), out.data_ptr(), nt, d, f,
-        _SEGMENT_AGG_DTYPES[feats.dtype], feats.device.index or 0,
+        _KERNEL_DTYPES[feats.dtype], feats.device.index or 0,
         _stream(feats))
     build.check(code, "segment_agg")
     registry.count_launch("segment_agg")
@@ -152,7 +160,7 @@ def segment_agg(
 
     Any NT, D and F: the TPU tile's NT % 8 and F % 128 gate has no
     counterpart here."""
-    if feats.dim() != 3 or feats.dtype not in _SEGMENT_AGG_DTYPES:
+    if feats.dim() != 3 or feats.dtype not in _KERNEL_DTYPES:
         raise ValueError(
             f"feats must be f32 or bf16 [NT, D, F], got {feats.dtype}{list(feats.shape)}")
     if mask.dtype != torch.bool or mask.shape != feats.shape[:2]:
@@ -185,3 +193,117 @@ def neighborhood_agg(
         # +eps: sqrt has an infinite derivative at 0 (NaN in a backward)
         "std": torch.sqrt(var + 1e-12),
     }
+
+
+# --------------------------------------------------------- flash_attention
+ATTENTION_HEAD_DIMS = (64, 128, 256)
+
+
+def _attention_cuda(q, k, v, causal, window):
+    from repro_torch.kernels import build
+
+    _no_grad_input("flash_attention", q, k, v)
+    b, hq, s, d = q.shape
+    if d not in ATTENTION_HEAD_DIMS:
+        raise ValueError(f"flash_attention takes D in {ATTENTION_HEAD_DIMS}, got {d}")
+    if b > 65535 or hq > 65535:
+        raise ValueError(f"batch {b} or heads {hq} exceed the grid's 65535")
+    for name, t in (("k", k), ("v", v)):
+        if t.device != q.device:
+            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
+    q, k, v = (t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v))
+    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    if out.numel() == 0:
+        return out
+    strides = (ctypes.c_longlong * 12)(
+        *(st for t in (q, k, v, out) for st in t.stride()[:3]))
+    lib = build.library()
+    code = lib.flash_attention_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, hq,
+        k.shape[1], s, d, strides, int(causal),
+        0 if window is None else int(window), _KERNEL_DTYPES[q.dtype],
+        q.device.index or 0, _stream(q))
+    build.check(code, "flash_attention")
+    registry.count_launch("flash_attention")
+    return out
+
+
+def attention(
+    q: torch.Tensor,  # [B, Hq, S, D]
+    k: torch.Tensor,  # [B, Hkv, S, D]
+    v: torch.Tensor,  # [B, Hkv, S, D]
+    *,
+    causal: bool = True,
+    window: Optional[int] = None,
+) -> torch.Tensor:
+    """softmax(q k^T / sqrt(D) + mask) v -> [B, Hq, S, D] in q's dtype; query
+    head h reads kv head h // (Hq / Hkv); `window` keeps the keys after
+    query - window. f32 or bf16, all three of one dtype.
+
+    Any S: the TPU kernel's S % 128 and D >= 128 gate has no counterpart;
+    the CUDA kernel takes D in 64, 128, 256."""
+    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
+        raise ValueError(f"q must be [B, Hq, S, D] and k, v [B, Hkv, S, D], got "
+                         f"{list(q.shape)}, {list(k.shape)}, {list(v.shape)}")
+    b, hq, s, d = q.shape
+    if (k.shape[0], k.shape[2], k.shape[3]) != (b, s, d) or hq % k.shape[1]:
+        raise ValueError(f"k, v {list(k.shape)} do not fit q {list(q.shape)}")
+    if q.dtype not in _KERNEL_DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(f"q, k, v must share f32 or bf16, got "
+                         f"{q.dtype}, {k.dtype}, {v.dtype}")
+    if window is not None and window < 1:
+        raise ValueError(f"window must be None or >= 1, got {window}")
+    if registry.uses_kernel(q):
+        return _attention_cuda(q, k, v, causal, window)
+    return _ref.attention_plain(q, k, v, causal=causal, window=window)
+
+
+# ----------------------------------------------------------- embedding_bag
+def _embedding_bag_cuda(table, ids, weights, mode):
+    from repro_torch.kernels import build
+
+    _no_grad_input("embedding_bag", table, weights)
+    for name, t in (("ids", ids), ("weights", weights)):
+        if t.device != table.device:
+            raise ValueError(f"{name} is on {t.device}, table on {table.device}")
+    table, ids, weights = table.contiguous(), ids.contiguous(), weights.contiguous()
+    n_bags, bag_len = ids.shape
+    out = torch.empty((n_bags, table.shape[1]), dtype=table.dtype,
+                      device=table.device)
+    if out.numel() == 0:
+        return out
+    lib = build.library()
+    code = lib.embedding_bag_launch(
+        table.data_ptr(), ids.data_ptr(), weights.data_ptr(), out.data_ptr(),
+        n_bags, bag_len, table.shape[1], table.shape[0], int(mode == "mean"),
+        _KERNEL_DTYPES[table.dtype], table.device.index or 0, _stream(table))
+    build.check(code, "embedding_bag")
+    registry.count_launch("embedding_bag")
+    return out
+
+
+def embedding_bag(
+    table: torch.Tensor,                      # [V, D] f32 or bf16
+    ids: torch.Tensor,                        # int32[B, L], padding id 0
+    weights: Optional[torch.Tensor] = None,   # f32[B, L], padding 0
+    *,
+    mode: str = "sum",
+) -> torch.Tensor:
+    """Weighted bags of table rows -> [B, D] in the table's dtype, summed in
+    f32; "mean" divides by the count of nonzero weights (at least 1).
+    `weights` defaults to ones."""
+    if mode not in ("sum", "mean"):
+        raise ValueError(f"mode must be 'sum' or 'mean', got {mode!r}")
+    if table.dim() != 2 or table.dtype not in _KERNEL_DTYPES:
+        raise ValueError(f"table must be f32 or bf16 [V, D], got "
+                         f"{table.dtype}{list(table.shape)}")
+    if ids.dim() != 2 or ids.dtype != torch.int32:
+        raise ValueError(f"ids must be int32[B, L], got {ids.dtype}{list(ids.shape)}")
+    if weights is None:
+        weights = torch.ones(ids.shape, dtype=torch.float32, device=ids.device)
+    if weights.dtype != torch.float32 or weights.shape != ids.shape:
+        raise ValueError(f"weights must be f32{list(ids.shape)}, got "
+                         f"{weights.dtype}{list(weights.shape)}")
+    if registry.uses_kernel(table):
+        return _embedding_bag_cuda(table, ids, weights, mode)
+    return _ref.embedding_bag_ref(table, ids, weights, mode=mode)

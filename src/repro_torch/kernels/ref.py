@@ -76,3 +76,125 @@ def segment_agg_ref(feats: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     mx = torch.where(valid, x, -SEGMENT_AGG_BIG).amax(1)
     sq = torch.where(valid, x * x, 0.0).sum(1)
     return torch.stack([s, mn, mx, sq], dim=1)
+
+
+# The masked logit of the attention kernels and of their plain versions.
+ATTENTION_NEG_INF = -1e30
+
+
+def _attention_live(q_pos: torch.Tensor, k_pos: torch.Tensor, causal: bool,
+                    window) -> torch.Tensor:
+    """bool[len(q_pos), len(k_pos)]: which (query, key) pairs attend."""
+    live = torch.ones((q_pos.shape[0], k_pos.shape[0]), dtype=torch.bool,
+                      device=q_pos.device)
+    if causal:
+        live &= q_pos[:, None] >= k_pos[None, :]
+    if window is not None:
+        live &= k_pos[None, :] > q_pos[:, None] - window
+    return live
+
+
+def _repeat_kv(q, k, v):
+    """GQA: kv head h // group serves query head h (`jnp.repeat`)."""
+    group = q.shape[1] // k.shape[1]
+    if group != 1:
+        k = k.repeat_interleave(group, dim=1)
+        v = v.repeat_interleave(group, dim=1)
+    return k, v
+
+
+def attention_ref(
+    q: torch.Tensor,  # [B, Hq, S, D]
+    k: torch.Tensor,  # [B, Hkv, S, D]
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    window=None,
+) -> torch.Tensor:
+    """softmax(q k^T / sqrt(D) + mask) v, materialising the [S, S] logits in
+    f32 (scaled after the product) -> q's dtype."""
+    s, d = q.shape[2], q.shape[3]
+    k, v = _repeat_kv(q, k, v)
+    logits = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * (1.0 / d ** 0.5)
+    pos = torch.arange(s, device=q.device)
+    live = _attention_live(pos, pos, causal, window)
+    logits = torch.where(live, logits, ATTENTION_NEG_INF)
+    probs = torch.softmax(logits, dim=-1)
+    return torch.einsum("bhqk,bhkd->bhqd", probs, v.float()).to(q.dtype)
+
+
+def attention_blockwise(
+    q: torch.Tensor,  # [B, Hq, S, D]
+    k: torch.Tensor,  # [B, Hkv, S, D]
+    v: torch.Tensor,  # [B, Hkv, S, Dv]
+    *,
+    causal: bool = True,
+    window=None,
+    block_k: int = 1024,
+) -> torch.Tensor:
+    """The same function with an online softmax over kv blocks of `block_k`
+    keys: O(S * block_k) live memory. Products of input-dtype values summed
+    in f32, and p cast to v's dtype before the second product, as the JAX
+    package's blockwise oracle does."""
+    b, hq, s, d = q.shape
+    k, v = _repeat_kv(q, k, v)
+    scale = 1.0 / d ** 0.5
+    q32 = q.float()
+    q_pos = torch.arange(s, device=q.device)
+    m = torch.full((b, hq, s), ATTENTION_NEG_INF, device=q.device)
+    l = torch.zeros((b, hq, s), device=q.device)
+    acc = torch.zeros((b, hq, s, v.shape[-1]), device=q.device)
+    for k0 in range(0, s, block_k):
+        # the JAX oracle pads the last block with masked keys, whose p is
+        # exp(-1e30 - m) = 0 once a row has a live key: they are left out
+        kblk = k[:, :, k0:k0 + block_k].float()
+        vblk = v[:, :, k0:k0 + block_k]
+        k_pos = torch.arange(k0, min(k0 + block_k, s), device=q.device)
+        live = _attention_live(q_pos, k_pos, causal, window)
+        logits = torch.einsum("bhqd,bhkd->bhqk", q32, kblk) * scale
+        logits = torch.where(live, logits, ATTENTION_NEG_INF)
+        m_new = torch.maximum(m, logits.amax(-1))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(logits - m_new[..., None])
+        l = l * alpha + p.sum(-1)
+        acc = acc * alpha[..., None] + torch.einsum(
+            "bhqk,bhkd->bhqd", p.to(v.dtype).float(), vblk.float())
+        m = m_new
+    return (acc / l.clamp_min(1e-30)[..., None]).to(q.dtype)
+
+
+# Above this length the plain path runs the blockwise version (O(S * block)
+# live memory) instead of materialising the [S, S] logits.
+ATTENTION_BLOCKWISE_CUTOFF = 2048
+
+
+def attention_plain(q, k, v, *, causal: bool = True, window=None) -> torch.Tensor:
+    """The plain version `ops.attention` runs on a CPU tensor: `attention_ref`,
+    or `attention_blockwise` past ATTENTION_BLOCKWISE_CUTOFF."""
+    if q.shape[2] > ATTENTION_BLOCKWISE_CUTOFF:
+        return attention_blockwise(q, k, v, causal=causal, window=window)
+    return attention_ref(q, k, v, causal=causal, window=window)
+
+
+def embedding_bag_ref(
+    table: torch.Tensor,    # [V, D]
+    ids: torch.Tensor,      # int32[B, L]
+    weights: torch.Tensor,  # f32[B, L]
+    *,
+    mode: str = "sum",
+) -> torch.Tensor:
+    """out[b] = sum_l weights[b, l] * table[ids[b, l]] in f32 -> the table's
+    dtype; "mean" divides by the count of nonzero weights (at least 1). Ids
+    follow `jnp.take`: negative ids count from the end, ids outside [-V, V)
+    read NaN."""
+    n_rows = table.shape[0]
+    idx = ids.long()
+    idx = torch.where(idx < 0, idx + n_rows, idx)
+    valid = (idx >= 0) & (idx < n_rows)
+    rows = table[idx.clamp(0, max(n_rows - 1, 0))].float()       # [B, L, D]
+    rows = torch.where(valid[..., None], rows, float("nan"))
+    out = (rows * weights[:, :, None]).sum(1)
+    if mode == "mean":
+        counts = (weights != 0).float().sum(1)
+        out = out / counts.clamp_min(1.0)[:, None]
+    return out.to(table.dtype)

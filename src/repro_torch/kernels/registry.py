@@ -27,10 +27,12 @@ ROUTE_FUSED = "fused"
 LCC_ROUTES = (ROUTE_PACKED, ROUTE_UNPACKED)
 NLCC_ROUTES = (ROUTE_PACKED, ROUTE_UNPACKED, ROUTE_FUSED)
 
-# the kernels of the prune path, and of the GNN path
+# the kernels of the prune path, the GNN path, the LM path and the recsys path
 PRUNE_KERNELS = ("bitset_spmm", "bitset_wave")
 GNN_KERNELS = ("segment_agg",)
-KERNELS = PRUNE_KERNELS + GNN_KERNELS
+LM_KERNELS = ("flash_attention",)
+RECSYS_KERNELS = ("embedding_bag",)
+KERNELS = PRUNE_KERNELS + GNN_KERNELS + LM_KERNELS + RECSYS_KERNELS
 _launches: Dict[str, int] = {name: 0 for name in KERNELS}
 
 

@@ -32,18 +32,7 @@ from repro_torch.configs.base import GNNConfig
 from repro_torch.graph import segment_ops
 from repro_torch.graph.structs import resolve_device
 from repro_torch.kernels import ops as kops
-from repro_torch.models.common import dense_init
-
-
-def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
-    """{"mlp": {"w1": a}, "eps": b} -> {"mlp_w1": a, "eps": b}."""
-    out = {}
-    for k, v in tree.items():
-        if isinstance(v, Mapping):
-            out.update(_flatten(v, f"{prefix}{k}_"))
-        else:
-            out[f"{prefix}{k}"] = np.asarray(v)
-    return out
+from repro_torch.models.common import dense_init, flatten_tree
 
 
 def _params(**tensors: torch.Tensor) -> nn.ParameterDict:
@@ -183,7 +172,7 @@ class GNN(nn.Module):
         if len(tree["layers"]) != len(self.layers):
             raise ValueError(f"{len(tree['layers'])} layers given, "
                              f"{len(self.layers)} expected")
-        pairs = [(p, _flatten(t)) for p, t in zip(
+        pairs = [(p, flatten_tree(t)) for p, t in zip(
             list(self.layers) + [self.head],
             list(tree["layers"]) + [tree["head"]])]
         for p, flat in pairs:

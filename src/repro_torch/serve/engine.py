@@ -1,0 +1,60 @@
+"""Batched LM serving: prefill and greedy decode with a static KV cache
+(the JAX package's `serve/engine.py`). Recsys serving calls the model's
+`serve_scores` and `retrieval_scores` directly.
+
+`build_prefill` runs one full-sequence forward (`Transformer.forward_hidden`,
+one `flash_attention` launch per layer) that also writes each layer's roped
+K and V into the cache, and returns the last position's logits. The JAX
+package's `build_prefill` fills the cache with a teacher-forced scan of
+decode steps instead; both give the same cache and logits for the same
+weights and tokens (`tests/test_torch_lm.py`).
+"""
+from __future__ import annotations
+
+from typing import Callable
+
+import torch
+
+from repro_torch.models.transformer import Transformer
+
+
+# ------------------------------------------------------------------ LM decode
+def build_decode_step(model: Transformer) -> Callable:
+    """(cache, token int[B]) -> (next_token int32[B], logits, cache); the
+    cache is updated in place."""
+
+    def serve_step(cache, token):
+        logits, cache = model.decode_step(token, cache)
+        return logits.argmax(-1).to(torch.int32), logits, cache
+
+    return serve_step
+
+
+def build_prefill(model: Transformer) -> Callable:
+    """(tokens [B, S], max_seq) -> (cache, last logits [B, V]): one forward
+    over the prompt, its K and V written into a fresh cache of max_seq
+    positions, pos = S. All prompts of a batch have one length."""
+
+    def prefill(tokens: torch.Tensor, max_seq: int):
+        b, s = tokens.shape
+        cache = model.init_cache(b, max_seq)
+        h = model.forward_hidden(tokens, cache=cache)
+        cache["pos"] = s
+        return cache, model.logits_from_hidden(h[:, -1:])[:, 0]
+
+    return prefill
+
+
+def greedy_generate(model: Transformer, prompt: torch.Tensor, max_new: int,
+                    max_seq: int) -> torch.Tensor:
+    """Greedy generation: prefill, then max_new - 1 decode steps ->
+    int32[B, max_new]. Ties take the first maximum, as `jnp.argmax` does."""
+    cache, logits = build_prefill(model)(prompt, max_seq)
+    step = build_decode_step(model)
+    tok = logits.argmax(-1).to(torch.int32)
+    out = [tok]
+    for _ in range(max_new - 1):
+        tok, _, cache = step(cache, tok)
+        out.append(tok)
+    return torch.stack(out, dim=1)
+

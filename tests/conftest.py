@@ -41,6 +41,12 @@ def sample_template_from(g: Graph, size: int, seed: int, extra_edge_p: float = 0
     return Template([int(g.labels[v]) for v in verts], es)
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA card; skips without one (README: "
+        "running the port's card tests)")
+
+
 @pytest.fixture
 def rng():
     return np.random.default_rng(0)

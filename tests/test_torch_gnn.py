@@ -181,7 +181,7 @@ def test_segment_reductions_match_jax_on_empty_segments():
 
 # ---------------------------------------------------------- configs, graphs
 def test_gnn_configs_match_the_reference():
-    assert set(configs.ARCH_IDS) == set(GNN_ARCHS)
+    assert set(configs.ARCH_IDS) == set(GNN_ARCHS) | {"qwen2-1.5b", "bert4rec"}
     for arch in GNN_ARCHS:
         mine, theirs = configs.get_arch(arch), rconfigs.get_arch(arch)
         for a, b in ((mine.CONFIG, theirs.CONFIG), (mine.smoke(), theirs.smoke())):

@@ -14,10 +14,10 @@ pytest.importorskip("torch")
 ROOT = Path(__file__).resolve().parents[1]
 IMPORT_RE = re.compile(r"^\s*(import|from)\s+(jax|repro)\b")
 
-# Runs in a fresh interpreter: a tiny CPU prune through the whole main path
-# and a tiny sampled GNN forward, then checks that nothing of JAX or the JAX
-# package was loaded, and that the default device is CUDA (which raises
-# where there is none).
+# Runs in a fresh interpreter: a tiny CPU prune through the whole main path,
+# a tiny sampled GNN forward, a tiny greedy generation and a retrieval, then
+# checks that nothing of JAX or the JAX package was loaded, and that the
+# default device is CUDA (which raises where there is none).
 SCRIPT = textwrap.dedent("""
     import sys
     import numpy as np
@@ -43,15 +43,34 @@ SCRIPT = textwrap.dedent("""
                                 device="cpu")
     model = GNN(cfg, 6, 3, device="cpu")
     assert model.forward_sampled(stream(0)).shape == (4, 3)
+
+    from repro_torch.data.recsys import MaskedSequenceStream
+    from repro_torch.models.bert4rec import Bert4Rec
+    from repro_torch.models.transformer import Transformer
+    from repro_torch.serve.engine import greedy_generate
+    lm_cfg = get_arch("qwen2-1.5b").smoke()
+    lm = Transformer(lm_cfg, device="cpu")
+    prompt = torch.zeros((2, 5), dtype=torch.int32)
+    assert greedy_generate(lm, prompt, 3, 8).shape == (2, 3)
+    rec_cfg = get_arch("bert4rec").smoke()
+    rec = Bert4Rec(rec_cfg, device="cpu")
+    items = MaskedSequenceStream(rec_cfg.n_items, 2, rec_cfg.seq_len,
+                                 device="cpu")(0)["items"]
+    cands = torch.arange(1, 40, dtype=torch.int32)
+    assert rec.retrieval_scores(items, cands).shape == (2, 39)
     loaded = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "repro"))
     assert not loaded, loaded
     if torch.cuda.is_available():
         assert prune(g, t).state.omega.device.type == "cuda"
         assert GNN(cfg, 6, 3).device.type == "cuda"
+        assert Transformer(lm_cfg).device.type == "cuda"
+        assert Bert4Rec(rec_cfg).device.type == "cuda"
     else:
         for name, call in (("prune()", lambda: prune(g, t)),
-                           ("GNN()", lambda: GNN(cfg, 6, 3))):
+                           ("GNN()", lambda: GNN(cfg, 6, 3)),
+                           ("Transformer()", lambda: Transformer(lm_cfg)),
+                           ("Bert4Rec()", lambda: Bert4Rec(rec_cfg))):
             try:
                 call()
             except RuntimeError as e:

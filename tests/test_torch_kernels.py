@@ -165,8 +165,12 @@ def test_cpu_tensors_take_the_plain_versions():
     ops.bitset_wave(vals, dg, torch.ones(dg.m, dtype=torch.bool),
                     torch.full((3, g.n), -1, dtype=torch.int32))
     ops.segment_agg(torch.ones((4, 3, 5)), torch.ones((4, 3), dtype=torch.bool))
+    ops.attention(torch.ones((1, 2, 5, 64)), torch.ones((1, 1, 5, 64)),
+                  torch.ones((1, 1, 5, 64)))
+    ops.embedding_bag(torch.ones((6, 4)), torch.zeros((2, 3), dtype=torch.int32))
     assert registry.launch_counts() == {
-        "bitset_spmm": 0, "bitset_wave": 0, "segment_agg": 0}
+        "bitset_spmm": 0, "bitset_wave": 0, "segment_agg": 0,
+        "flash_attention": 0, "embedding_bag": 0}
     with pytest.raises(ValueError):
         registry.uses_kernel(torch.zeros(1, device="meta"))
 

@@ -1,0 +1,316 @@
+"""The port's LM slice against the JAX package, on the CPU: the attention
+plain versions against the JAX oracles and the interpret-mode Pallas kernel,
+the norms and RoPE, the qwen2 smoke model's forward, decode steps, prefill
+(cache and last logits) and greedy tokens with the JAX weights carried
+across, the token stream and the configs. Inputs are made with numpy from a
+seed and handed to both packages."""
+import dataclasses
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from repro import configs as rconfigs  # noqa: E402
+from repro.data.tokens import SyntheticTokenStream as RTokenStream  # noqa: E402
+from repro.kernels import ref as rref  # noqa: E402
+from repro.kernels.flash_attention import flash_attention as pallas_attention  # noqa: E402
+from repro.models import common as rcommon  # noqa: E402
+from repro.models import transformer as rtransformer  # noqa: E402
+from repro.serve import engine as rengine  # noqa: E402
+from repro_torch import configs  # noqa: E402
+from repro_torch.configs.base import LMConfig  # noqa: E402
+from repro_torch.data.tokens import SyntheticTokenStream  # noqa: E402
+from repro_torch.kernels import ops, ref  # noqa: E402
+from repro_torch.models import common  # noqa: E402
+from repro_torch.models.transformer import Transformer  # noqa: E402
+from repro_torch.serve import engine  # noqa: E402
+
+# model outputs: f32 matmuls and reductions in another order
+TOL = dict(rtol=1e-4, atol=1e-4)
+# attention on the same f32 inputs: sums of S terms in another order; the
+# kernel scales q before the product, the oracles scale the logits after
+ATTN_TOL = dict(rtol=1e-5, atol=1e-5)
+# bf16 outputs of f32 arithmetic rounded once (the blockwise oracle also
+# rounds p to bf16): two bf16 ulps of values below 1
+BF16_TOL = dict(rtol=2 ** -7, atol=2 ** -8)
+
+# the six cases of the JAX package's flash_attention test
+ATTN_CASES = [
+    (1, 4, 4, 256, 128, True, None),    # MHA causal
+    (2, 8, 2, 256, 128, True, None),    # GQA
+    (1, 4, 1, 384, 128, False, None),   # MQA bidirectional
+    (1, 2, 2, 512, 128, True, 128),     # sliding window
+    (1, 2, 2, 256, 256, True, None),    # wide head dim
+    (3, 6, 3, 128, 128, True, 64),      # GQA + window, odd batch
+]
+
+# the reference's model functions, each compiled once per config
+_r_init = jax.jit(lambda key, cfg: rtransformer.init(key, cfg)[0], static_argnums=1)
+_r_forward = jax.jit(lambda p, cfg, t: rtransformer.forward(p, cfg, t)[0],
+                     static_argnums=1)
+_r_decode = jax.jit(rtransformer.decode_step, static_argnums=1)
+
+
+def _qkv(b, hq, hkv, s, d, seed, scale=0.3):
+    rng = np.random.default_rng(seed)
+    return [(rng.standard_normal(shape) * scale).astype(np.float32)
+            for shape in ((b, hq, s, d), (b, hkv, s, d), (b, hkv, s, d))]
+
+
+def _both(arrays, dtype="f32"):
+    """The same values as jnp and torch arrays; bf16 rounds alike in both."""
+    jdt = jnp.bfloat16 if dtype == "bf16" else jnp.float32
+    tdt = torch.bfloat16 if dtype == "bf16" else torch.float32
+    return ([jnp.asarray(a, jdt) for a in arrays],
+            [torch.from_numpy(a).to(tdt) for a in arrays])
+
+
+def _np(x):
+    return np.asarray(x, dtype=np.float32)
+
+
+# ---------------------------------------------------------------- attention
+@pytest.mark.parametrize("b,hq,hkv,s,d,causal,window", ATTN_CASES)
+def test_attention_plain_matches_jax_oracles(b, hq, hkv, s, d, causal, window):
+    (jq, jk, jv), (tq, tk, tv) = _both(_qkv(b, hq, hkv, s, d, seed=hq * s))
+    want = _np(rref.attention_ref(jq, jk, jv, causal=causal, window=window))
+    got = ops.attention(tq, tk, tv, causal=causal, window=window)
+    assert got.dtype == torch.float32 and got.shape == (b, hq, s, d)
+    np.testing.assert_allclose(got.numpy(), want, **ATTN_TOL)
+    blockwise = ref.attention_blockwise(tq, tk, tv, causal=causal, window=window,
+                                        block_k=96)
+    np.testing.assert_allclose(blockwise.numpy(), want, **ATTN_TOL)
+
+
+@pytest.mark.parametrize("s,window,dtype", [
+    (2304, None, "f32"), (2304, 300, "f32"), (1100, None, "bf16"),
+])
+def test_attention_blockwise_matches_jax_blockwise(s, window, dtype):
+    """Past ATTENTION_BLOCKWISE_CUTOFF the CPU path is the blockwise plain
+    version; at bf16 both oracles round p to bf16 before the second product."""
+    (jq, jk, jv), (tq, tk, tv) = _both(_qkv(1, 2, 1, s, 64, seed=s), dtype)
+    want = _np(rref.attention_blockwise(jq, jk, jv, causal=True, window=window))
+    got = ref.attention_blockwise(tq, tk, tv, causal=True, window=window)
+    tol = ATTN_TOL if dtype == "f32" else BF16_TOL
+    np.testing.assert_allclose(got.float().numpy(), want, **tol)
+    if s > ref.ATTENTION_BLOCKWISE_CUTOFF:
+        torch.testing.assert_close(
+            ops.attention(tq, tk, tv, causal=True, window=window), got,
+            rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("b,hq,hkv,s,d,causal,window", [
+    (1, 2, 1, 256, 128, True, None), (1, 2, 2, 256, 128, False, 100),
+])
+def test_attention_plain_matches_pallas_interpret(b, hq, hkv, s, d, causal, window):
+    (jq, jk, jv), (tq, tk, tv) = _both(_qkv(b, hq, hkv, s, d, seed=s + hq))
+    want = _np(pallas_attention(jq, jk, jv, causal=causal, window=window,
+                                interpret=True))
+    got = ops.attention(tq, tk, tv, causal=causal, window=window)
+    np.testing.assert_allclose(got.numpy(), want, **ATTN_TOL)
+
+
+@pytest.mark.parametrize("s", [1, 77, 1000])
+def test_attention_odd_lengths_and_bf16(s):
+    """Any S (no S % 128 gate), D = 64, and bf16 outputs in bf16."""
+    arrays = _qkv(2, 4, 2, s, 64, seed=s)
+    (jq, jk, jv), (tq, tk, tv) = _both(arrays)
+    want = _np(rref.attention_ref(jq, jk, jv, causal=True))
+    np.testing.assert_allclose(ops.attention(tq, tk, tv).numpy(), want, **ATTN_TOL)
+    (jq, jk, jv), (tq, tk, tv) = _both(arrays, "bf16")
+    got = ops.attention(tq, tk, tv, causal=False, window=5)
+    assert got.dtype == torch.bfloat16
+    want = _np(rref.attention_ref(jq, jk, jv, causal=False, window=5))
+    np.testing.assert_allclose(got.float().numpy(), want, **BF16_TOL)
+
+
+def test_attention_rejects_bad_inputs():
+    q, k = torch.ones((1, 4, 8, 64)), torch.ones((1, 3, 8, 64))
+    with pytest.raises(ValueError):
+        ops.attention(q, k, k)                      # 4 heads over 3 kv heads
+    with pytest.raises(ValueError):
+        ops.attention(q, q.double(), q.double())    # mixed dtypes
+    with pytest.raises(ValueError):
+        ops.attention(q, q, q, window=0)
+
+
+# ---------------------------------------------------------- norms and RoPE
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_norms_match_jax(dtype):
+    """rms_norm casts back to x's dtype before the gain; layer_norm takes the
+    biased variance; both in f32 inside."""
+    rng = np.random.default_rng(1)
+    x, g, b = (rng.standard_normal(s).astype(np.float32) * 2
+               for s in ((3, 5, 48), (48,), (48,)))
+    (jx, jg, jb), (tx, tg, tb) = _both([x, g, b], dtype)
+    tol = dict(rtol=1e-6, atol=1e-6) if dtype == "f32" else BF16_TOL
+    got = common.rms_norm(tx, tg)
+    assert got.dtype == tx.dtype
+    np.testing.assert_allclose(got.float().numpy(), _np(rcommon.rms_norm(jx, jg)), **tol)
+    got = common.layer_norm(tx, tg, tb)
+    np.testing.assert_allclose(got.float().numpy(),
+                               _np(rcommon.layer_norm(jx, jg, jb)), **tol)
+    np.testing.assert_allclose(common.gelu(tx).float().numpy(),
+                               _np(rcommon.gelu(jx)), **tol)
+
+
+@pytest.mark.parametrize("theta", [10000.0, 1_000_000.0])
+def test_apply_rope_matches_jax(theta):
+    """Interleaved pairs (x[0::2], x[1::2]), per-batch positions."""
+    rng = np.random.default_rng(2)
+    x = rng.standard_normal((2, 3, 40, 16)).astype(np.float32)
+    pos = rng.integers(0, 5000, size=(2, 1, 40)).astype(np.int32)
+    want = rcommon.apply_rope(jnp.asarray(x), jnp.asarray(pos), theta)
+    got = common.apply_rope(torch.from_numpy(x), torch.from_numpy(pos), theta)
+    np.testing.assert_allclose(got.numpy(), _np(want), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(
+        common.rope_freqs(16, theta).numpy(), _np(rcommon.rope_freqs(16, theta)),
+        rtol=1e-6)
+
+
+# ------------------------------------------------------------------- model
+@pytest.fixture(scope="module")
+def smoke_pair():
+    """The qwen2 smoke model of both packages, with the JAX weights (made
+    non-trivial: random biases and gains) carried into the port."""
+    cfg = rconfigs.get_arch("qwen2-1.5b").smoke()
+    params = jax.tree.map(np.asarray, _r_init(jax.random.key(0), cfg))
+    rng = np.random.default_rng(0)
+    layers = params["dense_layers"]
+    for name in ("bq", "bk", "bv"):
+        layers["attn"][name] = rng.standard_normal(layers["attn"][name].shape
+                                                   ).astype(np.float32) * 0.1
+    for ln in ("ln1", "ln2"):
+        layers[ln]["g"] = 1 + 0.1 * rng.standard_normal(layers[ln]["g"].shape
+                                                         ).astype(np.float32)
+    model = Transformer(configs.get_arch("qwen2-1.5b").smoke(), device="cpu")
+    model.load_jax_params(params)
+    return cfg, params, model
+
+
+def _prompt(cfg, b, s, seed=3):
+    toks = SyntheticTokenStream(cfg.vocab, b, s, seed=seed, device="cpu")(0)["tokens"]
+    return jnp.asarray(toks.numpy()), toks
+
+
+def test_transformer_forward_matches_jax(smoke_pair):
+    cfg, params, model = smoke_pair
+    jt, tt = _prompt(cfg, 2, 24)
+    want = _np(_r_forward(params, cfg, jt))
+    got = model(tt)
+    assert got.shape == (2, 24, cfg.vocab)
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+    h = model.forward_hidden(tt)
+    np.testing.assert_allclose(model.logits_from_hidden(h).numpy(), want, **TOL)
+
+
+def test_transformer_decode_steps_match_jax(smoke_pair):
+    cfg, params, model = smoke_pair
+    jt, tt = _prompt(cfg, 2, 6)
+    jcache = rtransformer.init_cache(cfg, 2, 10)
+    cache = model.init_cache(2, 10)
+    for t in range(6):
+        want, jcache = _r_decode(params, cfg, jt[:, t], jcache)
+        got, cache = model.decode_step(tt[:, t], cache)
+        np.testing.assert_allclose(got.numpy(), _np(want), **TOL)
+    assert cache["pos"] == int(jcache["pos"]) == 6
+    for name in ("k", "v"):
+        np.testing.assert_allclose(cache["layers"][name].numpy(),
+                                   _np(jcache["layers"][name]), **TOL)
+
+
+def test_prefill_matches_jax_teacher_forced_fill(smoke_pair):
+    """One forward that writes K/V gives the JAX scan's cache and logits."""
+    cfg, params, model = smoke_pair
+    jt, tt = _prompt(cfg, 3, 11)
+    jcache, jlogits = rengine.build_prefill(cfg)(params, jt, 16)
+    cache, logits = engine.build_prefill(model)(tt, 16)
+    assert cache["pos"] == int(jcache["pos"]) == 11
+    np.testing.assert_allclose(logits.numpy(), _np(jlogits), **TOL)
+    for name in ("k", "v"):
+        got = cache["layers"][name]
+        assert got.shape == (cfg.n_layers, 3, cfg.n_kv_heads, 16, cfg.hd)
+        np.testing.assert_allclose(got.numpy(), _np(jcache["layers"][name]), **TOL)
+        assert not got[:, :, :, 11:].any()
+
+
+def test_greedy_generate_matches_jax(smoke_pair):
+    cfg, params, model = smoke_pair
+    jt, tt = _prompt(cfg, 2, 8, seed=5)
+    want = np.asarray(rengine.greedy_generate(params, cfg, jt, 6, 14))
+    got = engine.greedy_generate(model, tt, 6, 14)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_load_jax_params_rejects_a_mismatched_tree(smoke_pair):
+    cfg, params, model = smoke_pair
+    before = model.params["embed"].clone()
+    bad = dict(params, embed=params["embed"][:-1])
+    with pytest.raises(ValueError):
+        model.load_jax_params(bad)
+    missing = {k: v for k, v in params.items() if k != "final_norm"}
+    with pytest.raises(ValueError):
+        model.load_jax_params(missing)
+    torch.testing.assert_close(model.params["embed"], before, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("field", [
+    dict(attention="mla"), dict(moe=True), dict(mtp=True), dict(qk_norm=True),
+    dict(mlp="gelu"), dict(norm="layernorm"), dict(fused_ce=512),
+])
+def test_unported_config_fields_raise(field):
+    cfg = dataclasses.replace(configs.get_arch("qwen2-1.5b").smoke(), **field)
+    with pytest.raises(NotImplementedError):
+        Transformer(cfg, device="cpu")
+    if "attention" in field or "moe" in field:  # n_params counts dense GQA only
+        with pytest.raises(NotImplementedError):
+            cfg.n_params()
+
+
+def test_window_runs_forward_but_not_the_decode_cache():
+    cfg = dataclasses.replace(configs.get_arch("qwen2-1.5b").smoke(), window=4)
+    model = Transformer(cfg, device="cpu")
+    assert torch.isfinite(model(torch.zeros((1, 9), dtype=torch.int32))).all()
+    with pytest.raises(NotImplementedError):
+        model.init_cache(1, 16)
+
+
+# ------------------------------------------------------------ data, configs
+def test_token_stream_matches_the_reference():
+    mine = SyntheticTokenStream(300, 3, 50, seed=7, device="cpu")
+    theirs = RTokenStream(300, 3, 50, seed=7)
+    for step in (0, 4):
+        got, want = mine(step), theirs(step)
+        assert set(got) == set(want)
+        for k in want:
+            assert got[k].dtype == torch.int32
+            np.testing.assert_array_equal(got[k].numpy(), np.asarray(want[k]))
+
+
+LM_FIELDS_LEFT_OUT = {
+    "q_lora_rank", "kv_lora_rank", "qk_nope_dim", "qk_rope_dim", "v_head_dim",
+    "n_routed", "n_shared", "top_k", "first_dense_layers", "dense_d_ff",
+    "capacity_factor", "router_aux_coef", "moe_groups", "moe_gather_weights",
+    "remat_policy", "train_microbatches"}
+
+
+def test_lm_config_matches_the_reference():
+    mine, theirs = configs.get_arch("qwen2-1.5b"), rconfigs.get_arch("qwen2-1.5b")
+    for a, b in ((mine.CONFIG, theirs.CONFIG), (mine.smoke(), theirs.smoke())):
+        assert type(a) is LMConfig
+        assert {k: getattr(b, k) for k in vars(a)} == vars(a)
+        # the reference's fields the port leaves out: MLA, MoE sizes and
+        # training knobs, each at its default in these configs
+        assert set(vars(b)) - set(vars(a)) == LM_FIELDS_LEFT_OUT
+        ref_defaults = {f.name: f.default for f in dataclasses.fields(b)}
+        assert all(getattr(b, k) == ref_defaults[k] for k in LM_FIELDS_LEFT_OUT)
+        assert a.n_params() == b.n_params() and a.hd == b.hd
+    assert mine.CONFIG.n_params() == 1_543_569_408
+    assert set(mine.SHAPES) == set(theirs.SHAPES)
+    for name, s in mine.SHAPES.items():
+        assert dataclasses.asdict(s) == dataclasses.asdict(theirs.SHAPES[name])

@@ -8,8 +8,11 @@ From the root of a checkout, on a machine with a CUDA device and `nvcc`:
 1. device   prints the card and its power limit, builds the CUDA kernels
             from `src/repro_torch/kernels/csrc/` and prints the build time;
 2. kernels  holds `bitset_spmm` and `bitset_wave` against their plain
-            PyTorch versions on the card (bit-exact), then times both at the
-            shapes of the R-MAT scale-20 main path beside their bounds;
+            PyTorch versions on the card (bit-exact; `bitset_spmm` at W = 1
+            and 2 also on a hub of 120,000 in-arcs and on runs that start on
+            the edge-balanced kernel's chunk boundaries), then times both at
+            the shapes of the R-MAT scale-20 main path beside their bounds,
+            with the bytes the W = 1 sweep moves;
 3. parity   runs prune + count on R-MAT scale 14 on the card (kernels) and
             on the CPU (plain versions) and requires identical omega, edge
             mask, phase trajectory and match count; the three NLCC routes on
@@ -17,8 +20,9 @@ From the root of a checkout, on a machine with a CUDA device and `nvcc`:
 4. full     the main path at R-MAT Graph500 scale 20 (edge factor 16, degree
             labels, seed 3): prune and count-mode enumeration on the card,
             with per-phase seconds, peak device memory and the launch count
-            of each prune kernel, which must be nonzero; then the
-            planted-needle quickstart scenario.
+            of each prune kernel, which must be nonzero; device time by
+            kernel and the busy share over one more prune (torch.profiler);
+            then the planted-needle quickstart scenario.
 5. GNN      the GNN inference path (GraphSAGE's sampled forward):
             a. `segment_agg` against its plain version on the card over
                NT x D x F in {1,7,16,33} x {1,4,10,25} x {1,3,128,602}, f32
@@ -44,13 +48,16 @@ From the root of a checkout, on a machine with a CUDA device and `nvcc`:
             a. `flash_attention` against its plain version on the card: the
                six shapes of tests/test_kernels.py, S in {1, 77, 1000} at
                D = 64 with causal off and windows, D = 256, a strided k/v
-               view; f32 and bf16 (tolerances at ATTN_F32_TOL and in
-               `attention_close`);
-            b. its times (CUDA events; device time without the host's
-               cost between calls, see `kernel_device_ms`), the plain
-               version's and SDPA's beside the bound, bf16 causal, at one
-               prefill_32k sequence [1,12/2,32768,128] and the serving
-               prefill [8,12/2,2048,128];
+               view; f32 through the CUDA-core kernel, bf16 through the
+               tensor-core kernel (tolerances in `attention_checks`), each
+               call's variant read from the launch counts;
+            b. the tensor-core kernel's registers and spills (ptxas), its
+               times (CUDA events; device time without the host's cost
+               between calls, see `kernel_device_ms`), the plain version's
+               and SDPA's beside the bound, bf16 causal, at one prefill_32k
+               sequence [1,12/2,32768,128] and the serving prefill
+               [8,12/2,2048,128], each output checked as in 6a, with the
+               share of its allowance it used;
             c. card against CPU: qwen2-1.5b at full width cut to 2 layers,
                f32, B=2 S=256 prompts: last logits within LM_PARITY_TOL and
                8 greedy tokens equal;
@@ -58,10 +65,10 @@ From the root of a checkout, on a machine with a CUDA device and `nvcc`:
                program on one sequence of 32,768 tokens, then greedy serving
                of 8 requests of 2,048-token prompts and 64 new tokens, with
                seconds, peak memory and exactly 28 `flash_attention`
-               launches each; then a decode step's device time (CUDA events
-               over replays of the step captured in a CUDA graph) and the
-               device's busy share over eager decode steps alone and over a
-               serving prefill;
+               launches each, all of the tensor-core kernel; then a decode
+               step's device time (CUDA events over replays of the step
+               captured in a CUDA graph) and the device's busy share over
+               eager decode steps alone and over a serving prefill;
             e. the serving CLI (`launch/serve.py --arch qwen2-1.5b`) on the
                card, with the config it serves there.
 7. recsys   bert4rec scoring and retrieval:
@@ -79,14 +86,18 @@ From the root of a checkout, on a machine with a CUDA device and `nvcc`:
                `embedding_bag` launch), seconds and peak memory;
             e. the serving CLI (`launch/serve.py --arch bert4rec`).
 
-The line before the last is a JSON object listing each kernel with its
-launches on its path's run, its error against the plain version and its
-times; the last line is {"ok": true, "device": {...}}. Without a CUDA device,
+Every time is printed beside the card's name and power limit. The line
+before the last is a JSON object listing each kernel with its launches on
+its path's run, its error against the plain version, its times and, as
+text, its device time before the tensor-core attention and the
+edge-balanced bitset_spmm; the last line is
+{"ok": true, "device": {...}}. Without a CUDA device,
 or when any check fails, the script exits non-zero and prints no result.
 """
 import copy
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import time
@@ -154,6 +165,21 @@ LM_DECODE_TIMED, LM_DECODE_PROFILED = 16, 8
 # prefill_32k sequence, and the serving prefill
 ATTN_TIMING_SHAPES = [(1, 12, 2, 32768, 128, 3), (8, 12, 2, 2048, 128, 10)]
 ATTN_F32_TOL = 1e-4   # flash_attention f32: sums of S terms in another order
+# flash_attention bf16 (attention_checks, attention_weights): p's largest
+# relative move when it is rounded to bf16 (the unit roundoff of 8
+# significant bits) and when its rounding flips (one bf16 ulp); the relative
+# difference of the kernel's unrounded p from the blockwise version's (f32
+# logits summed in another order, exp2 of log2 units), within which a p
+# near a bf16 rounding midpoint may round either way; and the f32 sums of
+# p |v| in another order. Each times a sum of the softmax weights with |v|.
+ATTN_P_ROUND, ATTN_P_FLIP = 2.0 ** -8, 2.0 ** -7
+ATTN_P_EPS, ATTN_F32_SLACK = 2.0 ** -13, 2.0 ** -16
+ATTN_TOLERANCE = (
+    f"f32 (CUDA cores) rtol=atol={ATTN_F32_TOL}; bf16 (tensor cores), A and F "
+    "the softmax weights' sums with |v| over every key and over the keys whose "
+    "p is within 2^-13 of a bf16 rounding midpoint: (i) 2 ulps + 2^-7 F + "
+    "2^-16 A of the blockwise version at the kernel's kv tile, (ii) 2 ulps + "
+    "(2^-8 + 2^-12 + 2^-16) A of f32 arithmetic rounded once (max_abs_err)")
 LM_PARITY_TOL = 1e-3  # last logits card vs CPU: 1536-wide f32 products, 2 layers
 # Phase 7: bert4rec; the retrieval_cand shape is 1,000,000 bags of one id
 # over the [1,000,002, 64] item table.
@@ -169,6 +195,11 @@ PEAK_INT32_OPS_PER_S = 67e12
 # of a timed burst of launches (kernel_device_ms)
 SPIN_CYCLES, SPIN_MS = 50_000_000, 25.0
 PEAK_BF16_FLOPS_PER_S = 989e12
+
+
+# the card's name and power limit as nvidia-smi reads them (phase 1), printed
+# beside every time
+CARD = "card not read"
 
 
 def check(cond, msg):
@@ -291,12 +322,14 @@ def first_wave_inputs(dg, template, state, label_freq):
 # ------------------------------------------------------------------- phases
 def phase_device():
 
+    global CARD
     log("== phase 1: device")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60)
     check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr.strip()}")
-    log(smi.stdout.strip().splitlines()[0])
+    CARD = smi.stdout.strip().splitlines()[0]
+    log(CARD)
     name = torch.cuda.get_device_name(0)
     log(f"torch.cuda.get_device_name: {name}; torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}, devices {torch.cuda.device_count()}")
@@ -304,10 +337,29 @@ def phase_device():
     build.library()
     log(f"kernel build + load: {time.perf_counter() - t0:.2f} s "
         f"({build.library_path().name})")
-    for line in build.library_path().with_suffix(".log").read_text().splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"  ptxas: {line.strip()}")
+    for fn, line in ptxas_report(""):
+        log(f"  ptxas {fn}: {line}")
     return name
+
+
+def spmm_edge_graphs(rng):
+    """Graphs that probe the edge-balanced bitset_spmm at W <= 2 (a warp per
+    ops.BITSET_ARC_CHUNK dst-sorted arcs): one hub with 120,000 in-arcs,
+    spread over hundreds of chunks, beside 20,000 other arcs; and runs of
+    exactly one chunk for vertices 0 and 1, so that vertex 1's run starts on
+    a chunk boundary, then 77 arcs, so that m is not a multiple of the
+    chunk."""
+    c = ops.BITSET_ARC_CHUNK
+    n = 5000
+    hub = Graph(n, np.concatenate([rng.integers(0, n, 120_000), rng.integers(0, n, 20_000)]),
+                np.concatenate([np.zeros(120_000, np.int64), rng.integers(1, n - 100, 20_000)]),
+                np.zeros(n, np.int32))
+    m_rest = 77
+    boundary = Graph(300, rng.integers(0, 300, 2 * c + m_rest),
+                     np.concatenate([np.zeros(c, np.int64), np.ones(c, np.int64),
+                                     rng.integers(2, 250, m_rest)]),
+                     np.zeros(300, np.int32))
+    return {"hub": hub, "chunk boundary": boundary}
 
 
 def phase_kernels_small():
@@ -342,16 +394,44 @@ def phase_kernels_small():
                 check(torch.equal(got, want),
                       f"bitset_wave W={w} L={hops} differs")
                 n_checks += 1
-    check(not ops.bitset_or_aggregate(
-        random_words(rng, dg.n, 2, dev), dg, some)[-100:].any(),
-        "vertices without in-arcs must aggregate to 0")
+    for w in (1, 2):
+        check(not ops.bitset_or_aggregate(
+            random_words(rng, dg.n, w, dev), dg, some)[-100:].any(),
+            f"vertices without in-arcs must aggregate to 0 (W={w})")
+        n_checks += 1
+    for name, ge in spmm_edge_graphs(rng).items():
+        dge = DeviceGraph.from_host(ge, dev)
+        in_deg = dge.dst_ptr[1:] - dge.dst_ptr[:-1]
+        for w in (1, 2):
+            vals = random_words(rng, dge.n, w, dev)
+            for label, ea in (("some", torch.from_numpy(rng.random(dge.m) < 0.6).to(dev)),
+                              ("none", torch.zeros(dge.m, dtype=torch.bool, device=dev))):
+                got = ops.bitset_or_aggregate(vals, dge, ea)
+                want = ref.bitset_spmm_ref(vals, dge.src, dge.dst, dge.n, ea)
+                sync()
+                check(torch.equal(got, want),
+                      f"bitset_spmm W={w} on the {name} graph, {label} active, differs")
+                n_checks += 1
+        log(f"  {name} graph: n={dge.n} m={dge.m} (m mod {ops.BITSET_ARC_CHUNK} = "
+            f"{dge.m % ops.BITSET_ARC_CHUNK}), max in-degree {int(in_deg.max())}, "
+            f"{int((in_deg == 0).sum())} vertices without in-arcs")
     log(f"{n_checks} kernel/plain comparisons bit-exact "
-        f"(n={dg.n}, m={dg.m}, W in 1/2/4/32, L in 0/1/3/6)")
+        f"(n={dg.n}, m={dg.m}, W in 1/2/4/32, L in 0/1/3/6; the hub and "
+        f"chunk-boundary graphs at W in 1/2)")
+
+
+def spmm_moved_bytes(dg, edge_active, w):
+    """(device-memory bytes, L2 bytes) that the edge-balanced bitset_spmm
+    moves at W <= 2: dst and the active flag of every arc, src of every
+    active arc, the output zeroed and written once; and the vals word rows
+    gathered per active arc, which the L2 serves after their first touch."""
+    active = int(edge_active.sum())
+    return dg.m * 5 + active * 4 + 2 * dg.n * 4 * w, active * 4 * w
 
 
 def phase_kernel_timing(dg, template, label_freq):
     """Kernel, plain and bound times at the scale-20 main-path shapes."""
-    log("== phase 2b: kernel times at the scale-20 main-path shapes")
+    log(f"== phase 2b: kernel times at the scale-20 main-path shapes ({CARD})")
     state0 = init_state(dg, template)
     # LCC sweep input: omega packed to W = 1 word, every arc active
     vals = pack_bits(state0.omega)
@@ -368,10 +448,14 @@ def phase_kernel_timing(dg, template, label_freq):
     }
     spmm["bound_ms"], spmm["bound_by"] = bound(spmm_cost(dg, ea0, vals.shape[1]))
     check(spmm["max_abs_err"] == 0, "bitset_spmm differs at scale 20")
+    moved, gathered = spmm_moved_bytes(dg, ea0, vals.shape[1])
     log(f"bitset_spmm  W={vals.shape[1]} n={dg.n} m={dg.m}: "
-        f"{spmm['ms']:.4f} ms kernel ({spmm['device_ms']:.4f} ms on the device), "
+        f"{spmm['ms']:.4f} ms kernel ({spmm['device_ms']:.4f} ms on the device, "
+        f"{spmm['device_ms'] / spmm['bound_ms']:.2f}x bound), "
         f"{spmm['plain_ms']:.4f} ms plain, "
-        f"{spmm['bound_ms']:.4f} ms bound ({spmm['bound_by']})")
+        f"{spmm['bound_ms']:.4f} ms bound ({spmm['bound_by']}); the kernel moves "
+        f"{moved / 1e6:.1f} MB of device memory ({moved / spmm['device_ms'] / 1e9:.2f} "
+        f"TB/s) and gathers {gathered / 1e6:.1f} MB of vals rows")
 
     # NLCC wave input: the first wave after the initial LCC fixpoint
     state1 = lcc_fixpoint(dg, TemplateDev(template, dg.device), state0,
@@ -465,6 +549,9 @@ def phase_full(g, dg):
     for name in registry.PRUNE_KERNELS:
         check(launches[name] > 0, f"{name} never launched on the main path")
     check(cnt.n_embeddings > 0, "the scale-20 main path found no match")
+    # device time by kernel and the device's busy share over one more prune
+    profile_device(lambda: prune(dg, tmpl, label_freq=g.label_frequency()), 1,
+                   "prune", "bitset_spmm")
 
     r2 = prune(dg, Template(*RMAT2), label_freq=g.label_frequency())
     log(f"RMAT-2 on the same graph: after the first LCC V*="
@@ -559,7 +646,7 @@ def segment_agg_cost(nt, d, f, elem_bytes):
 def phase_segment_agg_timing(shapes):
     """Kernel, plain and bound times at the full-width forward's shapes
     (f32, every neighbour valid, as the sampled forward calls it)."""
-    log("== phase 5b: segment_agg times at the full-width forward's shapes")
+    log(f"== phase 5b: segment_agg times at the full-width forward's shapes ({CARD})")
     gen_t = torch.Generator(device=DEVICE).manual_seed(SEED)
     rows = []
     for nt, d, f in shapes:
@@ -710,6 +797,18 @@ def phase_gnn_full(shape=None):
     return launches
 
 
+# the device functions each kernel's wrapper launches, as torch.profiler
+# names them (bitset_spmm at W <= 2 and at W > 2; bitset_wave's hops at
+# W <= 2 and at W > 2; flash_attention's bf16 and f32 variants)
+KERNEL_SYMBOLS = {
+    "bitset_spmm": r"or_gather_arcs<|or_gather_warp<false>",
+    "bitset_wave": r"or_gather_thread<|or_gather_warp<true>",
+    "segment_agg": r"segment_agg_kernel<",
+    "flash_attention": r"flash_attention(_bf16)?_kernel<",
+    "embedding_bag": r"embedding_bag_kernel<",
+}
+
+
 def device_events(prof):
     """The profiler's averages of device activity (kernels, copies)."""
     from torch.autograd import DeviceType
@@ -784,7 +883,7 @@ def profile_device(fn, n, unit, kernel=None, device_ms=None):
     busy_ms = sum(e.self_device_time_total for e in kern) / 1e3
     if kernel:
         launched = registry.launch_counts()[kernel] - before
-        seen = sum(e.count for e in kern if f"{kernel}_kernel" in e.key)
+        seen = sum(e.count for e in kern if re.search(KERNEL_SYMBOLS[kernel], e.key))
         lost = seen != launched
         what = f"{seen} of {launched} {kernel} launches"
     else:
@@ -854,29 +953,110 @@ def attention_cost(b, hq, hkv, s, d, elem_bytes, causal=True, window=None):
 
 
 def bf16_close(got, want, floor):
-    """Elementwise |got - want| <= 2 bf16 ulps of |want| + floor."""
+    """Elementwise |got - want| <= 2 bf16 ulps of |want| + floor (a number,
+    or a tensor that broadcasts)."""
     w, g = want.float(), got.float()
     ulp = torch.exp2(torch.floor(torch.log2(w.abs().clamp_min(2.0 ** -126))) - 7)
     return bool(((g - w).abs() <= 2 * ulp + floor).all())
 
 
+def bf16_excess(got, want, floor):
+    """max over elements of |got - want| / (2 bf16 ulps of |want| + floor),
+    floor a tensor that broadcasts: the check holds where it is <= 1."""
+    w, g = want.float(), got.float()
+    ulp = torch.exp2(torch.floor(torch.log2(w.abs().clamp_min(2.0 ** -126))) - 7)
+    return float(((g - w).abs() / (2 * ulp + floor)).max())
+
+
 def attention_want(q, k, v, causal=True, window=None):
-    """What the kernel is held to: f32 arithmetic on the inputs, rounded once
-    to their dtype. That is the plain version, except for bf16 past the
-    blockwise cutoff, where the plain version rounds p to bf16 before p v:
-    there, the blockwise version on the inputs widened to f32 (which rounds
-    nothing), cast to bf16."""
+    """f32 arithmetic on the inputs, rounded once to their dtype. That is the
+    plain version, except for bf16 past the blockwise cutoff, where the plain
+    version rounds p to bf16 before p v: there, the blockwise version on the
+    inputs widened to f32 (which rounds nothing), cast to bf16."""
     if q.dtype == torch.bfloat16 and q.shape[2] > ref.ATTENTION_BLOCKWISE_CUTOFF:
         return ref.attention_blockwise(q.float(), k.float(), v.float(), causal=causal,
                                        window=window).to(q.dtype)
     return ref.attention_plain(q, k, v, causal=causal, window=window)
 
 
-def attention_close(got, want):
-    """f32: within ATTN_F32_TOL. bf16: within 2 bf16 ulps plus 1e-6."""
+def attention_weights(q, k, v, block_k, causal=True, window=None):
+    """Two sums of the softmax weights p / l with |v|, [B, Hq, S, D] in f32,
+    with p (unrounded) and l as the blockwise version at `block_k` computes
+    them: A over every key, and F over the keys whose p lies within
+    ATTN_P_EPS (relative) of a bf16 rounding midpoint, so that a p that
+    differs from it by less than that may round the other way."""
+    b, hq, s, d = q.shape
+    group = hq // k.shape[1]
+    k = k.repeat_interleave(group, 1)
+    va = v.abs().repeat_interleave(group, 1)
+    q32, scale = q.float(), 1.0 / d ** 0.5
+    q_pos = torch.arange(s, device=q.device)
+    m = torch.full((b, hq, s), ref.ATTENTION_NEG_INF, device=q.device)
+    l = torch.zeros((b, hq, s), device=q.device)
+    a_all = torch.zeros((b, hq, s, d), device=q.device)
+    a_near = torch.zeros_like(a_all)
+    for k0 in range(0, s, block_k):
+        k_pos = q_pos[k0:k0 + block_k]
+        live = torch.ones((s, len(k_pos)), dtype=torch.bool, device=q.device)
+        if causal:
+            live &= k_pos[None, :] <= q_pos[:, None]
+        if window is not None:
+            live &= k_pos[None, :] > q_pos[:, None] - window
+        logits = torch.einsum("bhqd,bhkd->bhqk", q32,
+                              k[:, :, k0:k0 + block_k].float()) * scale
+        logits = torch.where(live, logits, ref.ATTENTION_NEG_INF)
+        m_new = torch.maximum(m, logits.amax(-1))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(logits - m_new[..., None])
+        near = ((p * (1 - ATTN_P_EPS)).to(torch.bfloat16)
+                != (p * (1 + ATTN_P_EPS)).to(torch.bfloat16))
+        vb = va[:, :, k0:k0 + block_k].float()
+        l = l * alpha + p.sum(-1)
+        a_all = a_all * alpha[..., None] + torch.einsum("bhqk,bhkd->bhqd", p, vb)
+        a_near = a_near * alpha[..., None] + torch.einsum(
+            "bhqk,bhkd->bhqd", p * near, vb)
+        m = m_new
+    l = l.clamp_min(1e-30)[..., None]
+    return a_all / l, a_near / l
+
+
+def attention_checks(got, q, k, v, causal=True, window=None):
+    """(ok, {check: max |diff|, check ratio: max |diff| / allowed}) of a
+    flash_attention output. f32 (the CUDA-core kernel): within ATTN_F32_TOL
+    of f32 arithmetic. bf16 (the tensor-core kernel), with A and F of
+    `attention_weights` at the kernel's kv tile, elementwise:
+    (i) against the blockwise version at that tile on the same inputs,
+    within 2 bf16 ulps + ATTN_P_FLIP F + ATTN_F32_SLACK A: the running
+    maxima agree, so only a p near a rounding midpoint may round the other
+    way (by one ulp, at most ATTN_P_FLIP of itself), besides the order of
+    f32 sums; (ii) against f32 arithmetic rounded once, within 2 bf16 ulps +
+    (ATTN_P_ROUND + 2 ATTN_P_EPS + ATTN_F32_SLACK) A: rounding p to bf16
+    moves each p v by at most ATTN_P_ROUND of p |v| while l sums the
+    unrounded p, and the kernel's unrounded p, in numerator and l, differs
+    from exact by up to ATTN_P_EPS."""
+    def diff(want):
+        return float((got.float() - want.float()).abs().max())
+
     if got.dtype == torch.float32:
-        return torch.allclose(got, want, rtol=ATTN_F32_TOL, atol=ATTN_F32_TOL)
-    return bf16_close(got, want, 1e-6)
+        want = attention_want(q, k, v, causal, window)
+        return (torch.allclose(got, want, rtol=ATTN_F32_TOL, atol=ATTN_F32_TOL),
+                {"f32": diff(want)})
+    tile = ops.ATTENTION_KV_TILE[q.shape[3]]
+    a_all, a_near = attention_weights(q, k, v, tile, causal, window)
+    ok, diffs = True, {}
+    for key, want, floor in (
+            ("bf16 (i)",
+             lambda: ref.attention_blockwise(q, k, v, causal=causal, window=window,
+                                             block_k=tile),
+             ATTN_P_FLIP * a_near + ATTN_F32_SLACK * a_all),
+            ("bf16 (ii)", lambda: attention_want(q, k, v, causal, window),
+             (ATTN_P_ROUND + 2 * ATTN_P_EPS + ATTN_F32_SLACK) * a_all)):
+        want = want()
+        ratio = bf16_excess(got, want, floor)
+        ok = ok and ratio <= 1.0
+        diffs[key], diffs[key + " ratio"] = diff(want), ratio
+        del want, floor
+    return ok, diffs
 
 
 ATTN_SMALL_CASES = (
@@ -890,36 +1070,58 @@ ATTN_SMALL_CASES = (
     + [(1, 2, 1, 77, 256, True, None), (2, 3, 1, 130, 128, False, 7)])
 
 
+def attention_variant_launches(fn, variant):
+    """Run fn() and check that it launched flash_attention's `variant` once
+    per launch of the kernel, and no other variant."""
+    before = registry.variant_counts("flash_attention")
+    out = fn()
+    after = registry.variant_counts("flash_attention")
+    if DEVICE == "cuda":
+        got = {k: after[k] - before[k] for k in after}
+        check(got[variant] >= 1 and sum(got.values()) == got[variant],
+              f"flash_attention launched variants {got}, expected only {variant}")
+    return out
+
+
 def phase_attention_small():
-    """flash_attention against its plain version on the card."""
-    log("== phase 6a: flash_attention vs its plain version")
+    """flash_attention against its plain version on the card, both variants."""
+    log("== phase 6a: flash_attention vs its plain version (f32: the CUDA-core "
+        "kernel; bf16: the tensor-core kernel)")
     rng = np.random.default_rng(SEED)
-    worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    worst = dict.fromkeys(("f32", "bf16 (i)", "bf16 (i) ratio", "bf16 (ii)",
+                           "bf16 (ii) ratio"), 0.0)
     n_checks = 0
     for b, hq, hkv, s, d, causal, window in ATTN_SMALL_CASES:
         arrays = [rng.standard_normal(shape, dtype=np.float32) * 0.3
                   for shape in ((b, hq, s, d), (b, hkv, s, d), (b, hkv, s, d))]
         for dtype in (torch.float32, torch.bfloat16):
             q, k, v = (torch.from_numpy(a).to(DEVICE).to(dtype) for a in arrays)
-            got = ops.attention(q, k, v, causal=causal, window=window)
-            want = attention_want(q, k, v, causal, window)
+            got = attention_variant_launches(
+                lambda: ops.attention(q, k, v, causal=causal, window=window),
+                ops.attention_variant(dtype, d))
             sync()
-            check(got.dtype == dtype and attention_close(got, want),
+            ok, diffs = attention_checks(got, q, k, v, causal, window)
+            check(got.dtype == dtype and ok,
                   f"flash_attention [{b},{hq}/{hkv},{s},{d}] causal={causal} "
-                  f"window={window} {dtype} differs")
-            worst[dtype] = max(worst[dtype],
-                               float((got.float() - want.float()).abs().max()))
+                  f"window={window} {dtype} differs: {diffs}")
+            for key, val in diffs.items():
+                worst[key] = max(worst[key], val)
             n_checks += 1
-    # k, v as the model passes v: a [B, S, H, D] projection viewed as [B, H, S, D]
-    q = torch.randn((2, 4, 70, 128), device=DEVICE)
-    v = torch.randn((2, 70, 2, 128), device=DEVICE).transpose(1, 2)
-    check(not v.is_contiguous() and attention_close(
-        ops.attention(q, v, v), attention_want(q, v, v)),
-        "flash_attention on a strided k, v view differs")
-    n_checks += 1
-    log(f"{n_checks} kernel/plain comparisons within tolerance (f32 rtol = atol "
-        f"= {ATTN_F32_TOL}; bf16 2 ulps + 1e-6): max |diff| f32 "
-        f"{worst[torch.float32]:.3g}, bf16 {worst[torch.bfloat16]:.3g}")
+    # k, v as the model passes v: a [B, S, H, D] projection viewed as
+    # [B, H, S, D]; each variant reads the view's strides, no copy
+    for dtype in (torch.float32, torch.bfloat16):
+        q = torch.randn((2, 4, 70, 128), device=DEVICE).to(dtype)
+        v = torch.randn((2, 70, 2, 128), device=DEVICE).to(dtype).transpose(1, 2)
+        got = attention_variant_launches(lambda: ops.attention(q, v, v),
+                                         ops.attention_variant(dtype, 128))
+        ok, diffs = attention_checks(got, q, v, v)
+        check(not v.is_contiguous() and ok,
+              f"flash_attention on a strided k, v view, {dtype}, differs: {diffs}")
+        n_checks += 1
+    log(f"{n_checks} kernel/plain comparisons within tolerance ({ATTN_TOLERANCE}): "
+        f"max |diff| f32 {worst['f32']:.3g}, bf16 (i) {worst['bf16 (i)']:.3g} "
+        f"({worst['bf16 (i) ratio']:.3g} of its allowance), (ii) "
+        f"{worst['bf16 (ii)']:.3g} ({worst['bf16 (ii) ratio']:.3g})")
 
 
 def sdpa_ms(q, k, v, reps):
@@ -934,20 +1136,37 @@ def sdpa_ms(q, k, v, reps):
                    reps)
 
 
+def ptxas_report(kernel):
+    """ptxas's register and spill lines for the entry functions whose
+    mangled names hold `kernel`, from the build log: [(function, line)]."""
+    rows, fn = [], None
+    for line in build.library_path().with_suffix(".log").read_text().splitlines():
+        if "Compiling entry function" in line:
+            fn = line.split("'")[1]
+        elif fn and kernel in fn and ("registers" in line or "spill" in line):
+            rows.append((fn, line.split(":", 1)[-1].strip()))
+    return rows
+
+
 def phase_attention_timing(shapes):
     """Kernel, plain, library and bound times at the LM path's shapes (bf16,
-    causal): the prefill of one prefill_32k sequence and the serving prefill."""
-    log("== phase 6b: flash_attention times at the LM path's shapes")
+    causal, the tensor-core kernel): the prefill of one prefill_32k sequence
+    and the serving prefill."""
+    log(f"== phase 6b: flash_attention times at the LM path's shapes ({CARD})")
+    for fn, line in ptxas_report("flash_attention_bf16_kernel"):
+        log(f"  ptxas {fn}: {line}")
     rows = []
     for b, hq, hkv, s, d, reps in shapes:
         g = torch.Generator(device=DEVICE).manual_seed(SEED)
         q, k, v = (torch.randn(shape, generator=g, device=DEVICE).to(torch.bfloat16)
                    for shape in ((b, hq, s, d), (b, hkv, s, d), (b, hkv, s, d)))
-        got, want = ops.attention(q, k, v), attention_want(q, k, v)
-        check(attention_close(got, want), f"flash_attention [{b},{hq},{s},{d}] differs")
-        t = {"shape": [b, hq, hkv, s, d], "dtype": "bfloat16",
-             "max_abs_err": float((got.float() - want.float()).abs().max())}
-        del got, want
+        got = attention_variant_launches(lambda: ops.attention(q, k, v), "bf16_tc")
+        ok, diffs = attention_checks(got, q, k, v)
+        check(ok, f"flash_attention [{b},{hq},{s},{d}] differs: {diffs}")
+        t = {"shape": [b, hq, hkv, s, d], "dtype": "bfloat16", "variant": "bf16_tc",
+             "max_abs_err": diffs["bf16 (ii)"], "max_abs_err_tile": diffs["bf16 (i)"],
+             "allowance_used": [diffs["bf16 (i) ratio"], diffs["bf16 (ii) ratio"]]}
+        del got
         t["ms"] = time_ms(lambda: ops.attention(q, k, v), reps)
         t["device_ms"] = kernel_device_ms(lambda: ops.attention(q, k, v), reps,
                                           "flash_attention")
@@ -956,12 +1175,15 @@ def phase_attention_timing(shapes):
         cost = attention_cost(b, hq, hkv, s, d, 2)
         t["bound_ms"], t["bound_by"] = bound(cost, PEAK_BF16_FLOPS_PER_S)
         log(f"flash_attention [{b},{hq}/{hkv},{s},{d}] bf16 causal: {t['ms']:.4f} ms "
-            f"kernel ({t['device_ms']:.4f} ms on the device), {t['plain_ms']:.4f} ms "
+            f"kernel ({t['device_ms']:.4f} ms on the device, "
+            f"{cost[1] / t['device_ms'] / 1e9:.1f} TFLOP/s, "
+            f"{t['device_ms'] / t['bound_ms']:.2f}x bound, "
+            f"{t['device_ms'] / t['library_ms']:.2f}x SDPA), {t['plain_ms']:.4f} ms "
             f"plain, {t['library_ms']:.4f} ms SDPA, {t['bound_ms']:.4f} ms bound "
-            f"({t['bound_by']}: {cost[1] / 1e12:.3f} TFLOP, {cost[0] / 1e6:.1f} MB), "
-            f"{t['device_ms'] / t['bound_ms']:.1f}x bound, "
-            f"{cost[1] / t['device_ms'] / 1e9:.1f} "
-            f"TFLOP/s, max_abs_err {t['max_abs_err']:.3g}")
+            f"({t['bound_by']}: {cost[1] / 1e12:.3f} TFLOP, {cost[0] / 1e6:.1f} MB); "
+            f"max |diff| (i) {diffs['bf16 (i)']:.3g} ({diffs['bf16 (i) ratio']:.3g} "
+            f"of its allowance), (ii) {diffs['bf16 (ii)']:.3g} "
+            f"({diffs['bf16 (ii) ratio']:.3g})")
         rows.append(t)
         del q, k, v
     return rows
@@ -1030,15 +1252,21 @@ def phase_lm_full(cfg=None, prefill_len=None, serve=None):
     sync()
     res["prefill_32k_s"] = time.perf_counter() - t0
     res["prefill_32k_launches"] = registry.launch_counts()["flash_attention"]
+    res["prefill_32k_variants"] = registry.variant_counts("flash_attention")
     res["prefill_32k_peak_gib"] = peak_gib()
     check(logits.shape == (1, cfg.vocab) and bool(torch.isfinite(logits).all()),
           "prefill_32k logits not finite or of the wrong shape")
     check(DEVICE != "cuda" or res["prefill_32k_launches"] == cfg.n_layers,
           f"prefill_32k launched flash_attention {res['prefill_32k_launches']} "
           f"times, expected {cfg.n_layers}")
+    check(DEVICE != "cuda" or cfg.dtype != "bfloat16"
+          or res["prefill_32k_variants"]["bf16_tc"] == cfg.n_layers,
+          f"prefill_32k's launches by variant {res['prefill_32k_variants']}: "
+          f"all {cfg.n_layers} must be the tensor-core kernel")
     log(f"(i) prefill_32k, 1 x {prefill_len} tokens (global_batch 32 cut to 1): "
         f"{res['prefill_32k_s']:.3f} s, {prefill_len / res['prefill_32k_s']:.0f} "
-        f"tokens/s, flash_attention launches {res['prefill_32k_launches']}, "
+        f"tokens/s, flash_attention launches {res['prefill_32k_launches']} "
+        f"({res['prefill_32k_variants']}), "
         f"max_memory_allocated {res['prefill_32k_peak_gib']:.3f} GiB")
     del h, logits, toks
 
@@ -1054,12 +1282,17 @@ def phase_lm_full(cfg=None, prefill_len=None, serve=None):
     sync()
     res["serve_s"] = time.perf_counter() - t0
     launches = registry.launch_counts()
+    res["serve_variants"] = registry.variant_counts("flash_attention")
     res["serve_peak_gib"] = peak_gib()
     check(out.shape == (b, new) and bool(((out >= 0) & (out < cfg.vocab)).all()),
           "generated tokens of the wrong shape or out of the vocabulary")
     check(DEVICE != "cuda" or launches["flash_attention"] == cfg.n_layers,
           f"serving launched flash_attention {launches['flash_attention']} times, "
           f"expected {cfg.n_layers} (one prefill)")
+    check(DEVICE != "cuda" or cfg.dtype != "bfloat16"
+          or res["serve_variants"]["bf16_tc"] == cfg.n_layers,
+          f"serving's launches by variant {res['serve_variants']}: all must be "
+          "the tensor-core kernel")
     # the same requests step by step, for the split of prefill and decode
     t0 = time.perf_counter()
     cache, logits = build_prefill(model)(prompts, p + new)
@@ -1189,7 +1422,7 @@ def phase_embedding_bag_timing(n_rows, d, n_cand):
     n_cand bags of one id (a permutation of the item ids) over the bf16 item
     table, weights 1."""
     log(f"== phase 7b: embedding_bag times at the retrieval_cand shape "
-        f"({n_cand} bags of 1 over [{n_rows}, {d}] bf16)")
+        f"({n_cand} bags of 1 over [{n_rows}, {d}] bf16; {CARD})")
     import torch.nn.functional as F
 
     g = torch.Generator(device=DEVICE).manual_seed(SEED)
@@ -1369,7 +1602,8 @@ def run_lm():
     t = attn_rows[0]  # the prefill_32k sequence
     return [{
         "name": "flash_attention", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "source": "src/repro_torch/kernels/csrc/flash_attention_sm90.cu",
+        "f32_source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:89",
         "launches": launches["flash_attention"],
         "launches_prefill_32k": lm["prefill_32k_launches"],
@@ -1377,11 +1611,14 @@ def run_lm():
         "device_ms": t["device_ms"], "plain_ms": t["plain_ms"],
         "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
         "library_ms": t["library_ms"], "shape": t["shape"],
-        "tolerance": f"f32 rtol=atol={ATTN_F32_TOL}; bf16 2 ulps + 1e-6 of "
-                     "f32 arithmetic rounded once",
+        "tolerance": ATTN_TOLERANCE,
+        "variant": t["variant"], "max_abs_err_tile": t["max_abs_err_tile"],
+        "allowance_used": t["allowance_used"],
+        "launches_by_variant": lm["serve_variants"],
         "other_shapes": [{k: r[k] for k in ("shape", "ms", "device_ms",
                                             "plain_ms", "library_ms",
-                                            "bound_ms", "max_abs_err")}
+                                            "bound_ms", "max_abs_err",
+                                            "max_abs_err_tile", "allowance_used")}
                          for r in attn_rows[1:]],
         "lm": lm,
     }]
@@ -1423,8 +1660,12 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
     kind = phase_device()
-    kernels = run_prune() + run_gnn() + run_lm() + run_recsys()
-    log(f"total {time.perf_counter() - t_start:.1f} s")
+    kernels, seconds = [], {}
+    for run in (run_prune, run_gnn, run_lm, run_recsys):
+        t0 = time.perf_counter()
+        kernels += run()
+        seconds[run.__name__] = round(time.perf_counter() - t0, 1)
+    log(f"total {time.perf_counter() - t_start:.1f} s (by path: {seconds})")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -1,7 +1,8 @@
 """Build and load the CUDA kernels.
 
 The sources in `csrc/` (`bitset.cu`, `segment_agg.cu`, `flash_attention.cu`,
-`embedding_bag.cu`) are compiled at first use with `nvcc` for `sm_90a`, one compiler process per source, all started
+`flash_attention_sm90.cu`, `embedding_bag.cu`) are compiled at first use
+with `nvcc` for `sm_90a`, one compiler process per source, all started
 together, and linked into one shared library with a plain C interface,
 loaded with `ctypes`. The library goes into `_build/` beside this file
 (listed in `.gitignore`), named by a hash of every source and the flags, so
@@ -26,7 +27,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).parent / "csrc"
 SOURCES = tuple(CSRC / name for name in (
-    "bitset.cu", "segment_agg.cu", "flash_attention.cu", "embedding_bag.cu"))
+    "bitset.cu", "segment_agg.cu", "flash_attention.cu", "flash_attention_sm90.cu",
+    "embedding_bag.cu"))
 BUILD_DIR = Path(__file__).parent / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -98,15 +100,18 @@ def library() -> ctypes.CDLL:
     """The loaded kernel library, built on first call."""
     lib = ctypes.CDLL(str(build()))
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.bitset_spmm_launch.argtypes = [p, p, p, p, p, ll, i, i, p]
+    lib.bitset_spmm_launch.argtypes = [p, p, p, p, p, p, ll, ll, ll, i, i, p]
     lib.bitset_spmm_launch.restype = i
     lib.bitset_wave_launch.argtypes = [p, p, p, p, p, i, p, p, ll, i, i, p]
     lib.bitset_wave_launch.restype = i
     lib.segment_agg_launch.argtypes = [p, p, p, ll, i, i, i, i, p]
     lib.segment_agg_launch.restype = i
     lib.flash_attention_launch.argtypes = [
-        p, p, p, p, ll, i, i, i, i, ctypes.POINTER(ll), i, i, i, i, p]
+        p, p, p, p, ll, i, i, i, i, ctypes.POINTER(ll), i, i, i, p]
     lib.flash_attention_launch.restype = i
+    lib.flash_attention_bf16_launch.argtypes = [  # + the kv tile after d
+        p, p, p, p, ll, i, i, i, i, i, ctypes.POINTER(ll), i, i, i, p]
+    lib.flash_attention_bf16_launch.restype = i
     lib.embedding_bag_launch.argtypes = [p, p, p, p, ll, i, i, ll, i, i, i, p]
     lib.embedding_bag_launch.restype = i
     lib.bitset_error_string.argtypes = [i]

@@ -6,12 +6,10 @@
 // on packed 32-bit words. The TPU kernel walks a grid of dense
 // (dst block, src block) bitmasks and contracts each, unpacked to floats, on
 // the MXU. A sparse graph touches millions of such blocks at 8 KiB each, so
-// here the same function is a gather along the dst-sorted arcs (dst-CSR):
-// destination v walks its in-arcs dst_ptr[v] .. dst_ptr[v+1]-1, skips the
-// inactive ones, ORs the source rows into registers and writes out[v, :]
-// once. No atomics, no tensor cores; the result is exact and deterministic,
-// and a vertex without in-arcs writes 0 (the JAX wrapper's rule for dst
-// blocks no adjacency block touches).
+// here the same function is a gather along the dst-sorted arcs. The result is
+// exact and deterministic (OR is commutative and idempotent, so the order of
+// atomics cannot change it), and a vertex without in-arcs writes 0 (the JAX
+// wrapper's rule for dst blocks no adjacency block touches).
 //
 // bitset_wave replaces src/repro/kernels/bitset_wave.py (`bitset_wave`):
 // L hops of F_r = OR-agg(F_{r-1}) & cand[r]. Each hop depends on the whole
@@ -21,17 +19,30 @@
 // stands in for what the TPU kernel gained by keeping the frontier resident
 // in VMEM.
 //
-// What bounds them on this card: bytes. Per call they read the arc arrays
-// (4 B src + 1 B active per arc, 8 B offsets per vertex), one W-word source
-// row per active arc they visit, and write n rows of W words -- about one
-// bitwise OR per 4 bytes moved, far below what the card can compute per byte
-// of its 3.35 TB/s. The design keeps loads coalesced:
-//   W = 32 (NLCC waves)  one warp per vertex, lane = word, so each arc's
-//                        source row is one 128-byte load; the warp loads 32
-//                        arcs' (src, active) at once and broadcasts them
-//                        with shuffles;
-//   W <= 2 (LCC sweeps)  one thread per vertex, its words in registers.
-// Other widths take the warp mapping, lanes striding over the words.
+// What bounds them on this card: bytes. Per call they read the arc arrays,
+// one W-word source row per active arc they visit, and write n rows of W
+// words -- about one bitwise OR per 4 bytes moved, far below what the card
+// can compute per byte of its 3.35 TB/s. The designs:
+//   bitset_spmm, W <= 2 (LCC sweeps)  edge-balanced: each warp takes a chunk
+//     of dst-sorted arcs (as many as the caller asks, kernels/ops.py
+//     BITSET_ARC_CHUNK), 32 at a time, lanes reading dst (4 B),
+//     active (1 B) and, for an active arc, src (4 B) coalesced, about 9 B
+//     per arc, and gathering vals[src] (4 or 8 B, from the L2: the whole
+//     [n, W] table is 4-8 MB at scale 20). A segmented OR-scan by dst across
+//     the lanes (shuffles) reduces each run of equal dst; a run that
+//     continues past lane 31 carries into the next 32 arcs in registers. A
+//     run wholly inside the chunk is stored; the first and last runs of a
+//     chunk may be shared with a neighbouring chunk and are atomicOr'ed
+//     into the output, which the host zeroes first (cudaMemsetAsync). So a
+//     hub with tens of thousands of in-arcs is reduced by hundreds of warps
+//     and costs one atomic per chunk, where one thread walking its arcs
+//     set the length of the whole launch;
+//   W = 32 (NLCC waves, and bitset_spmm at W > 2)  one warp per vertex,
+//     lane = word, so each arc's source row is one 128-byte load; the warp
+//     loads 32 arcs' (src, active) at once and broadcasts them with
+//     shuffles; other widths > 2 stride the lanes over the words;
+//   the masked hop of bitset_wave at W <= 2  one thread per vertex, its
+//     words in registers, so that a non-candidate reads nothing.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -39,8 +50,76 @@ namespace {
 
 constexpr int kBlock = 256;
 
-// One thread per destination vertex, W words kept in registers.
-template <int W, bool kMasked>
+// Edge-balanced OR-gather for W <= 2; `out` holds zeros on entry.
+template <int W>
+__global__ void __launch_bounds__(kBlock)
+or_gather_arcs(const uint32_t* __restrict__ vals,
+               const int32_t* __restrict__ src,
+               const int32_t* __restrict__ dst,
+               const uint8_t* __restrict__ active,
+               uint32_t* __restrict__ out, int64_t m, int64_t chunk) {
+  const int64_t begin =
+      ((blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x) >> 5) *
+      chunk;
+  const int lane = threadIdx.x & 31;
+  if (begin >= m) return;  // uniform across the warp
+  const int64_t end = begin + chunk < m ? begin + chunk : m;
+  const int32_t first = dst[begin];  // this run may start in the chunk before
+  int32_t carry_dst = -1;            // the run left open by the last 32 arcs
+  uint32_t carry[W];
+#pragma unroll
+  for (int w = 0; w < W; ++w) carry[w] = 0u;
+  for (int64_t base = begin; base < end; base += 32) {
+    const int64_t e = base + lane;
+    const bool valid = e < end;
+    const int32_t d = valid ? dst[e] : -1;
+    uint32_t acc[W];
+#pragma unroll
+    for (int w = 0; w < W; ++w) acc[w] = 0u;
+    if (valid && active[e]) {
+      const uint32_t* row = vals + static_cast<int64_t>(src[e]) * W;
+#pragma unroll
+      for (int w = 0; w < W; ++w) acc[w] = row[w];
+    }
+    if (lane == 0 && d == carry_dst) {
+#pragma unroll
+      for (int w = 0; w < W; ++w) acc[w] |= carry[w];
+    }
+    // inclusive OR-scan within runs of equal dst (runs are contiguous)
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const int32_t d_up = __shfl_up_sync(0xFFFFFFFFu, d, off);
+#pragma unroll
+      for (int w = 0; w < W; ++w) {
+        const uint32_t up = __shfl_up_sync(0xFFFFFFFFu, acc[w], off);
+        if (lane >= off && d_up == d) acc[w] |= up;
+      }
+    }
+    // a run ends at e unless arc e + 1 of this chunk has the same dst
+    int32_t d_next = __shfl_down_sync(0xFFFFFFFFu, d, 1);
+    if (lane == 31) d_next = e + 1 < end ? dst[e + 1] : -1;
+    const bool run_end = valid && (e + 1 >= end || d_next != d);
+    // lane 31's open run continues into the next 32 arcs
+    carry_dst = __shfl_sync(0xFFFFFFFFu, run_end ? -1 : d, 31);
+#pragma unroll
+    for (int w = 0; w < W; ++w) carry[w] = __shfl_sync(0xFFFFFFFFu, acc[w], 31);
+    if (run_end) {
+      uint32_t* o = out + static_cast<int64_t>(d) * W;
+      if (d == first || e + 1 >= end) {  // may be shared with a neighbour chunk
+#pragma unroll
+        for (int w = 0; w < W; ++w)
+          if (acc[w] != 0u) atomicOr(o + w, acc[w]);
+      } else {
+#pragma unroll
+        for (int w = 0; w < W; ++w) o[w] = acc[w];
+      }
+    }
+  }
+}
+
+// One thread per destination vertex, W words kept in registers (the masked
+// hop of bitset_wave at W <= 2).
+template <int W>
 __global__ void __launch_bounds__(kBlock)
 or_gather_thread(const uint32_t* __restrict__ vals,
                  const int32_t* __restrict__ src,
@@ -50,7 +129,7 @@ or_gather_thread(const uint32_t* __restrict__ vals,
                  uint32_t* __restrict__ out, int64_t n) {
   const int64_t v = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
   if (v >= n) return;
-  const uint32_t mask = kMasked ? cand[v] : 0xFFFFFFFFu;
+  const uint32_t mask = cand[v];
   uint32_t acc[W];
 #pragma unroll
   for (int w = 0; w < W; ++w) acc[w] = 0u;
@@ -102,25 +181,55 @@ or_gather_warp(const uint32_t* __restrict__ vals,
 }
 
 template <bool kMasked>
-cudaError_t launch_gather(const uint32_t* vals, const int32_t* src,
-                          const int64_t* dst_ptr, const uint8_t* active,
-                          const uint32_t* cand, uint32_t* out, int64_t n,
-                          int W, cudaStream_t stream) {
-  if (W == 1) {
-    const unsigned blocks = static_cast<unsigned>((n + kBlock - 1) / kBlock);
-    or_gather_thread<1, kMasked><<<blocks, kBlock, 0, stream>>>(
+cudaError_t launch_warp(const uint32_t* vals, const int32_t* src,
+                        const int64_t* dst_ptr, const uint8_t* active,
+                        const uint32_t* cand, uint32_t* out, int64_t n, int W,
+                        cudaStream_t stream) {
+  const int64_t warps_per_block = kBlock / 32;
+  const unsigned blocks =
+      static_cast<unsigned>((n + warps_per_block - 1) / warps_per_block);
+  or_gather_warp<kMasked><<<blocks, kBlock, 0, stream>>>(
+      vals, src, dst_ptr, active, cand, out, n, W);
+  return cudaGetLastError();
+}
+
+// The unmasked OR-gather: edge-balanced for W <= 2, `chunk` arcs a warp;
+// warp per vertex above.
+cudaError_t launch_spmm(const uint32_t* vals, const int32_t* src,
+                        const int32_t* dst, const int64_t* dst_ptr,
+                        const uint8_t* active, uint32_t* out, int64_t n,
+                        int64_t m, int64_t chunk, int W, cudaStream_t stream) {
+  if (W > 2)
+    return launch_warp<false>(vals, src, dst_ptr, active, nullptr, out, n, W, stream);
+  cudaError_t err = cudaMemsetAsync(out, 0, static_cast<size_t>(n) * W * 4, stream);
+  if (err != cudaSuccess || m == 0) return err;
+  const int64_t chunks_per_block = kBlock / 32;
+  const int64_t chunks = (m + chunk - 1) / chunk;
+  const unsigned blocks =
+      static_cast<unsigned>((chunks + chunks_per_block - 1) / chunks_per_block);
+  if (W == 1)
+    or_gather_arcs<1><<<blocks, kBlock, 0, stream>>>(vals, src, dst, active, out, m,
+                                                      chunk);
+  else
+    or_gather_arcs<2><<<blocks, kBlock, 0, stream>>>(vals, src, dst, active, out, m,
+                                                      chunk);
+  return cudaGetLastError();
+}
+
+// One masked hop of bitset_wave: thread per vertex for W <= 2, warp above.
+cudaError_t launch_hop(const uint32_t* vals, const int32_t* src,
+                       const int64_t* dst_ptr, const uint8_t* active,
+                       const uint32_t* cand, uint32_t* out, int64_t n, int W,
+                       cudaStream_t stream) {
+  if (W > 2)
+    return launch_warp<true>(vals, src, dst_ptr, active, cand, out, n, W, stream);
+  const unsigned blocks = static_cast<unsigned>((n + kBlock - 1) / kBlock);
+  if (W == 1)
+    or_gather_thread<1><<<blocks, kBlock, 0, stream>>>(
         vals, src, dst_ptr, active, cand, out, n);
-  } else if (W == 2) {
-    const unsigned blocks = static_cast<unsigned>((n + kBlock - 1) / kBlock);
-    or_gather_thread<2, kMasked><<<blocks, kBlock, 0, stream>>>(
+  else
+    or_gather_thread<2><<<blocks, kBlock, 0, stream>>>(
         vals, src, dst_ptr, active, cand, out, n);
-  } else {
-    const int64_t warps_per_block = kBlock / 32;
-    const unsigned blocks =
-        static_cast<unsigned>((n + warps_per_block - 1) / warps_per_block);
-    or_gather_warp<kMasked><<<blocks, kBlock, 0, stream>>>(
-        vals, src, dst_ptr, active, cand, out, n, W);
-  }
   return cudaGetLastError();
 }
 
@@ -128,19 +237,23 @@ cudaError_t launch_gather(const uint32_t* vals, const int32_t* src,
 
 extern "C" {
 
-// out[n, W] = OR over active in-arcs of vals[src, :]. Returns the
-// cudaError_t of the launch (0 = launched).
-int bitset_spmm_launch(const void* vals, const void* src, const void* dst_ptr,
-                       const void* active, void* out, long long n, int W,
+// out[n, W] = OR over active in-arcs of vals[src, :], for the m arcs
+// sorted by dst (src, dst, active) with dst-CSR offsets dst_ptr; at W <= 2
+// each warp takes `chunk` arcs (> 0). Returns the cudaError_t of the first
+// failing call (0 = launched).
+int bitset_spmm_launch(const void* vals, const void* src, const void* dst,
+                       const void* dst_ptr, const void* active, void* out,
+                       long long n, long long m, long long chunk, int W,
                        int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (n <= 0 || W <= 0) return 0;
-  return static_cast<int>(launch_gather<false>(
+  if (chunk <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(launch_spmm(
       static_cast<const uint32_t*>(vals), static_cast<const int32_t*>(src),
-      static_cast<const int64_t*>(dst_ptr),
-      static_cast<const uint8_t*>(active), nullptr,
-      static_cast<uint32_t*>(out), n, W, static_cast<cudaStream_t>(stream)));
+      static_cast<const int32_t*>(dst), static_cast<const int64_t*>(dst_ptr),
+      static_cast<const uint8_t*>(active), static_cast<uint32_t*>(out), n, m,
+      chunk, W, static_cast<cudaStream_t>(stream)));
 }
 
 // L hops: hop r reads the previous frontier (vals for r = 0) and writes the
@@ -158,7 +271,7 @@ int bitset_wave_launch(const void* vals, const void* src, const void* dst_ptr,
   for (int r = 0; r < L; ++r) {
     uint32_t* next = ((L - 1 - r) % 2 == 0) ? static_cast<uint32_t*>(out)
                                             : static_cast<uint32_t*>(scratch);
-    err = launch_gather<true>(
+    err = launch_hop(
         cur, static_cast<const int32_t*>(src),
         static_cast<const int64_t*>(dst_ptr),
         static_cast<const uint8_t*>(active),

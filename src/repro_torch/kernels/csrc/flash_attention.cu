@@ -1,22 +1,24 @@
-// Forward attention with an online softmax for Hopper (sm_90a), behind a
-// plain C interface loaded with ctypes (kernels/build.py, kernels/ops.py).
+// Forward attention with an online softmax for f32 inputs on Hopper
+// (sm_90a), behind a plain C interface loaded with ctypes (kernels/build.py,
+// kernels/ops.py).
 //
 // flash_attention replaces the TPU kernel src/repro/kernels/flash_attention.py
-// (`flash_attention`): for q [B, Hq, S, D] and k, v [B, Hkv, S, D] (f32 or
-// bf16, Hq a multiple of Hkv, query head h reading kv head h / (Hq / Hkv)),
-// o = softmax(q k^T / sqrt(D) + mask) v in q's dtype, with a causal mask
-// and/or a sliding window (key > query - window). As in the TPU kernel, q is
-// scaled before the product, the running max, the running denominator and
-// the accumulator are f32, a masked logit is -1e30, the output is divided by
-// max(l, 1e-30), and a kv tile that the mask rules out for the whole q tile
-// is never visited. The TPU kernel needs S % 128 == 0 and D >= 128; this one
-// takes any S (the last q and kv tiles are masked at S) and D in
-// {64, 128, 256}.
+// (`flash_attention`) for f32 inputs: for q [B, Hq, S, D] and k, v
+// [B, Hkv, S, D] (Hq a multiple of Hkv, query head h reading kv head
+// h / (Hq / Hkv)), o = softmax(q k^T / sqrt(D) + mask) v in f32, with a causal
+// mask and/or a sliding window (key > query - window). As in the TPU kernel,
+// q is scaled before the product, the running max, the running denominator
+// and the accumulator are f32, a masked logit is -1e30, the output is divided
+// by max(l, 1e-30), and a kv tile that the mask rules out for the whole q
+// tile is never visited. The TPU kernel needs S % 128 == 0 and D >= 128; this
+// one takes any S (the last q and kv tiles are masked at S) and D in
+// {64, 128, 256}. bf16 inputs go to the tensor-core kernel of
+// flash_attention_sm90.cu; this kernel no longer has a bf16 instantiation.
 //
 // One block of 256 threads per (q tile of 64 rows, query head, batch row),
 // the q tiles launched last-first so that the long causal rows start early.
 // The block keeps its scaled q tile in shared memory and walks the live kv
-// tiles of 64 keys: it stages k and v (as f32) in shared memory, computes the
+// tiles of 64 keys: it stages k and v in shared memory, computes the
 // 64 x 64 logits on the CUDA cores (thread (ty, tx) owns rows ty + 16 i and
 // keys tx + 16 j, i, j < 4, reading float4s of padded rows, so no bank
 // conflicts), reduces the row max and sum across the 16 threads of a row
@@ -25,14 +27,11 @@
 // written once, at the end.
 //
 // What bounds it on this card: operations. Causal attention at S = 32768,
-// D = 128 does 128 multiply-adds per logit and per output element against
-// 2 bytes per element read, far above the ~20 operations per byte of the
-// card's 3.35 TB/s, so the work belongs on the tensor cores (989 TFLOP/s in
-// bf16). This first kernel runs it in f32 on the CUDA cores (67 TFLOP/s at
-// most, about half of that with two shared-memory loads per four
-// multiply-adds), which keeps f32 inputs exact to f32 rounding; mma/wgmma
-// tiles, TMA staging and warp specialisation are later work.
-#include <cuda_bf16.h>
+// D = 128 does 128 multiply-adds per logit and per output element. In f32
+// that work runs on the CUDA cores (67 TFLOP/s at most, about half of that
+// with two shared-memory loads per four multiply-adds); the kernel keeps f32
+// inputs exact to f32 rounding, which the f32 parity of the LM path (card
+// against CPU) relies on.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -43,15 +42,6 @@ constexpr int kBq = 64;        // query rows per block
 constexpr int kBk = 64;        // keys per kv tile
 constexpr int kThreads = 256;  // 16 x 16
 constexpr float kNegInf = -1e30f;
-
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16_rn(x);
-}
 
 __device__ __forceinline__ float component(const float4& v, int e) {
   return e == 0 ? v.x : e == 1 ? v.y : e == 2 ? v.z : v.w;
@@ -69,10 +59,10 @@ constexpr size_t smem_bytes() {
           static_cast<size_t>(kBk) * D + static_cast<size_t>(kBq) * (kBk + 4));
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ o,
+flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                       const float* __restrict__ v, float* __restrict__ o,
                        Strides qs, Strides ks, Strides vs, Strides os,
                        int s_len, int group, float scale, int causal,
                        int window) {
@@ -92,15 +82,15 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int q0 = qi * kBq;
-  const T* qb = q + b * qs.b + h * qs.h;
-  const T* kb = k + b * ks.b + (h / group) * ks.h;
-  const T* vb = v + b * vs.b + (h / group) * vs.h;
+  const float* qb = q + b * qs.b + h * qs.h;
+  const float* kb = k + b * ks.b + (h / group) * ks.h;
+  const float* vb = v + b * vs.b + (h / group) * vs.h;
 
   for (int idx = tid; idx < kBq * D; idx += kThreads) {
     const int r = idx / D, d = idx % D;
     const int row = q0 + r;
     qt[r * kRow + d] =
-        row < s_len ? to_float(qb[row * qs.s + d]) * scale : 0.f;
+        row < s_len ? qb[row * qs.s + d] * scale : 0.f;
   }
 
   float m[4], l[4], acc[4][kCols][4];
@@ -131,8 +121,8 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int r = idx / D, d = idx % D;
       const int key = k0 + r;
       const bool in = key < s_len;
-      kt[r * kRow + d] = in ? to_float(kb[key * ks.s + d]) : 0.f;
-      vt[r * D + d] = in ? to_float(vb[key * vs.s + d]) : 0.f;
+      kt[r * kRow + d] = in ? kb[key * ks.s + d] : 0.f;
+      vt[r * D + d] = in ? vb[key * vs.s + d] : 0.f;
     }
     __syncthreads();
 
@@ -225,35 +215,35 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
   }
 
-  T* ob = o + b * os.b + h * os.h;
+  float* ob = o + b * os.b + h * os.h;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int row = q0 + ty + 16 * i;
     if (row >= s_len) continue;
     const float denom = fmaxf(l[i], 1e-30f);
-    T* orow = ob + row * os.s;
+    float* orow = ob + row * os.s;
 #pragma unroll
     for (int c = 0; c < kCols; ++c)
 #pragma unroll
       for (int e = 0; e < 4; ++e)
-        store(orow + 64 * c + 4 * tx + e, acc[i][c][e] / denom);
+        orow[64 * c + 4 * tx + e] = acc[i][c][e] / denom;
   }
 }
 
-template <typename T, int D>
+template <int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    long long batch, int hq, int hkv, int s_len,
                    const long long* st, int causal, int window,
                    cudaStream_t stream) {
-  auto kernel = flash_attention_kernel<T, D>;
+  auto kernel = flash_attention_kernel<D>;
   constexpr size_t smem = smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const dim3 grid((s_len + kBq - 1) / kBq, hq, static_cast<unsigned>(batch));
   kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o),
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o),
       Strides{st[0], st[1], st[2]}, Strides{st[3], st[4], st[5]},
       Strides{st[6], st[7], st[8]}, Strides{st[9], st[10], st[11]}, s_len,
       hq / hkv, static_cast<float>(1.0 / sqrt(static_cast<double>(D))), causal,
@@ -261,51 +251,36 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t launch_d(const void* q, const void* k, const void* v, void* o,
-                     long long batch, int hq, int hkv, int s_len, int d,
-                     const long long* st, int causal, int window,
-                     cudaStream_t stream) {
-  switch (d) {
-    case 64:
-      return launch<T, 64>(q, k, v, o, batch, hq, hkv, s_len, st, causal, window, stream);
-    case 128:
-      return launch<T, 128>(q, k, v, o, batch, hq, hkv, s_len, st, causal, window, stream);
-    case 256:
-      return launch<T, 256>(q, k, v, o, batch, hq, hkv, s_len, st, causal, window, stream);
-    default:
-      return cudaErrorInvalidValue;
-  }
-}
-
 }  // namespace
 
 extern "C" {
 
-// o = attention(q, k, v) for q [B, Hq, S, D], k and v [B, Hkv, S, D], o
-// [B, Hq, S, D], all of one dtype (0: f32, 1: bf16). `strides` holds the
-// element strides (batch, head, position) of q, k, v and o in that order;
-// the last axis of each is contiguous. causal: 0 or 1; window <= 0 means
-// none. Returns the cudaError_t of the launch (0 = launched); an unknown
-// dtype or D, or a grid out of range, returns cudaErrorInvalidValue.
+// o = attention(q, k, v) for f32 q [B, Hq, S, D], k and v [B, Hkv, S, D],
+// o [B, Hq, S, D]. `strides` holds the element strides (batch, head,
+// position) of q, k, v and o in that order; the last axis of each is
+// contiguous. causal: 0 or 1; window <= 0 means none. Returns the
+// cudaError_t of the launch (0 = launched); an unknown D or a grid out of
+// range returns cudaErrorInvalidValue.
 int flash_attention_launch(const void* q, const void* k, const void* v,
                            void* o, long long batch, int hq, int hkv,
                            int s_len, int d, const long long* strides,
-                           int causal, int window, int dtype, int device,
-                           void* stream) {
+                           int causal, int window, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (batch <= 0 || s_len <= 0 || hq <= 0) return 0;
   if (hkv <= 0 || hq % hkv != 0 || hq > 65535 || batch > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case 0:
-      return static_cast<int>(launch_d<float>(
-          q, k, v, o, batch, hq, hkv, s_len, d, strides, causal, window, s));
-    case 1:
-      return static_cast<int>(launch_d<__nv_bfloat16>(
-          q, k, v, o, batch, hq, hkv, s_len, d, strides, causal, window, s));
+  switch (d) {
+    case 64:
+      return static_cast<int>(
+          launch<64>(q, k, v, o, batch, hq, hkv, s_len, strides, causal, window, s));
+    case 128:
+      return static_cast<int>(
+          launch<128>(q, k, v, o, batch, hq, hkv, s_len, strides, causal, window, s));
+    case 256:
+      return static_cast<int>(
+          launch<256>(q, k, v, o, batch, hq, hkv, s_len, strides, causal, window, s));
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

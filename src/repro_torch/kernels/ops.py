@@ -3,18 +3,24 @@
 Argument order and results follow the JAX package's `kernels/ops.py`, with
 the device graph in place of (src, dst, n, blocked). A CUDA tensor goes to
 the hand-written kernel (`csrc/bitset.cu`, `csrc/segment_agg.cu`,
-`csrc/flash_attention.cu`, `csrc/embedding_bag.cu`), a CPU tensor to its
-plain PyTorch version (`ref.py`); see `registry.py`.
+`csrc/flash_attention_sm90.cu` and `csrc/flash_attention.cu`,
+`csrc/embedding_bag.cu`), a CPU tensor to its plain PyTorch version
+(`ref.py`); see `registry.py`.
 
-The kernels take any packed width W and any graph that fits the card's
-memory: they keep no frontier in shared memory, so the TPU's VMEM budget
-(`BITSET_WAVE_VMEM_BUDGET` in the JAX package) has no counterpart here. The
-one hard limit is the grid: ceil(n / 8) blocks for W > 2, below CUDA's
-2^31 - 1.
+The bitset kernels take any packed width W and any graph that fits the
+card's memory: they keep no frontier in shared memory, so the TPU's VMEM
+budget (`BITSET_WAVE_VMEM_BUDGET` in the JAX package) has no counterpart
+here. The one hard limit is the grid: ceil(n / 8) blocks for W > 2, below
+CUDA's 2^31 - 1.
+
+`attention` has two kernels: bf16 inputs take the tensor-core kernel
+(`csrc/flash_attention_sm90.cu`, variant "bf16_tc"), f32 inputs the
+CUDA-core kernel (`csrc/flash_attention.cu`, variant "f32").
 """
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import Dict, Optional
 
 import torch
@@ -31,12 +37,13 @@ def _check_inputs(vals: torch.Tensor, dg: DeviceGraph,
             f"vals must be int32[{dg.n}, W], got {vals.dtype}{list(vals.shape)}")
     if edge_active.dtype != torch.bool or edge_active.shape != (dg.m,):
         raise ValueError(f"edge_active must be bool[{dg.m}]")
-    for name, t in (("dg.src", dg.src), ("dg.dst_ptr", dg.dst_ptr),
-                    ("edge_active", edge_active)):
+    for name, t in (("dg.src", dg.src), ("dg.dst", dg.dst),
+                    ("dg.dst_ptr", dg.dst_ptr), ("edge_active", edge_active)):
         if t.device != vals.device:
             raise ValueError(f"{name} is on {t.device}, vals on {vals.device}")
-    if dg.src.dtype != torch.int32 or dg.dst_ptr.dtype != torch.int64:
-        raise ValueError("dg.src must be int32 and dg.dst_ptr int64")
+    if (dg.src.dtype != torch.int32 or dg.dst.dtype != torch.int32
+            or dg.dst_ptr.dtype != torch.int64):
+        raise ValueError("dg.src and dg.dst must be int32 and dg.dst_ptr int64")
 
 
 def _stream(t: torch.Tensor) -> int:
@@ -56,20 +63,29 @@ def _no_grad_input(name: str, *ts: torch.Tensor) -> None:
 
 
 # ------------------------------------------------------------- bitset_spmm
+# dst-sorted arcs per warp of the edge-balanced kernel that runs bitset_spmm
+# at W <= 2, passed to it with each launch
+BITSET_ARC_CHUNK = 256
+
+
 def _bitset_spmm_cuda(vals, dg, edge_active):
     from repro_torch.kernels import build
 
     _check_inputs(vals, dg, edge_active)
     vals = vals.contiguous()
     edge_active = edge_active.contiguous()
+    if dg.m == 0 and vals.shape[1] <= 2:
+        # the edge-balanced kernel has no arc to take: nothing is launched
+        return torch.zeros_like(vals)
     out = torch.empty_like(vals)
     if dg.n == 0:
         return out
     lib = build.library()
     code = lib.bitset_spmm_launch(
-        vals.data_ptr(), dg.src.data_ptr(), dg.dst_ptr.data_ptr(),
-        edge_active.data_ptr(), out.data_ptr(), dg.n,
-        vals.shape[1], vals.device.index or 0, _stream(vals))
+        vals.data_ptr(), dg.src.data_ptr(), dg.dst.data_ptr(),
+        dg.dst_ptr.data_ptr(), edge_active.data_ptr(), out.data_ptr(), dg.n,
+        dg.m, BITSET_ARC_CHUNK, vals.shape[1], vals.device.index or 0,
+        _stream(vals))
     build.check(code, "bitset_spmm")
     registry.count_launch("bitset_spmm")
     return out
@@ -197,6 +213,50 @@ def neighborhood_agg(
 
 # --------------------------------------------------------- flash_attention
 ATTENTION_HEAD_DIMS = (64, 128, 256)
+# the kernel each dtype takes: bf16 the tensor-core kernel, f32 the
+# CUDA-core kernel, which keeps f32 inputs exact to f32 rounding
+ATTENTION_VARIANTS = {torch.bfloat16: "bf16_tc", torch.float32: "f32"}
+# keys per kv tile of the tensor-core kernel, passed to it with each launch
+# (csrc/flash_attention_sm90.cu builds these pairs): two stages of K and V
+# tiles beside the 128-row q tile fit the 227 KB of shared memory a block
+# may use; its numerics are attention_blockwise's at this block size
+ATTENTION_KV_TILE = {64: 128, 128: 128, 256: 64}
+# TMA reads bf16 q, k, v from a 16-byte-aligned base, with batch, head and
+# position strides that are multiples of 16 bytes
+TMA_ALIGN_BYTES = 16
+
+
+def attention_variant(dtype: torch.dtype, d: int) -> str:
+    """The kernel that takes [.., D] inputs of this dtype on the card:
+    "bf16_tc" or "f32". Raises for another dtype or D."""
+    if d not in ATTENTION_HEAD_DIMS:
+        raise ValueError(f"flash_attention takes D in {ATTENTION_HEAD_DIMS}, got {d}")
+    if dtype not in ATTENTION_VARIANTS:
+        raise ValueError(f"flash_attention takes f32 or bf16, got {dtype}")
+    return ATTENTION_VARIANTS[dtype]
+
+
+def tma_strides(name: str, t: torch.Tensor):
+    """The element strides (batch, head, position) of t [B, H, S, D], whose
+    last axis is contiguous, as the tensor-core kernel's TMA maps take them.
+    Raises ValueError unless t's base address is 16-byte aligned and the
+    stride of each of those axes longer than 1 is a multiple of 16 bytes; an
+    axis of length 1 is given its contiguous stride, which TMA never steps."""
+    elem = t.element_size()
+    if t.data_ptr() % TMA_ALIGN_BYTES:
+        raise ValueError(f"{name} starts at an address that is not "
+                         f"{TMA_ALIGN_BYTES}-byte aligned: pass a contiguous copy")
+    out = []
+    for axis in range(3):
+        if t.shape[axis] == 1:
+            out.append(math.prod(t.shape[axis + 1:]))
+        elif (t.stride(axis) * elem) % TMA_ALIGN_BYTES:
+            raise ValueError(f"{name}'s stride {t.stride(axis)} along axis {axis} "
+                             f"is not a multiple of {TMA_ALIGN_BYTES} bytes: pass a "
+                             "contiguous copy")
+        else:
+            out.append(t.stride(axis))
+    return tuple(out)
 
 
 def _attention_cuda(q, k, v, causal, window):
@@ -204,9 +264,8 @@ def _attention_cuda(q, k, v, causal, window):
 
     _no_grad_input("flash_attention", q, k, v)
     b, hq, s, d = q.shape
-    if d not in ATTENTION_HEAD_DIMS:
-        raise ValueError(f"flash_attention takes D in {ATTENTION_HEAD_DIMS}, got {d}")
-    if b > 65535 or hq > 65535:
+    variant = attention_variant(q.dtype, d)
+    if variant == "f32" and (b > 65535 or hq > 65535):
         raise ValueError(f"batch {b} or heads {hq} exceed the grid's 65535")
     for name, t in (("k", k), ("v", v)):
         if t.device != q.device:
@@ -215,16 +274,22 @@ def _attention_cuda(q, k, v, causal, window):
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out
-    strides = (ctypes.c_longlong * 12)(
-        *(st for t in (q, k, v, out) for st in t.stride()[:3]))
+    head = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, hq,
+            k.shape[1], s, d)
+    if variant == "bf16_tc":
+        st = [x for name, t in (("q", q), ("k", k), ("v", v))
+              for x in tma_strides(name, t)] + list(out.stride()[:3])
+    else:
+        st = [x for t in (q, k, v, out) for x in t.stride()[:3]]
+    rest = ((ctypes.c_longlong * 12)(*st), int(causal),
+            0 if window is None else int(window), q.device.index or 0, _stream(q))
     lib = build.library()
-    code = lib.flash_attention_launch(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, hq,
-        k.shape[1], s, d, strides, int(causal),
-        0 if window is None else int(window), _KERNEL_DTYPES[q.dtype],
-        q.device.index or 0, _stream(q))
-    build.check(code, "flash_attention")
-    registry.count_launch("flash_attention")
+    if variant == "bf16_tc":
+        code = lib.flash_attention_bf16_launch(*head, ATTENTION_KV_TILE[d], *rest)
+    else:
+        code = lib.flash_attention_launch(*head, *rest)
+    build.check(code, f"flash_attention ({variant})")
+    registry.count_launch("flash_attention", variant=variant)
     return out
 
 
@@ -241,7 +306,8 @@ def attention(
     query - window. f32 or bf16, all three of one dtype.
 
     Any S: the TPU kernel's S % 128 and D >= 128 gate has no counterpart;
-    the CUDA kernel takes D in 64, 128, 256."""
+    the CUDA kernels take D in 64, 128, 256 (`attention_variant` names the
+    one a dtype takes)."""
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError(f"q must be [B, Hq, S, D] and k, v [B, Hkv, S, D], got "
                          f"{list(q.shape)}, {list(k.shape)}, {list(v.shape)}")

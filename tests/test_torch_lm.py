@@ -5,6 +5,8 @@ the norms and RoPE, the qwen2 smoke model's forward, decode steps, prefill
 across, the token stream and the configs. Inputs are made with numpy from a
 seed and handed to both packages."""
 import dataclasses
+import re
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -24,7 +26,7 @@ from repro.serve import engine as rengine  # noqa: E402
 from repro_torch import configs  # noqa: E402
 from repro_torch.configs.base import LMConfig  # noqa: E402
 from repro_torch.data.tokens import SyntheticTokenStream  # noqa: E402
-from repro_torch.kernels import ops, ref  # noqa: E402
+from repro_torch.kernels import ops, ref, registry  # noqa: E402
 from repro_torch.models import common  # noqa: E402
 from repro_torch.models.transformer import Transformer  # noqa: E402
 from repro_torch.serve import engine  # noqa: E402
@@ -86,21 +88,103 @@ def test_attention_plain_matches_jax_oracles(b, hq, hkv, s, d, causal, window):
     np.testing.assert_allclose(blockwise.numpy(), want, **ATTN_TOL)
 
 
-@pytest.mark.parametrize("s,window,dtype", [
-    (2304, None, "f32"), (2304, 300, "f32"), (1100, None, "bf16"),
+@pytest.mark.parametrize("s,window,dtype,block_k", [
+    # the oracles' default block, past the plain path's cutoff
+    pytest.param(2304, None, "f32", 1024, id="2304-None-f32"),
+    pytest.param(2304, 300, "f32", 1024, id="2304-300-f32"),
+    pytest.param(1100, None, "bf16", 1024, id="1100-None-bf16"),
+] + [
+    # the bf16 kernel's kv tiles (ops.ATTENTION_KV_TILE), whose numerics are
+    # the blockwise oracle's at that block size
+    (s, window, dtype, block_k) for block_k in (64, 128)
+    for s, window, dtype in ((1100, None, "f32"), (1100, 300, "bf16"),
+                             (777, None, "bf16"))
 ])
-def test_attention_blockwise_matches_jax_blockwise(s, window, dtype):
+def test_attention_blockwise_matches_jax_blockwise(s, window, dtype, block_k):
     """Past ATTENTION_BLOCKWISE_CUTOFF the CPU path is the blockwise plain
-    version; at bf16 both oracles round p to bf16 before the second product."""
+    version; at bf16 both oracles round p to bf16 before the second product.
+    At the kernel's kv tiles the two oracles agree block for block."""
     (jq, jk, jv), (tq, tk, tv) = _both(_qkv(1, 2, 1, s, 64, seed=s), dtype)
-    want = _np(rref.attention_blockwise(jq, jk, jv, causal=True, window=window))
-    got = ref.attention_blockwise(tq, tk, tv, causal=True, window=window)
+    want = _np(rref.attention_blockwise(jq, jk, jv, causal=True, window=window,
+                                        block_k=block_k))
+    got = ref.attention_blockwise(tq, tk, tv, causal=True, window=window,
+                                  block_k=block_k)
     tol = ATTN_TOL if dtype == "f32" else BF16_TOL
     np.testing.assert_allclose(got.float().numpy(), want, **tol)
     if s > ref.ATTENTION_BLOCKWISE_CUTOFF:
         torch.testing.assert_close(
             ops.attention(tq, tk, tv, causal=True, window=window), got,
             rtol=0, atol=0)
+
+
+def _two_bf16_ulps(want):
+    w = want.float().abs().clamp_min(2.0 ** -126)
+    return 2 * torch.exp2(torch.floor(torch.log2(w)) - 7)
+
+
+@pytest.mark.parametrize("b,hq,hkv,s,d,causal,window", [
+    (1, 4, 2, 600, 64, True, None),     # GQA causal
+    (1, 4, 1, 700, 128, False, 100),    # MQA, window only
+    (2, 6, 3, 300, 64, True, 50),       # GQA causal + window
+    (1, 2, 2, 1100, 256, True, None),   # wide head dim
+])
+def test_bf16_blockwise_within_bound_of_f32_rounded_once(b, hq, hkv, s, d,
+                                                         causal, window):
+    """The bf16 kernel's contract (ii) as it applies to the blockwise oracle:
+    elementwise within 2 bf16 ulps + (2^-8 + 2^-16) A of f32 arithmetic
+    rounded once, A = the softmax weights' sum with |v| (attention of |v| in
+    f32). Rounding p to bf16 moves each p by at most 2^-8 of itself (the
+    unit roundoff of bf16's 8 significant bits) while l sums the unrounded
+    p; 2^-16 covers f32 sums in another order. Held here by the blockwise
+    oracle at the kernel's smallest kv tile and at the oracle's default
+    block; the p rounding shows: 2 ulps alone fail."""
+    q, k, v = (torch.from_numpy(a).to(torch.bfloat16)
+               for a in _qkv(b, hq, hkv, s, d, seed=s + d))
+    want = ref.attention_ref(q, k, v, causal=causal, window=window).float()
+    weights = ref.attention_ref(q.float(), k.float(), v.float().abs(),
+                                causal=causal, window=window)
+    floor = (2.0 ** -8 + 2.0 ** -16) * weights
+    for block_k in (64, 1024):
+        got = ref.attention_blockwise(q, k, v, causal=causal, window=window,
+                                      block_k=block_k).float()
+        err = (got - want).abs()
+        assert bool((err <= _two_bf16_ulps(want) + floor).all()), block_k
+        assert bool((err > _two_bf16_ulps(want)).any()), block_k
+
+
+def test_attention_routing_by_dtype_and_head_dim():
+    """The pure-Python half of the CUDA wrapper: bf16 takes the tensor-core
+    kernel, f32 the CUDA-core kernel; the kv tile per D; the checks of the
+    TMA maps' alignment raise."""
+    for d in ops.ATTENTION_HEAD_DIMS:
+        assert ops.attention_variant(torch.bfloat16, d) == "bf16_tc"
+        assert ops.attention_variant(torch.float32, d) == "f32"
+    assert ops.ATTENTION_KV_TILE == {64: 128, 128: 128, 256: 64}
+    # the wrapper passes the kv tile to the kernel, which is built for these
+    # (D, kv tile) pairs alone and refuses any other
+    source = (Path(ops.__file__).parent / "csrc" / "flash_attention_sm90.cu").read_text()
+    built = re.findall(r"if \(d == (\d+) && kv_tile == (\d+)\)", source)
+    assert {int(d): int(t) for d, t in built} == ops.ATTENTION_KV_TILE
+    for dtype, d in ((torch.bfloat16, 96), (torch.float16, 128), (torch.float64, 64)):
+        with pytest.raises(ValueError):
+            ops.attention_variant(dtype, d)
+    assert registry.VARIANTS["flash_attention"] == ("bf16_tc", "f32")
+
+    # contiguous, a transposed [B, S, H, D] view (the model's v) and a
+    # length-1 axis with a stride TMA never steps: accepted as they are
+    t = torch.zeros((2, 3, 70, 128), dtype=torch.bfloat16)
+    assert ops.tma_strides("q", t) == t.stride()[:3]
+    v = torch.zeros((2, 70, 4, 64), dtype=torch.bfloat16).transpose(1, 2)
+    assert ops.tma_strides("v", v) == (70 * 4 * 64, 64, 4 * 64)
+    one = torch.zeros((1, 2, 8, 64), dtype=torch.bfloat16)[:, :, ::2]
+    assert ops.tma_strides("k", one) == (2 * 4 * 64, 8 * 64, 2 * 64)
+    # a base off the 16-byte grid, and a position stride of 65 elements
+    flat = torch.zeros(2 * 3 * 8 * 64 + 1, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="aligned"):
+        ops.tma_strides("q", flat[1:].view(2, 3, 8, 64))
+    wide = torch.zeros((2, 3, 8, 65), dtype=torch.bfloat16)[..., :64]
+    with pytest.raises(ValueError, match="stride"):
+        ops.tma_strides("k", wide)
 
 
 @pytest.mark.parametrize("b,hq,hkv,s,d,causal,window", [

@@ -7,12 +7,18 @@ From the root of a checkout, on a machine with a CUDA device and `nvcc`:
 
 1. device   prints the card and its power limit, builds the CUDA kernels
             from `src/repro_torch/kernels/csrc/` and prints the build time;
-2. kernels  holds `bitset_spmm` and `bitset_wave` against their plain
-            PyTorch versions on the card (bit-exact; `bitset_spmm` at W = 1
-            and 2 also on a hub of 120,000 in-arcs and on runs that start on
-            the edge-balanced kernel's chunk boundaries), then times both at
-            the shapes of the R-MAT scale-20 main path beside their bounds,
-            with the bytes the W = 1 sweep moves;
+2. kernels  a. holds `bitset_spmm` and `bitset_wave` against their plain
+               PyTorch versions on the card, bit-exact: `bitset_spmm` at
+               W = 1 and 2 also on a hub of 120,000 in-arcs and on runs that
+               start on the edge-balanced kernel's chunk boundaries;
+               `bitset_wave` on that hub graph at W in {1, 2, 4, 32, 48} x
+               L in {1, 3, 6}, with the hub live in every hop and in
+               alternate hops, random candidacy words, a hop without
+               candidates, every vertex a candidate, two calls back to back
+               and one call under sync debug mode (`wave_checks`);
+            b. times both at the shapes of the R-MAT scale-20 main path
+               beside their bounds, with the bytes the W = 1 sweep moves;
+               the wave also with every vertex a candidate;
 3. parity   runs prune + count on R-MAT scale 14 on the card (kernels) and
             on the CPU (plain versions) and requires identical omega, edge
             mask, phase trajectory and match count; the three NLCC routes on
@@ -88,9 +94,9 @@ From the root of a checkout, on a machine with a CUDA device and `nvcc`:
 
 Every time is printed beside the card's name and power limit. The line
 before the last is a JSON object listing each kernel with its launches on
-its path's run, its error against the plain version, its times and, as
-text, its device time before the tensor-core attention and the
-edge-balanced bitset_spmm; the last line is
+its path's run, its error against the plain version and its times, all
+measured in this run (`bound_ms` computed from this run's inputs); the
+last line is
 {"ok": true, "device": {...}}. Without a CUDA device,
 or when any check fails, the script exits non-zero and prints no result.
 """
@@ -362,6 +368,99 @@ def spmm_edge_graphs(rng):
     return {"hub": hub, "chunk boundary": boundary}
 
 
+def wave_cands(rng, kind, hops, n, hub):
+    """int32[hops, n] candidacy words of one phase-2a wave case."""
+    if kind == "random words":
+        # every bit pattern, a third of the words 0, the hub's nonzero
+        words = rng.integers(-2**31, 2**31, size=(hops, n), dtype=np.int64)
+        words[rng.random((hops, n)) < 1 / 3] = 0
+        words[:, hub] = np.where(words[:, hub] == 0, 1, words[:, hub])
+        return torch.from_numpy(words.astype(np.int32))
+    if kind == "every vertex":
+        return torch.full((hops, n), -1, dtype=torch.int32)
+    cand = np.where(rng.random((hops, n)) < 0.5, -1, 0).astype(np.int32)
+    if kind == "hub live every hop":
+        cand[:, hub] = -1
+    elif kind == "hub live in alternate hops":
+        cand[:, hub] = np.where(np.arange(hops) % 2 == 0, -1, 0)
+    elif kind == "empty hop":
+        cand[min(1, hops - 1)] = 0  # hop 1 (hop 0 at L = 1) has no candidate
+    return torch.from_numpy(cand)
+
+
+def poison_allocator(shapes, rng, dev):
+    """Fill and free tensors of the shapes the wave wrapper allocates, so that
+    its torch.empty buffers hold random words, not zeros."""
+    for shape in shapes:
+        t = torch.from_numpy(rng.integers(-2**31, 2**31, size=shape,
+                                          dtype=np.int64).astype(np.int32)).to(dev)
+        del t
+
+
+def wave_checks(rng, dge, hub):
+    """bitset_wave against its plain version on the hub graph, W in
+    {1, 2, 4, 32, 48} x L in {1, 3, 6}: the hub (in-degree 120,000, split
+    over hundreds of work items) live in every hop and in alternate hops
+    (live in hops r - 1 and r + 1, not in r), random candidacy words, a hop
+    without candidates, every vertex a candidate; two calls back to back on
+    different inputs, the second's scratch holding the first's rows; and one
+    call under torch.cuda.set_sync_debug_mode("error"), which raises on any
+    host sync. Every call's buffers come from a poisoned allocator. Returns
+    the number of checks."""
+    dev = DEVICE
+    kinds = ("hub live every hop", "hub live in alternate hops", "random words",
+             "empty hop", "every vertex")
+    n_checks = 0
+    for w in (1, 2, 4, 32, 48):
+        for hops in (1, 3, 6):
+            ea = torch.from_numpy(rng.random(dge.m) < 0.6).to(dev)
+            cap = ops.wave_item_capacity(dge.n, dge.m)
+            shapes = [(max(1, min(ops.BITSET_WAVE_BUFFERS, hops - 1)), dge.n, w),
+                      (hops, cap, 2), (dge.n, w)]
+
+            def run(vals, cand, label):
+                want = ref.bitset_wave_ref(vals, dge.src, dge.dst, dge.n, ea, cand)
+                poison_allocator(shapes, rng, dev)
+                got = ops.bitset_wave(vals, dge, ea, cand)
+                sync()
+                check(torch.equal(got, want),
+                      f"bitset_wave W={w} L={hops}, {label}, differs")
+
+            for kind in kinds:
+                run(random_words(rng, dge.n, w, dev),
+                    wave_cands(rng, kind, hops, dge.n, hub).to(dev), kind)
+                n_checks += 1
+            # back to back: no sync between the calls
+            ins = [(random_words(rng, dge.n, w, dev),
+                    wave_cands(rng, "hub live in alternate hops", hops, dge.n,
+                               hub).to(dev)) for _ in range(2)]
+            wants = [ref.bitset_wave_ref(v, dge.src, dge.dst, dge.n, ea, c)
+                     for v, c in ins]
+            poison_allocator(shapes, rng, dev)
+            gots = [ops.bitset_wave(v, dge, ea, c) for v, c in ins]
+            sync()
+            check(all(torch.equal(g, x) for g, x in zip(gots, wants)),
+                  f"bitset_wave W={w} L={hops}, two calls back to back, differs")
+            n_checks += 1
+            # no host sync inside the wrapper
+            vals = random_words(rng, dge.n, w, dev)
+            cand = wave_cands(rng, "hub live every hop", hops, dge.n, hub).to(dev)
+            want = ref.bitset_wave_ref(vals, dge.src, dge.dst, dge.n, ea, cand)
+            sync()
+            if dev == "cuda":
+                torch.cuda.set_sync_debug_mode("error")
+            try:
+                got = ops.bitset_wave(vals, dge, ea, cand)
+            finally:
+                if dev == "cuda":
+                    torch.cuda.set_sync_debug_mode("default")
+            sync()
+            check(torch.equal(got, want),
+                  f"bitset_wave W={w} L={hops} under sync debug mode differs")
+            n_checks += 1
+    return n_checks
+
+
 def phase_kernels_small():
     """Bit-exact kernel-vs-plain checks on the card at small shapes."""
     log("== phase 2a: kernels vs plain versions (bit-exact)")
@@ -399,7 +498,8 @@ def phase_kernels_small():
             random_words(rng, dg.n, w, dev), dg, some)[-100:].any(),
             f"vertices without in-arcs must aggregate to 0 (W={w})")
         n_checks += 1
-    for name, ge in spmm_edge_graphs(rng).items():
+    graphs = spmm_edge_graphs(rng)
+    for name, ge in graphs.items():
         dge = DeviceGraph.from_host(ge, dev)
         in_deg = dge.dst_ptr[1:] - dge.dst_ptr[:-1]
         for w in (1, 2):
@@ -415,9 +515,12 @@ def phase_kernels_small():
         log(f"  {name} graph: n={dge.n} m={dge.m} (m mod {ops.BITSET_ARC_CHUNK} = "
             f"{dge.m % ops.BITSET_ARC_CHUNK}), max in-degree {int(in_deg.max())}, "
             f"{int((in_deg == 0).sum())} vertices without in-arcs")
-    log(f"{n_checks} kernel/plain comparisons bit-exact "
+    n_wave = wave_checks(rng, DeviceGraph.from_host(graphs["hub"], dev), 0)
+    log(f"{n_checks + n_wave} kernel/plain comparisons bit-exact "
         f"(n={dg.n}, m={dg.m}, W in 1/2/4/32, L in 0/1/3/6; the hub and "
-        f"chunk-boundary graphs at W in 1/2)")
+        f"chunk-boundary graphs at W in 1/2; {n_wave} bitset_wave cases on the "
+        f"hub graph, W in 1/2/4/32/48, L in 1/3/6, one call of each under sync "
+        f"debug mode)")
 
 
 def spmm_moved_bytes(dg, edge_active, w):
@@ -462,27 +565,44 @@ def phase_kernel_timing(dg, template, label_freq):
                           route=registry.ROUTE_PACKED)
     packed, cand = first_wave_inputs(dg, template, state1, label_freq)
     ea1 = state1.edge_active
-    out_k = ops.bitset_wave(packed, dg, ea1, cand)
-    out_p = ref.bitset_wave_ref(packed, dg.src, dg.dst, dg.n, ea1, cand)
-    wave = {
-        "max_abs_err": max_abs_err(out_k, out_p),
-        "ms": time_ms(lambda: ops.bitset_wave(packed, dg, ea1, cand), 20),
-        "device_ms": kernel_device_ms(
-            lambda: ops.bitset_wave(packed, dg, ea1, cand), 20, "bitset_wave",
-            per_call=cand.shape[0]),
-        "plain_ms": time_ms(lambda: ref.bitset_wave_ref(
-            packed, dg.src, dg.dst, dg.n, ea1, cand), 2),
-    }
-    wave["bound_ms"], wave["bound_by"] = bound(
-        wave_cost(dg, ea1, cand, packed.shape[1]))
-    check(wave["max_abs_err"] == 0, "bitset_wave differs at scale 20")
-    live = [int((cand[r] != 0).sum()) for r in range(cand.shape[0])]
-    log(f"bitset_wave  W={packed.shape[1]} L={cand.shape[0]} "
-        f"active arcs={int(ea1.sum())} candidates per hop={live}: "
-        f"{wave['ms']:.4f} ms kernel ({wave['device_ms']:.4f} ms on the device), "
-        f"{wave['plain_ms']:.4f} ms plain, "
-        f"{wave['bound_ms']:.4f} ms bound ({wave['bound_by']})")
+    wave = wave_timing(dg, packed, ea1, cand, "main-path wave")
+    # the same wave with every vertex a candidate in every hop
+    wave["every_vertex"] = wave_timing(dg, packed, ea1, torch.full_like(cand, -1),
+                                       "every vertex a candidate")
     return {"bitset_spmm": spmm, "bitset_wave": wave}
+
+
+def wave_timing(dg, packed, ea, cand, label):
+    """bitset_wave's times, the plain version's and the bound on one wave's
+    inputs, checked bit-exact, with each hop's candidates and the largest
+    in-degree of a candidate."""
+    hops = cand.shape[0]
+    out_k = ops.bitset_wave(packed, dg, ea, cand)
+    out_p = ref.bitset_wave_ref(packed, dg.src, dg.dst, dg.n, ea, cand)
+    t = {
+        "max_abs_err": max_abs_err(out_k, out_p),
+        "ms": time_ms(lambda: ops.bitset_wave(packed, dg, ea, cand), 20),
+        "device_ms": kernel_device_ms(
+            lambda: ops.bitset_wave(packed, dg, ea, cand), 20, "bitset_wave",
+            per_call=1 + hops),
+        "plain_ms": time_ms(lambda: ref.bitset_wave_ref(
+            packed, dg.src, dg.dst, dg.n, ea, cand), 2),
+    }
+    del out_k, out_p
+    t["bound_ms"], t["bound_by"] = bound(wave_cost(dg, ea, cand, packed.shape[1]))
+    check(t["max_abs_err"] == 0, f"bitset_wave differs at scale 20 ({label})")
+    live = cand != 0
+    deg = dg.dst_ptr[1:] - dg.dst_ptr[:-1]
+    t["candidates_per_hop"] = [int(live[r].sum()) for r in range(hops)]
+    t["max_candidate_in_degree"] = int(deg[live.any(0)].max()) if live.any() else 0
+    log(f"bitset_wave  W={packed.shape[1]} L={hops} ({label}) active arcs="
+        f"{int(ea.sum())} candidates per hop={t['candidates_per_hop']}, largest "
+        f"in-degree of a candidate {t['max_candidate_in_degree']}: "
+        f"{t['ms']:.4f} ms kernel ({t['device_ms']:.4f} ms on the device, "
+        f"{t['device_ms'] / t['bound_ms']:.2f}x bound), "
+        f"{t['plain_ms']:.4f} ms plain, "
+        f"{t['bound_ms']:.4f} ms bound ({t['bound_by']})")
+    return t
 
 
 def phase_parity():
@@ -798,11 +918,11 @@ def phase_gnn_full(shape=None):
 
 
 # the device functions each kernel's wrapper launches, as torch.profiler
-# names them (bitset_spmm at W <= 2 and at W > 2; bitset_wave's hops at
-# W <= 2 and at W > 2; flash_attention's bf16 and f32 variants)
+# names them (bitset_spmm at W <= 2 and at W > 2; bitset_wave's worklist
+# pass and hops; flash_attention's bf16 and f32 variants)
 KERNEL_SYMBOLS = {
-    "bitset_spmm": r"or_gather_arcs<|or_gather_warp<false>",
-    "bitset_wave": r"or_gather_thread<|or_gather_warp<true>",
+    "bitset_spmm": r"or_gather_arcs<|or_gather_warp\(",
+    "bitset_wave": r"wave_worklist\(|wave_hop<",
     "segment_agg": r"segment_agg_kernel<",
     "flash_attention": r"flash_attention(_bf16)?_kernel<",
     "embedding_bag": r"embedding_bag_kernel<",
@@ -1560,11 +1680,8 @@ def run_prune():
     return [{
         "name": name, "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/bitset.cu",
-        "replaces": replaces, "launches": launches[name],
-        "max_abs_err": timing[name]["max_abs_err"], "ms": timing[name]["ms"],
-        "device_ms": timing[name]["device_ms"],
-        "plain_ms": timing[name]["plain_ms"], "bound_ms": timing[name]["bound_ms"],
-        "bound_by": timing[name]["bound_by"], "library_ms": None, "bit_exact": True,
+        "replaces": replaces, "launches": launches[name], "library_ms": None,
+        "bit_exact": True, **timing[name],
     } for name, replaces in (("bitset_spmm", "src/repro/kernels/bitset_spmm.py:77"),
                              ("bitset_wave", "src/repro/kernels/bitset_wave.py:89"))]
 

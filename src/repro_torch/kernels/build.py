@@ -102,7 +102,8 @@ def library() -> ctypes.CDLL:
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.bitset_spmm_launch.argtypes = [p, p, p, p, p, p, ll, ll, ll, i, i, p]
     lib.bitset_spmm_launch.restype = i
-    lib.bitset_wave_launch.argtypes = [p, p, p, p, p, i, p, p, ll, i, i, p]
+    lib.bitset_wave_launch.argtypes = [
+        p, p, p, p, p, i, p, i, p, p, p, ll, ll, ll, i, i, p]
     lib.bitset_wave_launch.restype = i
     lib.segment_agg_launch.argtypes = [p, p, p, ll, i, i, i, i, p]
     lib.segment_agg_launch.restype = i

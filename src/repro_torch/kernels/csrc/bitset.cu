@@ -12,17 +12,34 @@
 // wrapper's rule for dst blocks no adjacency block touches).
 //
 // bitset_wave replaces src/repro/kernels/bitset_wave.py (`bitset_wave`):
-// L hops of F_r = OR-agg(F_{r-1}) & cand[r]. Each hop depends on the whole
-// previous hop, so it is L launches of the hop kernel with ping-pong frontier
-// buffers. A vertex whose candidacy word is 0 writes zeros without reading a
-// single arc: candidacy is sparse after LCC, so most rows cost nothing. This
-// stands in for what the TPU kernel gained by keeping the frontier resident
-// in VMEM.
+// L hops of F_r = OR-agg(F_{r-1}) & cand[r], any 32-bit candidacy words.
+// The TPU kernel keeps the frontier resident in VMEM across the hops. After
+// LCC a hop has a few hundred candidates among a million vertices, so here
+// a hop's cost follows its candidates, not n:
+//   - a worklist pass (a thread per vertex, one read of cand [L, n]) lists
+//     each hop's candidates on the device, one item per BITSET_ARC_CHUNK
+//     in-arcs, so that a live hub is split over many warps; the counts stay
+//     on the device and each hop kernel has a fixed grid that strides over
+//     them, so the host reads nothing back;
+//   - reads are gated by the previous hop's candidacy: F_{r-1}[u] =
+//     agg & cand[r-1][u] is 0 where that word is 0, so a hop reads
+//     cand[r-1][u] (4 B) before row u and never reads a non-candidate row.
+//     The frontiers between hops are then written only at their candidates'
+//     rows, in scratch buffers that rotate over at least three (the caller
+//     says how many, kernels/ops.py BITSET_WAVE_BUFFERS): a split row is
+//     zeroed by the previous hop's grid in a buffer that neither that hop
+//     reads nor writes, and no leftover of the caching allocator is ever
+//     read;
+//   - `out` is zeroed once (cudaMemsetAsync, n W 4 bytes: most of the cost
+//     at scale 20) and the last hop writes only its candidates' rows. The
+//     live rows (a few hundred of 128 B) stay in the L2, this card's
+//     counterpart of the resident frontier.
 //
-// What bounds them on this card: bytes. Per call they read the arc arrays,
-// one W-word source row per active arc they visit, and write n rows of W
-// words -- about one bitwise OR per 4 bytes moved, far below what the card
-// can compute per byte of its 3.35 TB/s. The designs:
+// What bounds them on this card: bytes. Per call they read the arc arrays
+// (bitset_wave: only its candidates' in-arcs), one W-word source row per
+// active arc they visit, and write n rows of W words -- about one bitwise
+// OR per 4 bytes moved, far below what the card can compute per byte of its
+// 3.35 TB/s. The designs:
 //   bitset_spmm, W <= 2 (LCC sweeps)  edge-balanced: each warp takes a chunk
 //     of dst-sorted arcs (as many as the caller asks, kernels/ops.py
 //     BITSET_ARC_CHUNK), 32 at a time, lanes reading dst (4 B),
@@ -37,12 +54,13 @@
 //     hub with tens of thousands of in-arcs is reduced by hundreds of warps
 //     and costs one atomic per chunk, where one thread walking its arcs
 //     set the length of the whole launch;
-//   W = 32 (NLCC waves, and bitset_spmm at W > 2)  one warp per vertex,
-//     lane = word, so each arc's source row is one 128-byte load; the warp
-//     loads 32 arcs' (src, active) at once and broadcasts them with
-//     shuffles; other widths > 2 stride the lanes over the words;
-//   the masked hop of bitset_wave at W <= 2  one thread per vertex, its
-//     words in registers, so that a non-candidate reads nothing.
+//   bitset_spmm at W > 2  one warp per vertex, lane = word, so each arc's
+//     source row is one 128-byte load at W = 32; the warp loads 32 arcs'
+//     (src, active) at once and broadcasts them with shuffles; other widths
+//     stride the lanes over the words;
+//   bitset_wave  a warp per work item; at W > 2 lanes over words as above,
+//     broadcasting only the arcs that are active and pass the gate (a
+//     ballot); at W <= 2 lanes over arcs and a warp OR-reduction.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -117,80 +135,34 @@ or_gather_arcs(const uint32_t* __restrict__ vals,
   }
 }
 
-// One thread per destination vertex, W words kept in registers (the masked
-// hop of bitset_wave at W <= 2).
-template <int W>
-__global__ void __launch_bounds__(kBlock)
-or_gather_thread(const uint32_t* __restrict__ vals,
-                 const int32_t* __restrict__ src,
-                 const int64_t* __restrict__ dst_ptr,
-                 const uint8_t* __restrict__ active,
-                 const uint32_t* __restrict__ cand,
-                 uint32_t* __restrict__ out, int64_t n) {
-  const int64_t v = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
-  if (v >= n) return;
-  const uint32_t mask = cand[v];
-  uint32_t acc[W];
-#pragma unroll
-  for (int w = 0; w < W; ++w) acc[w] = 0u;
-  if (mask != 0u) {
-    const int64_t end = dst_ptr[v + 1];
-    for (int64_t e = dst_ptr[v]; e < end; ++e) {
-      if (!active[e]) continue;
-      const uint32_t* row = vals + static_cast<int64_t>(src[e]) * W;
-#pragma unroll
-      for (int w = 0; w < W; ++w) acc[w] |= row[w];
-    }
-  }
-#pragma unroll
-  for (int w = 0; w < W; ++w) out[v * W + w] = acc[w] & mask;
-}
-
 // One warp per destination vertex; lane l owns words l, l+32, ...
-template <bool kMasked>
+// (bitset_spmm at W > 2).
 __global__ void __launch_bounds__(kBlock)
 or_gather_warp(const uint32_t* __restrict__ vals,
                const int32_t* __restrict__ src,
                const int64_t* __restrict__ dst_ptr,
                const uint8_t* __restrict__ active,
-               const uint32_t* __restrict__ cand,
                uint32_t* __restrict__ out, int64_t n, int W) {
   const int64_t v =
       (blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x) >> 5;
   const int lane = threadIdx.x & 31;
   if (v >= n) return;  // uniform across the warp
-  const uint32_t mask = kMasked ? cand[v] : 0xFFFFFFFFu;
   const int64_t beg = dst_ptr[v];
   const int64_t end = dst_ptr[v + 1];
   for (int w0 = 0; w0 < W; w0 += 32) {
     const int w = w0 + lane;
     uint32_t acc = 0u;
-    if (mask != 0u) {
-      for (int64_t base = beg; base < end; base += 32) {
-        const int64_t e = base + lane;
-        const int32_t s = (e < end && active[e]) ? src[e] : -1;
-        const int cnt = static_cast<int>(end - base < 32 ? end - base : 32);
-        for (int j = 0; j < cnt; ++j) {
-          const int32_t sj = __shfl_sync(0xFFFFFFFFu, s, j);
-          if (sj >= 0 && w < W) acc |= vals[static_cast<int64_t>(sj) * W + w];
-        }
+    for (int64_t base = beg; base < end; base += 32) {
+      const int64_t e = base + lane;
+      const int32_t s = (e < end && active[e]) ? src[e] : -1;
+      const int cnt = static_cast<int>(end - base < 32 ? end - base : 32);
+      for (int j = 0; j < cnt; ++j) {
+        const int32_t sj = __shfl_sync(0xFFFFFFFFu, s, j);
+        if (sj >= 0 && w < W) acc |= vals[static_cast<int64_t>(sj) * W + w];
       }
     }
-    if (w < W) out[v * W + w] = acc & mask;
+    if (w < W) out[v * W + w] = acc;
   }
-}
-
-template <bool kMasked>
-cudaError_t launch_warp(const uint32_t* vals, const int32_t* src,
-                        const int64_t* dst_ptr, const uint8_t* active,
-                        const uint32_t* cand, uint32_t* out, int64_t n, int W,
-                        cudaStream_t stream) {
-  const int64_t warps_per_block = kBlock / 32;
-  const unsigned blocks =
-      static_cast<unsigned>((n + warps_per_block - 1) / warps_per_block);
-  or_gather_warp<kMasked><<<blocks, kBlock, 0, stream>>>(
-      vals, src, dst_ptr, active, cand, out, n, W);
-  return cudaGetLastError();
 }
 
 // The unmasked OR-gather: edge-balanced for W <= 2, `chunk` arcs a warp;
@@ -199,8 +171,14 @@ cudaError_t launch_spmm(const uint32_t* vals, const int32_t* src,
                         const int32_t* dst, const int64_t* dst_ptr,
                         const uint8_t* active, uint32_t* out, int64_t n,
                         int64_t m, int64_t chunk, int W, cudaStream_t stream) {
-  if (W > 2)
-    return launch_warp<false>(vals, src, dst_ptr, active, nullptr, out, n, W, stream);
+  if (W > 2) {
+    const int64_t warps_per_block = kBlock / 32;
+    const unsigned blocks =
+        static_cast<unsigned>((n + warps_per_block - 1) / warps_per_block);
+    or_gather_warp<<<blocks, kBlock, 0, stream>>>(vals, src, dst_ptr, active,
+                                                  out, n, W);
+    return cudaGetLastError();
+  }
   cudaError_t err = cudaMemsetAsync(out, 0, static_cast<size_t>(n) * W * 4, stream);
   if (err != cudaSuccess || m == 0) return err;
   const int64_t chunks_per_block = kBlock / 32;
@@ -216,21 +194,219 @@ cudaError_t launch_spmm(const uint32_t* vals, const int32_t* src,
   return cudaGetLastError();
 }
 
-// One masked hop of bitset_wave: thread per vertex for W <= 2, warp above.
-cudaError_t launch_hop(const uint32_t* vals, const int32_t* src,
-                       const int64_t* dst_ptr, const uint8_t* active,
-                       const uint32_t* cand, uint32_t* out, int64_t n, int W,
-                       cudaStream_t stream) {
-  if (W > 2)
-    return launch_warp<true>(vals, src, dst_ptr, active, cand, out, n, W, stream);
-  const unsigned blocks = static_cast<unsigned>((n + kBlock - 1) / kBlock);
-  if (W == 1)
-    or_gather_thread<1><<<blocks, kBlock, 0, stream>>>(
-        vals, src, dst_ptr, active, cand, out, n);
-  else
-    or_gather_thread<2><<<blocks, kBlock, 0, stream>>>(
-        vals, src, dst_ptr, active, cand, out, n);
-  return cudaGetLastError();
+// ------------------------------------------------------------ bitset_wave
+// A work item of a hop: (vertex, chunk). Chunk -1 is a vertex with at most
+// `chunk` in-arcs, whose row the item stores whole; chunk c >= 0 is arcs
+// [c * chunk, (c + 1) * chunk) of a longer in-arc list, whose row was zeroed
+// before the hop and takes the item's OR by atomicOr.
+struct WaveArgs {
+  const uint32_t* vals;     // [n, W] the hop-0 frontier
+  const int32_t* src;       // [m] dst-sorted arcs
+  const int64_t* dst_ptr;   // [n + 1]
+  const uint8_t* active;    // [m]
+  const uint32_t* cand;     // [L, n] candidacy words
+  int2* items;              // [L, cap] work items of each hop
+  int* counts;              // [L] items of each hop
+  int64_t n, cap, chunk;
+  int L, W;
+};
+
+// Zero row v of a frontier buffer, W words, by one thread (a split row).
+__device__ __forceinline__ void zero_row(uint32_t* buf, int64_t v, int W) {
+  for (int w = 0; w < W; ++w) buf[v * W + w] = 0u;
+}
+
+// Hops whose candidacy words a thread of the worklist pass loads at once.
+constexpr int kHopGroup = 8;
+
+// The worklist pass, a thread per vertex: for each hop r, every candidate
+// (cand[r][v] != 0) appends its items to hop r's list, one per `chunk` of
+// in-arcs (at least one), at an offset from a warp scan and one atomicAdd
+// per warp with candidates and hop on counts[r]. The words of kHopGroup
+// hops are loaded together, and the atomics of a group are issued together,
+// so that a warp waits for memory about once per group. The first chunk of
+// a split list of hop 0 zeroes its row in `hub0` (hop 0's buffer; null when
+// hop 0 writes `out`, which the host zeroes).
+__global__ void __launch_bounds__(kBlock)
+wave_worklist(WaveArgs a, uint32_t* hub0) {
+  const int64_t v = blockIdx.x * static_cast<int64_t>(kBlock) + threadIdx.x;
+  const int lane = threadIdx.x & 31;
+  int64_t deg = -1;  // read at the first group where v is a candidate
+  for (int r0 = 0; r0 < a.L; r0 += kHopGroup) {
+    uint32_t word[kHopGroup];
+#pragma unroll
+    for (int j = 0; j < kHopGroup; ++j)
+      word[j] = (v < a.n && r0 + j < a.L) ? a.cand[(r0 + j) * a.n + v] : 0u;
+    bool any = false;
+#pragma unroll
+    for (int j = 0; j < kHopGroup; ++j) any |= word[j] != 0u;
+    if (!__any_sync(0xFFFFFFFFu, any)) continue;  // no candidate in the warp
+    if (any && deg < 0) deg = a.dst_ptr[v + 1] - a.dst_ptr[v];
+    int k[kHopGroup], incl[kHopGroup], base[kHopGroup];
+#pragma unroll
+    for (int j = 0; j < kHopGroup; ++j) {
+      k[j] = word[j] == 0u ? 0
+             : deg > a.chunk ? static_cast<int>((deg + a.chunk - 1) / a.chunk)
+                             : 1;
+      incl[j] = k[j];  // inclusive scan of k over the warp
+#pragma unroll
+      for (int off = 1; off < 32; off <<= 1) {
+        const int up = __shfl_up_sync(0xFFFFFFFFu, incl[j], off);
+        if (lane >= off) incl[j] += up;
+      }
+      base[j] = 0;
+      if (lane == 31 && incl[j] > 0) base[j] = atomicAdd(a.counts + r0 + j, incl[j]);
+    }
+#pragma unroll
+    for (int j = 0; j < kHopGroup; ++j) {
+      base[j] = __shfl_sync(0xFFFFFFFFu, base[j], 31);
+      if (k[j] == 0) continue;
+      const int r = r0 + j;
+      int2* it = a.items + r * a.cap + base[j] + incl[j] - k[j];
+      if (k[j] == 1) {
+        it[0] = make_int2(static_cast<int>(v), -1);
+      } else {
+        for (int c = 0; c < k[j]; ++c) it[c] = make_int2(static_cast<int>(v), c);
+        if (r == 0 && hub0 != nullptr) zero_row(hub0, v, a.W);
+      }
+    }
+  }
+}
+
+// Arcs a warp loads at once in a hop: 8 rounds of 32, each lane holding 8.
+constexpr int kArcRounds = 8;
+constexpr int kArcGroup = 32 * kArcRounds;
+
+// The sources of arcs [g + 32 j + lane] (j < kArcRounds) below `end` that
+// are active and, for hop r >= 1, whose source is a candidate of hop r - 1
+// (`prev_cand`); -1 for the others. The active flags, then the sources, then
+// the candidacy words of all rounds are loaded together.
+__device__ __forceinline__ void gated_sources(const WaveArgs& a,
+                                              const uint32_t* prev_cand,
+                                              int64_t g, int64_t end, int lane,
+                                              int32_t (&s)[kArcRounds]) {
+  bool act[kArcRounds];
+#pragma unroll
+  for (int j = 0; j < kArcRounds; ++j) {
+    const int64_t e = g + 32 * j + lane;
+    act[j] = e < end && a.active[e] != 0;
+  }
+#pragma unroll
+  for (int j = 0; j < kArcRounds; ++j) s[j] = act[j] ? a.src[g + 32 * j + lane] : -1;
+  if (prev_cand != nullptr) {
+#pragma unroll
+    for (int j = 0; j < kArcRounds; ++j)
+      if (s[j] >= 0 && prev_cand[s[j]] == 0u) s[j] = -1;
+  }
+}
+
+// One hop: F_r = OR over active in-arcs (u -> v) of F_{r-1}[u], & cand[r][v],
+// for the items of hop r, a warp per item, the grid striding over the
+// device-side count. F_{r-1} is `prev` (vals at hop 0);
+// for r >= 1 a source u is read only when cand[r-1][u] != 0 (`prev_cand`):
+// F_{r-1}[u] is 0 otherwise, whatever `prev` holds there. A warp takes an
+// item's arcs kArcGroup at a time (`gated_sources`). WS = 1 or 2: lanes
+// over arcs, a warp OR-reduction; WS = 0: lanes over the W words, each
+// gated arc's source row one coalesced load. Last the grid zeroes the rows
+// of hop r + 1's split lists in `next_after` (null if none).
+template <int WS>
+__global__ void __launch_bounds__(kBlock)
+wave_hop(WaveArgs a, int r, const uint32_t* __restrict__ prev,
+         uint32_t* next, uint32_t* next_after) {
+  const uint32_t* prev_cand = r > 0 ? a.cand + (r - 1) * a.n : nullptr;
+  const uint32_t* cand = a.cand + r * a.n;
+  const int2* items = a.items + r * a.cap;
+  const int W = WS > 0 ? WS : a.W;
+  const int lane = threadIdx.x & 31;
+  const int64_t tid = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
+  const int64_t threads = static_cast<int64_t>(gridDim.x) * blockDim.x;
+  const int total = a.counts[r];
+  for (int64_t i = tid >> 5; i < total; i += threads >> 5) {  // warp-uniform
+    const int2 item = items[i];
+    const int64_t v = item.x;
+    int64_t beg = a.dst_ptr[v];
+    int64_t end = a.dst_ptr[v + 1];
+    if (item.y >= 0) {
+      beg += item.y * a.chunk;
+      end = beg + a.chunk < end ? beg + a.chunk : end;
+    }
+    const uint32_t mask = cand[v];
+    uint32_t* row = next + v * W;
+    if constexpr (WS > 0) {
+      uint32_t acc[WS];
+#pragma unroll
+      for (int w = 0; w < WS; ++w) acc[w] = 0u;
+      for (int64_t g = beg; g < end; g += kArcGroup) {
+        int32_t s[kArcRounds];
+        gated_sources(a, prev_cand, g, end, lane, s);
+#pragma unroll
+        for (int j = 0; j < kArcRounds; ++j) {
+          if (s[j] < 0) continue;
+#pragma unroll
+          for (int w = 0; w < WS; ++w) acc[w] |= prev[static_cast<int64_t>(s[j]) * WS + w];
+        }
+      }
+#pragma unroll
+      for (int w = 0; w < WS; ++w) acc[w] = __reduce_or_sync(0xFFFFFFFFu, acc[w]) & mask;
+      if (lane == 0) {
+#pragma unroll
+        for (int w = 0; w < WS; ++w) {
+          if (item.y < 0) row[w] = acc[w];
+          else if (acc[w] != 0u) atomicOr(row + w, acc[w]);
+        }
+      }
+    } else {
+      for (int w0 = 0; w0 < W; w0 += 32) {
+        const int w = w0 + lane;
+        uint32_t acc = 0u;
+        for (int64_t g = beg; g < end; g += kArcGroup) {
+          int32_t s[kArcRounds];
+          gated_sources(a, prev_cand, g, end, lane, s);
+#pragma unroll
+          for (int j = 0; j < kArcRounds; ++j) {
+            for (unsigned live = __ballot_sync(0xFFFFFFFFu, s[j] >= 0); live != 0u;
+                 live &= live - 1u) {
+              const int32_t sj = __shfl_sync(0xFFFFFFFFu, s[j], __ffs(live) - 1);
+              if (w < W) acc |= prev[static_cast<int64_t>(sj) * W + w];
+            }
+          }
+        }
+        acc &= mask;
+        if (w < W) {
+          if (item.y < 0) row[w] = acc;
+          else if (acc != 0u) atomicOr(row + w, acc);
+        }
+      }
+    }
+  }
+  if (next_after != nullptr) {
+    const int2* after = a.items + (r + 1) * a.cap;
+    const int n_after = a.counts[r + 1];
+    for (int64_t i = tid; i < n_after; i += threads) {
+      const int2 item = after[i];
+      if (item.y == 0) zero_row(next_after, item.x, W);
+    }
+  }
+}
+
+// The hop kernels' grid: as many blocks as fit on the card at once.
+cudaError_t hop_grid(int device, int WS, unsigned* blocks) {
+  static int cached[64][3];
+  if (device >= 0 && device < 64 && cached[device][WS] > 0) {
+    *blocks = static_cast<unsigned>(cached[device][WS]);
+    return cudaSuccess;
+  }
+  int sms = 0, per_sm = 0;
+  cudaError_t err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return err;
+  err = WS == 1 ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, wave_hop<1>, kBlock, 0)
+      : WS == 2 ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, wave_hop<2>, kBlock, 0)
+                : cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, wave_hop<0>, kBlock, 0);
+  if (err != cudaSuccess) return err;
+  const int g = sms * (per_sm > 0 ? per_sm : 1);
+  if (device >= 0 && device < 64) cached[device][WS] = g;
+  *blocks = static_cast<unsigned>(g);
+  return cudaSuccess;
 }
 
 }  // namespace
@@ -256,29 +432,58 @@ int bitset_spmm_launch(const void* vals, const void* src, const void* dst,
       chunk, W, static_cast<cudaStream_t>(stream)));
 }
 
-// L hops: hop r reads the previous frontier (vals for r = 0) and writes the
-// next, masked by cand[r, :] (0 or all ones per vertex). The hops alternate
-// between `scratch` and `out` so that the last one lands in `out`; `scratch`
-// may be null when L == 1. Returns the first failing launch's cudaError_t.
+// L hops of F_r = OR-agg(F_{r-1}) & cand[r] (any 32-bit candidacy words),
+// F_{-1} = vals, the last into `out`: 1 + L launches (the worklist pass,
+// then a kernel per hop) after two memsets (counts, out). Hop r < L - 1
+// writes scratch buffer r % buffers, each [n, W]; `buffers` >= min(3, L - 1),
+// since while hop r reads buffer r - 1 and writes buffer r its grid zeroes
+// split rows in buffer r + 1 (`scratch` may be null when L == 1). `items`
+// holds L lists of `cap` >= n + m / chunk work items (int32 pairs) and
+// `counts` L ints. The counts stay on the device: nothing is read back.
+// Returns the first failing call's cudaError_t.
 int bitset_wave_launch(const void* vals, const void* src, const void* dst_ptr,
                        const void* active, const void* cand, int L,
-                       void* scratch, void* out, long long n, int W,
-                       int device, void* stream) {
+                       void* scratch, int buffers, void* items, void* counts,
+                       void* out, long long n, long long cap, long long chunk,
+                       int W, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (n <= 0 || W <= 0 || L <= 0) return 0;
-  const uint32_t* cur = static_cast<const uint32_t*>(vals);
+  if (chunk <= 0 || cap < n || buffers < (L - 1 < 3 ? L - 1 : 3))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  WaveArgs a{static_cast<const uint32_t*>(vals), static_cast<const int32_t*>(src),
+             static_cast<const int64_t*>(dst_ptr), static_cast<const uint8_t*>(active),
+             static_cast<const uint32_t*>(cand), static_cast<int2*>(items),
+             static_cast<int*>(counts), n, cap, chunk, L, W};
+  auto buffer = [&](int r) -> uint32_t* {
+    return r == L - 1 ? static_cast<uint32_t*>(out)
+                      : static_cast<uint32_t*>(scratch) + (r % buffers) * n * W;
+  };
+  err = cudaMemsetAsync(counts, 0, static_cast<size_t>(L) * sizeof(int), st);
+  if (err == cudaSuccess)
+    err = cudaMemsetAsync(out, 0, static_cast<size_t>(n) * W * 4, st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const unsigned pass_blocks = static_cast<unsigned>((n + kBlock - 1) / kBlock);
+  wave_worklist<<<pass_blocks, kBlock, 0, st>>>(a, L > 1 ? buffer(0) : nullptr);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int ws = W <= 2 ? W : 0;
+  unsigned blocks = 0;
+  err = hop_grid(device, ws, &blocks);
+  if (err != cudaSuccess) return static_cast<int>(err);
   for (int r = 0; r < L; ++r) {
-    uint32_t* next = ((L - 1 - r) % 2 == 0) ? static_cast<uint32_t*>(out)
-                                            : static_cast<uint32_t*>(scratch);
-    err = launch_hop(
-        cur, static_cast<const int32_t*>(src),
-        static_cast<const int64_t*>(dst_ptr),
-        static_cast<const uint8_t*>(active),
-        static_cast<const uint32_t*>(cand) + static_cast<int64_t>(r) * n, next,
-        n, W, static_cast<cudaStream_t>(stream));
+    const uint32_t* prev = r == 0 ? a.vals : buffer(r - 1);
+    uint32_t* next = buffer(r);
+    uint32_t* after = r + 1 < L - 1 ? buffer(r + 1) : nullptr;
+    if (ws == 1)
+      wave_hop<1><<<blocks, kBlock, 0, st>>>(a, r, prev, next, after);
+    else if (ws == 2)
+      wave_hop<2><<<blocks, kBlock, 0, st>>>(a, r, prev, next, after);
+    else
+      wave_hop<0><<<blocks, kBlock, 0, st>>>(a, r, prev, next, after);
+    err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
-    cur = next;
   }
   return 0;
 }

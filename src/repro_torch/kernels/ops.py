@@ -10,8 +10,9 @@ the hand-written kernel (`csrc/bitset.cu`, `csrc/segment_agg.cu`,
 The bitset kernels take any packed width W and any graph that fits the
 card's memory: they keep no frontier in shared memory, so the TPU's VMEM
 budget (`BITSET_WAVE_VMEM_BUDGET` in the JAX package) has no counterpart
-here. The one hard limit is the grid: ceil(n / 8) blocks for W > 2, below
-CUDA's 2^31 - 1.
+here. The hard limits are the grids (ceil(n / 8) blocks for `bitset_spmm`
+at W > 2, ceil(n / 256) for the wave's worklist pass, below CUDA's
+2^31 - 1) and the wave's int32 item counts (`wave_item_capacity`).
 
 `attention` has two kernels: bf16 inputs take the tensor-core kernel
 (`csrc/flash_attention_sm90.cu`, variant "bf16_tc"), f32 inputs the
@@ -103,6 +104,17 @@ def bitset_or_aggregate(
 
 
 # ------------------------------------------------------------- bitset_wave
+# scratch frontiers the wave kernel rotates hops 0 .. L-2 over; it refuses
+# fewer than min(3, L - 1) (csrc/bitset.cu)
+BITSET_WAVE_BUFFERS = 3
+
+
+def wave_item_capacity(n: int, m: int) -> int:
+    """Work items one hop of the wave kernel may list: a candidate with d
+    in-arcs lists max(1, ceil(d / BITSET_ARC_CHUNK)) <= 1 + d // chunk."""
+    return n + m // BITSET_ARC_CHUNK
+
+
 def _bitset_wave_cuda(vals, dg, edge_active, cand):
     from repro_torch.kernels import build
 
@@ -118,15 +130,25 @@ def _bitset_wave_cuda(vals, dg, edge_active, cand):
     out = torch.empty_like(vals)
     if dg.n == 0:
         return out
-    scratch = torch.empty_like(vals) if L > 1 else None
+    cap = wave_item_capacity(dg.n, dg.m)
+    if cap >= 2**31:
+        raise ValueError(f"a hop may list {cap} work items, more than int32 counts")
+    w = vals.shape[1]
+    dev = vals.device
+    buffers = min(BITSET_WAVE_BUFFERS, L - 1)
+    scratch = (torch.empty((buffers, dg.n, w), dtype=torch.int32, device=dev)
+               if L > 1 else None)
+    items = torch.empty((L, cap, 2), dtype=torch.int32, device=dev)
+    counts = torch.empty(L, dtype=torch.int32, device=dev)
     lib = build.library()
     code = lib.bitset_wave_launch(
         vals.data_ptr(), dg.src.data_ptr(), dg.dst_ptr.data_ptr(),
         edge_active.data_ptr(), cand.data_ptr(), L,
-        scratch.data_ptr() if scratch is not None else None, out.data_ptr(),
-        dg.n, vals.shape[1], vals.device.index or 0, _stream(vals))
+        scratch.data_ptr() if scratch is not None else None, buffers,
+        items.data_ptr(), counts.data_ptr(), out.data_ptr(), dg.n, cap,
+        BITSET_ARC_CHUNK, w, dev.index or 0, _stream(vals))
     build.check(code, "bitset_wave")
-    registry.count_launch("bitset_wave", L)  # one hop kernel per hop
+    registry.count_launch("bitset_wave", 1 + L)  # the worklist pass, a kernel per hop
     return out
 
 
@@ -134,9 +156,11 @@ def bitset_wave(
     vals: torch.Tensor,          # int32[n, W] packed initial frontier
     dg: DeviceGraph,
     edge_active: torch.Tensor,   # bool[m]
-    cand: torch.Tensor,          # int32[L, n] per-hop candidacy, 0 / -1
+    cand: torch.Tensor,          # int32[L, n] per-hop candidacy words
 ) -> torch.Tensor:
-    """Run the full L-hop NLCC wave -> int32[n, W]."""
+    """Run the full L-hop NLCC wave -> int32[n, W]: F_r = OR over active
+    arcs (u -> v) of F_{r-1}[u], & cand[r][v], for any candidacy words (the
+    NLCC waves pass 0 / -1)."""
     if cand.shape[0] == 0:
         return vals
     if registry.uses_kernel(vals):

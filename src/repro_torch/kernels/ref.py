@@ -50,7 +50,7 @@ def bitset_wave_ref(
     dst: torch.Tensor,          # int32[m]
     n: int,
     edge_active: torch.Tensor,  # bool[m]
-    cand: torch.Tensor,         # int32[L, n] per-hop candidacy, 0 / -1
+    cand: torch.Tensor,         # int32[L, n] per-hop candidacy words
 ) -> torch.Tensor:
     """Fused L-hop wave: F_r = OR-aggregate(F_{r-1}) & cand[r], r = 1..L."""
     packed = vals

@@ -105,18 +105,168 @@ def test_bitset_spmm_all_edges_inactive_and_no_in_arcs():
 
 
 # -------------------------------------------------------------- bitset_wave
-@pytest.mark.parametrize("scale,w,hops", [(6, 1, 1), (7, 2, 3), (8, 4, 5), (6, 32, 6)])
-def test_bitset_wave_ref_matches_reference(scale, w, hops):
+def _cand_words(rng, hops, n, p_zero=1 / 3):
+    """Candidacy words over every bit pattern, a share of them 0."""
+    u = rng.integers(0, 2**32, size=(hops, n), dtype=np.uint32)
+    u[rng.random((hops, n)) < p_zero] = 0
+    return u, torch.from_numpy(u.view(np.int32).copy())
+
+
+_WAVE_CASES = [(6, 1, 1), (7, 2, 3), (8, 4, 5), (6, 32, 6)]
+
+
+@pytest.mark.parametrize("scale,w,hops,words", [
+    *(pytest.param(*c, False, id="-".join(map(str, c))) for c in _WAVE_CASES),
+    *(pytest.param(*c, True, id="-".join(map(str, c)) + "-words")
+      for c in _WAVE_CASES)])
+def test_bitset_wave_ref_matches_reference(scale, w, hops, words):
+    """The plain wave equals the reference's, with 0 / -1 candidacy and with
+    random candidacy words, which the AND keeps bit by bit."""
     g = rgen.rmat_graph(scale, edge_factor=4, seed=scale + w)
     rdg, dg = _graphs(g)
     rng = np.random.default_rng(scale * 10 + w + hops)
     u, vals = _words(rng, g.n, w)
     active = rng.random(dg.m) < 0.7
-    cu, cand = _cand(rng, hops, g.n)
+    cu, cand = (_cand_words if words else _cand)(rng, hops, g.n)
     want = rref.bitset_wave_ref(jnp.asarray(u), rdg.src, rdg.dst, g.n,
                                 jnp.asarray(active), jnp.asarray(cu))
     got = ops.bitset_wave(vals, dg, torch.from_numpy(active), cand)
     np.testing.assert_array_equal(_u32(got), np.asarray(want))
+
+
+def test_bitset_wave_random_words_match_interpret_mode_pallas():
+    """Random candidacy words through the reference's Pallas wave in
+    interpret mode: the kernel ANDs the words too, not only 0 / -1 masks."""
+    g = rgen.rmat_graph(6, edge_factor=4, seed=9)
+    rdg, dg = _graphs(g)
+    rng = np.random.default_rng(9)
+    u, vals = _words(rng, g.n, 2)
+    active = rng.random(dg.m) < 0.7
+    cu, cand = _cand_words(rng, 3, g.n)
+    bs = build_blocked_structure(np.asarray(rdg.src), np.asarray(rdg.dst), g.n, bn=64)
+    want = rops.bitset_wave(jnp.asarray(u), rdg.src, rdg.dst, g.n,
+                            jnp.asarray(active), jnp.asarray(cu), blocked=bs,
+                            force_pallas=True)
+    got = ops.bitset_wave(vals, dg, torch.from_numpy(active), cand)
+    np.testing.assert_array_equal(_u32(got), np.asarray(want))
+    assert (_u32(got) != 0).any()
+
+
+def _wave_schedule(vals, dg, active, cand, chunk, rng):
+    """The CUDA wave kernel's schedule (csrc/bitset.cu) in numpy: per-hop
+    work items of the candidates, one per `chunk` in-arcs (at least one);
+    reads gated by the previous hop's candidacy; hops r < L - 1 writing
+    scratch buffer r % ops.BITSET_WAVE_BUFFERS, hop L - 1 writing `out`; a
+    split row zeroed in the grid of the hop before (the worklist pass for
+    hop 0) and then ORed into by each chunk; `out` zeroed before the pass.
+    Every buffer starts as random words, and before each hop every scratch
+    row that the schedule does not rely on is refilled with random words.
+    Returns out as uint32[n, W]."""
+    n, w = vals.shape
+    hops = cand.shape[0]
+    src, dst = dg.src.numpy().astype(np.int64), dg.dst.numpy().astype(np.int64)
+    ptr = dg.dst_ptr.numpy()
+    deg = np.diff(ptr)
+
+    def noise(shape):
+        return rng.integers(0, 2**32, size=shape, dtype=np.uint32)
+
+    scratch = [noise((n, w)) for _ in range(min(ops.BITSET_WAVE_BUFFERS, hops - 1))]
+    out = noise((n, w))
+
+    def buffer(r):
+        return out if r == hops - 1 else scratch[r % len(scratch)]
+
+    items = []
+    for r in range(hops):
+        hop = []
+        for v in np.flatnonzero(cand[r]):
+            k = -(-deg[v] // chunk) if deg[v] > chunk else 1
+            hop += [(v, -1)] if k == 1 else [(v, c) for c in range(k)]
+        items.append(hop)
+
+    def zero_split(r):
+        for v, c in items[r]:
+            if c == 0:
+                buffer(r)[v] = 0
+
+    out[:] = 0  # cudaMemsetAsync
+    if hops > 1:
+        zero_split(0)  # the worklist pass
+    for r in range(hops):
+        prev = vals if r == 0 else buffer(r - 1)
+        nxt = buffer(r)
+        relied = {}  # scratch buffer id -> rows that must keep their words
+        if r > 0:
+            relied.setdefault(id(prev), set()).update(np.flatnonzero(cand[r - 1]))
+        relied.setdefault(id(nxt), set()).update(v for v, c in items[r] if c == 0)
+        for buf in scratch:
+            keep = np.zeros(n, bool)
+            keep[list(relied.get(id(buf), ()))] = True
+            buf[~keep] = noise((int((~keep).sum()), w))
+        for v, c in items[r]:
+            lo, hi = ptr[v], ptr[v + 1]
+            if c >= 0:
+                lo, hi = lo + c * chunk, min(hi, lo + (c + 1) * chunk)
+            e = np.arange(lo, hi)
+            e = e[active[e]]
+            if r > 0:
+                e = e[cand[r - 1][src[e]] != 0]
+            acc = np.bitwise_or.reduce(prev[src[e]], axis=0) if e.size else np.zeros(w, np.uint32)
+            acc &= cand[r][v]
+            if c < 0:
+                nxt[v] = acc
+            else:
+                nxt[v] |= acc
+        if r + 1 < hops - 1:
+            zero_split(r + 1)
+    return out
+
+
+def _hub_graph(rng, n=300, hub=0, hub_in=700, rest=1500):
+    """A random graph whose vertex `hub` has `hub_in` in-arcs (3 chunks of
+    ops.BITSET_ARC_CHUNK) and out-arcs to many vertices."""
+    src = np.concatenate([rng.integers(0, n, hub_in), rng.integers(0, n, rest),
+                          np.full(40, hub)])
+    dst = np.concatenate([np.full(hub_in, hub), rng.integers(1, n, rest),
+                          rng.integers(1, n, 40)])
+    return Graph(n, src, dst, np.zeros(n, np.int32))
+
+
+@pytest.mark.parametrize("hops", [1, 3, 6])
+@pytest.mark.parametrize("w", [1, 2, 32, 48])
+def test_wave_schedule_equals_reference(w, hops):
+    """The kernel's schedule, modelled in numpy with leftovers in every
+    buffer, equals the plain wave and the reference's bit for bit; the hub
+    (3 chunks of in-arcs) is a candidate in hops r - 1 and r + 1 but not in
+    hop r, and candidacy mixes 0 / -1 with random words. The first frontier
+    is sparse, so a stale row would change the result."""
+    rng = np.random.default_rng(100 * w + hops)
+    g = _hub_graph(rng)
+    rdg, dg = _graphs(g)
+    assert int(dg.dst_ptr[1] - dg.dst_ptr[0]) > 2 * ops.BITSET_ARC_CHUNK
+    # one bit in a tenth of the rows, as a wave's first frontier holds its
+    # sources: ORs stay sparse, so a leftover word read or kept shows
+    u = np.zeros((g.n, w), np.uint32)
+    rows = np.flatnonzero(rng.random(g.n) < 0.1)
+    u[rows, rng.integers(0, w, rows.size)] = np.uint32(1) << rng.integers(
+        0, 32, rows.size).astype(np.uint32)
+    vals = torch.from_numpy(u.view(np.int32).copy())
+    active = rng.random(dg.m) < 0.8
+    cu, _ = _cand(rng, hops, g.n, p=0.5)
+    cw, _ = _cand_words(rng, hops, g.n)
+    cu = np.where(rng.random((hops, g.n)) < 0.5, cu, cw)
+    cu[:, 0] = np.where(np.arange(hops) % 2 == 0, np.uint32(0xFFFFFFFF), 0)
+    cand = torch.from_numpy(cu.view(np.int32).copy())
+    got = _wave_schedule(u, dg, active, cu, ops.BITSET_ARC_CHUNK, rng)
+    plain = ref.bitset_wave_ref(vals, dg.src, dg.dst, g.n,
+                                torch.from_numpy(active), cand)
+    want = rref.bitset_wave_ref(jnp.asarray(u), rdg.src, rdg.dst, g.n,
+                                jnp.asarray(active), jnp.asarray(cu))
+    np.testing.assert_array_equal(_u32(plain), np.asarray(want))
+    np.testing.assert_array_equal(got, np.asarray(want))
+    if hops > 1:
+        assert (np.asarray(want) != 0).any()
 
 
 def test_bitset_wave_ref_equals_iterated_spmm_ref():

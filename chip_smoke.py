@@ -23,12 +23,39 @@ From the root of a checkout, on a machine with a CUDA device and `nvcc`:
             on the CPU (plain versions) and requires identical omega, edge
             mask, phase trajectory and match count; the three NLCC routes on
             the card must agree too;
+            b. the same graph with the frontier edge-prune pass
+               (`nlcc_edge_prune=True`), card against CPU: omega, edge mask,
+               trajectory with `nlcc_edges_pruned`, lcc_iterations; the
+               device join against the host join (rows and counts) on both
+               devices and across them; the union of `stream_matches`
+               against the materialized set;
+            c. a repeated-label triangle with thousands of matches, card
+               against CPU: the edge-prune prune (no fast path); the device
+               join against the host join in count and materialize mode,
+               with the seconds of each on the card; `stream_matches` and
+               the chunk back-off under a row budget that splits blocks and
+               overflows single sources, each equal to the materialized set;
 4. full     the main path at R-MAT Graph500 scale 20 (edge factor 16, degree
             labels, seed 3): prune and count-mode enumeration on the card,
             with per-phase seconds, peak device memory and the launch count
             of each prune kernel, which must be nonzero; device time by
             kernel and the busy share over one more prune (torch.profiler);
-            then the planted-needle quickstart scenario.
+            then the planted-needle quickstart scenario;
+            b. the edge-prune prune of the same template: per-phase seconds,
+               peak memory, launches (both kernels nonzero), V*/E* beside
+               the default prune's; omega and the edge mask equal the
+               default prune's, and both keep exactly what the matches use;
+               every `bitset_wave` call of one more such prune (the pass's
+               one-hop calls over the graph and its reverse, and the fused
+               waves) held bit for bit against the plain version; the count
+               by the device join and by the host join with the seconds of
+               each;
+            c. `collect_graph_stats` and `plan_query` seconds; `tune` of the
+               LCC sweep, NLCC wave and join routes at this size (cache in a
+               temporary directory under `experiments/`), the measured
+               candidates; the prune under the tuned policy and under a
+               recorded plan, each equal to the untuned prune;
+            d. `python -m repro_torch.launch.quickstart` in its own process.
 5. GNN      the GNN inference path (GraphSAGE's sampled forward):
             a. `segment_agg` against its plain version on the card over
                NT x D x F in {1,7,16,33} x {1,4,10,25} x {1,3,128,602}, f32
@@ -100,12 +127,15 @@ last line is
 {"ok": true, "device": {...}}. Without a CUDA device,
 or when any check fails, the script exits non-zero and prints no result.
 """
+import contextlib
 import copy
 import dataclasses
 import json
 import re
+import os
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -117,8 +147,9 @@ sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch.configs import get_arch  # noqa: E402
 from repro_torch.configs.base import GNN_CLASSES, LMConfig  # noqa: E402
-from repro_torch.core import nlcc  # noqa: E402
-from repro_torch.core.enumerate import count_matches, enumerate_matches  # noqa: E402
+from repro_torch.core import lcc, nlcc, planner  # noqa: E402
+from repro_torch.core.enumerate import (  # noqa: E402
+    ENUM_ROUTE, count_matches, enumerate_matches, stream_matches)
 from repro_torch.core.lcc import TemplateDev, lcc_fixpoint  # noqa: E402
 from repro_torch.core.pipeline import prune  # noqa: E402
 from repro_torch.core.state import init_state, pack_bits  # noqa: E402
@@ -127,6 +158,7 @@ from repro_torch.data.graphs import PatternFilteredDataset, SampledBatchStream  
 from repro_torch.data.recsys import MaskedSequenceStream  # noqa: E402
 from repro_torch.data.tokens import SyntheticTokenStream  # noqa: E402
 from repro_torch.graph import generators as gen  # noqa: E402
+from repro_torch.graph.stats import collect_graph_stats  # noqa: E402
 from repro_torch.graph.structs import DeviceGraph, Graph  # noqa: E402
 from repro_torch.kernels import build, ops, ref, registry  # noqa: E402
 from repro_torch.launch import serve as serve_cli  # noqa: E402
@@ -147,6 +179,14 @@ HEX = ([3, 4, 5, 6, 7, 8], [(0, 1), (1, 2), (2, 3), (3, 4), (4, 5), (5, 0)])
 RMAT2 = ([2, 3, 4, 5, 6, 7, 1],
          [(0, 1), (1, 2), (2, 3), (3, 4), (4, 5), (5, 0), (1, 6)])
 WAVE = 1024
+# Phase 3c: a template with thousands of matches at scale 14, for the joins
+# at many rows: the triangle of label-7 vertices (degree 64-127), 11,820
+# embeddings on the degree-labelled scale-14 R-MAT graph. Its streaming and
+# overflow runs take a row budget and a chunk small enough that row blocks
+# split, chunks back off and single sources overflow into the streaming
+# emitter.
+TRI_MANY = ([7, 7, 7], [(0, 1), (1, 2), (2, 0)])
+JOIN_TIGHT_ROWS, JOIN_TIGHT_CHUNK = 1024, 256
 DEVICE = "cuda"
 # Phase 5: graphsage-reddit on the minibatch_lg shape, over an Erdos-Renyi
 # graph of that shape's size (Reddit: 232,965 vertices, 114,615,892 arcs).
@@ -257,6 +297,16 @@ def time_ms(fn, reps):
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def timed(fn):
+    """(fn(), its seconds on the host's clock, the device synchronized
+    before and after)."""
+    sync()
+    t0 = time.perf_counter()
+    out = fn()
+    sync()
+    return out, time.perf_counter() - t0
 
 
 def spmm_cost(dg, edge_active, w):
@@ -638,6 +688,144 @@ def phase_parity():
     sync()
     log(f"card == CPU: omega, edge mask, {len(rc.phases)}-phase trajectory, "
         f"lcc_iterations, match count; NLCC fused == packed == unpacked")
+    return g
+
+
+def edge_trajectory(res):
+    return [(p.phase, p.active_vertices, p.active_edges, p.omega_bits,
+             p.extra.get("nlcc_edges_pruned")) for p in res.phases]
+
+
+def phase_parity_a2(g):
+    """Scale 14, card against CPU: the edge-prune prune, the device join
+    against the host join, and streaming against materializing."""
+    log(f"== phase 3b: R-MAT scale {SCALE_PARITY}, edge-prune prune and the "
+        f"device join, card vs CPU")
+    tmpl = Template(*HEX)
+    runs = {}
+    for dev in (DEVICE, "cpu"):
+        registry.reset_launches()
+        t0 = time.perf_counter()
+        res = prune(g, tmpl, device=dev, nlcc_edge_prune=True)
+        sync()
+        t_prune = time.perf_counter() - t0
+        launches = registry.launch_counts()
+        cnt = {r: count_matches(res, route=r) for r in ("host", "device")}
+        emb = {r: enumerate_matches(res, route=r) for r in ("host", "device")}
+        runs[dev] = (res, cnt, emb)
+        log(f"{dev}: edge-prune prune {t_prune:.2f} s, {res.counts()}, "
+            f"trajectory {edge_trajectory(res)}, skip complete TDS "
+            f"{res.stats.get('tds_skipped_via_frontier_edge_prune')}, "
+            f"matches {cnt['device'].n_embeddings} (device join) "
+            f"{cnt['host'].n_embeddings} (host join), launches "
+            f"{ {k: launches[k] for k in registry.PRUNE_KERNELS} }")
+        if dev == "cuda":
+            for name in registry.PRUNE_KERNELS:
+                check(launches[name] > 0,
+                      f"{name} never launched on the scale-14 edge-prune prune")
+        for r in ("host", "device"):
+            check(cnt[r].route == r and emb[r].route == r,
+                  f"route {r} was not taken")
+        check(cnt["host"].n_embeddings == cnt["device"].n_embeddings
+              == emb["host"].n_embeddings, f"{dev}: join routes disagree")
+        check(np.array_equal(emb["host"].embeddings, emb["device"].embeddings),
+              f"{dev}: device join rows differ from the host join's")
+        blocks = list(stream_matches(res, route="device", max_rows=64))
+        rows = (np.unique(np.concatenate(blocks), axis=0) if blocks
+                else np.zeros((0, tmpl.n0), np.int32))
+        check(np.array_equal(rows, emb["device"].embeddings)
+              and sum(b.shape[0] for b in blocks) == emb["device"].n_embeddings,
+              f"{dev}: the streamed union differs from the materialized set")
+    (rc, cc, ec), (rp, cp, ep) = runs[DEVICE], runs["cpu"]
+    check(np.array_equal(rc.omega, rp.omega), "edge prune: omega differs card vs CPU")
+    check(np.array_equal(rc.edge_mask, rp.edge_mask),
+          "edge prune: edge mask differs card vs CPU")
+    check(edge_trajectory(rc) == edge_trajectory(rp),
+          "edge prune: trajectory or nlcc_edges_pruned differs card vs CPU")
+    check(rc.stats["lcc_iterations"] == rp.stats["lcc_iterations"],
+          "edge prune: lcc_iterations differ card vs CPU")
+    check(np.array_equal(ec["device"].embeddings, ep["host"].embeddings),
+          "device join on the card differs from the CPU run")
+    check(cc["device"].n_embeddings > 0, "no match at scale 14")
+    log(f"card == CPU for the edge-prune prune (omega, edge mask, trajectory "
+        f"with nlcc_edges_pruned, lcc_iterations); device join == host join "
+        f"== CPU ({cc['device'].n_embeddings} matches, rows and counts); "
+        f"streamed union == materialized")
+
+
+def phase_join_many(g):
+    """Scale 14, a repeated-label triangle with thousands of matches: the
+    edge-prune prune card against CPU, the two joins in both modes on both
+    devices, and streaming and the chunk back-off under a tight budget."""
+    log(f"== phase 3c: R-MAT scale {SCALE_PARITY}, the joins at many rows "
+        f"({CARD})")
+    tmpl = Template(*TRI_MANY)
+    runs = {}
+    for dev in (DEVICE, "cpu"):
+        res, t_prune = timed(
+            lambda: prune(g, tmpl, device=dev, nlcc_edge_prune=True))
+        out = {}
+        for route in ("host", "device"):
+            for mode in ("count", "materialize"):
+                e, secs = timed(lambda: enumerate_matches(
+                    res, mode=mode, route=route))
+                check(e.route == route, f"{mode} took {e.route}, not {route}")
+                out[route, mode] = (e, secs)
+        want = out["host", "materialize"][0]
+        for key, (e, _) in out.items():
+            check(e.n_embeddings == want.n_embeddings,
+                  f"{dev}: {key} counts {e.n_embeddings}, the host join "
+                  f"materializes {want.n_embeddings}")
+        check(np.array_equal(out["device", "materialize"][0].embeddings,
+                             want.embeddings),
+              f"{dev}: device join rows differ from the host join's")
+        check(want.n_embeddings >= 1000,
+              f"{dev}: only {want.n_embeddings} matches")
+        log(f"{dev}: edge-prune prune {t_prune:.2f} s, {res.counts()}, "
+            f"{want.n_embeddings} matches (|Aut|={want.automorphisms}); join "
+            f"seconds " + ", ".join(
+                f"{r} {m} {secs:.4f}" for (r, m), (_, secs) in out.items()))
+        runs[dev] = (res, out)
+    (rc, oc), (rp, op) = runs[DEVICE], runs["cpu"]
+    check(np.array_equal(rc.omega, rp.omega)
+          and np.array_equal(rc.edge_mask, rp.edge_mask)
+          and edge_trajectory(rc) == edge_trajectory(rp)
+          and rc.stats["lcc_iterations"] == rp.stats["lcc_iterations"],
+          "many-row template: the edge-prune prune differs card vs CPU")
+    full = oc["device", "materialize"][0]
+    check(np.array_equal(full.embeddings,
+                         op["host", "materialize"][0].embeddings),
+          "many-row template: the device join on the card differs from the "
+          "CPU's host join")
+    # a budget that splits row blocks: one source chunk, many blocks
+    n_src = int(rc.omega[:, 0].sum())
+    blocks = list(stream_matches(rc, route="device", max_rows=JOIN_TIGHT_ROWS))
+    check(len(blocks) > -(-n_src // 4096),
+          f"{len(blocks)} streamed blocks over {n_src} sources: no split")
+    check(np.array_equal(np.unique(np.concatenate(blocks), axis=0),
+                         full.embeddings)
+          and sum(b.shape[0] for b in blocks) == full.n_embeddings,
+          "many-row template: the streamed union differs from the "
+          "materialized set")
+    # a chunk that backs off and sources that overflow at chunk 1
+    tight = {}
+    for mode in ("materialize", "count"):
+        st = {}
+        e = enumerate_matches(rc, mode=mode, route="device",
+                              max_rows=JOIN_TIGHT_ROWS, chunk=JOIN_TIGHT_CHUNK,
+                              stats=st)
+        tight[mode] = st.get("enum_stream_fallbacks", 0)
+        check(tight[mode] > 0, f"{mode}: no source overflowed at chunk 1")
+        check(e.n_embeddings == full.n_embeddings,
+              f"{mode} under the tight budget counts {e.n_embeddings}")
+        if mode == "materialize":
+            check(np.array_equal(e.embeddings, full.embeddings),
+                  "the tight-budget rows differ from the materialized set")
+    log(f"card == CPU for the edge-prune prune and the joins; device join == "
+        f"host join ({full.n_embeddings} rows); max_rows={JOIN_TIGHT_ROWS}: "
+        f"{len(blocks)} streamed blocks over {n_src} sources, union == "
+        f"materialized; chunk {JOIN_TIGHT_CHUNK}: {tight} sources finished by "
+        f"the streaming emitter, rows and counts equal")
 
 
 def phase_full(g, dg):
@@ -690,7 +878,266 @@ def phase_full(g, dg):
     log(f"quickstart: {rq.counts()}, {eq.n_embeddings} embeddings, "
         f"|Aut|={eq.automorphisms}")
     check(eq.n_embeddings >= 5 * eq.automorphisms, "planted needles missing")
-    return launches
+    return launches, res, cnt
+
+
+def phase_edge_prune_full(g, dg, default, default_count):
+    """Scale 20, "hex-unique", with the frontier edge-prune pass: seconds by
+    phase, peak memory, launches, and the count by both joins, beside the
+    default prune of phase 4."""
+    log(f"== phase 4b: R-MAT scale {SCALE_FULL} edge-prune prune on the card "
+        f"({CARD})")
+    tmpl = Template(*HEX)
+    sync()
+    reset_peak()
+    registry.reset_launches()
+    t0 = time.perf_counter()
+    res = prune(dg, tmpl, label_freq=g.label_frequency(), nlcc_edge_prune=True)
+    t_prune = time.perf_counter() - t0
+    launches = registry.launch_counts()
+    peak = peak_gib()
+    for p in res.phases:
+        log(f"  {p.phase:11s} {str(p.constraint or ''):28s} {p.seconds:9.4f} s "
+            f"V*={p.active_vertices:8d} E*={p.active_edges:9d} "
+            f"waves={p.extra.get('nlcc_waves', '-')} "
+            f"edges pruned={p.extra.get('nlcc_edges_pruned', '-')}")
+    skipped = res.stats.get("tds_skipped_via_frontier_edge_prune")
+    diff = {"vertices": int((res.vertex_mask != default.vertex_mask).sum()),
+            "arcs": int((res.edge_mask != default.edge_mask).sum()),
+            "omega bits": int((res.omega != default.omega).sum())}
+    log(f"edge-prune prune {t_prune:.3f} s, peak {peak:.3f} GiB, "
+        f"{res.counts()} (default prune {default.counts()}; differences "
+        f"{diff}), tds_skipped_via_frontier_edge_prune {skipped}, "
+        f"lcc_iterations {res.stats['lcc_iterations']}, routes "
+        f"{res.stats['dispatch_routes']}, "
+        f"launches { {k: launches[k] for k in registry.PRUNE_KERNELS} }")
+    for name in registry.PRUNE_KERNELS:
+        check(launches[name] > 0, f"{name} never launched on the edge-prune prune")
+    # the fast path claims the exact result for this unique-label cycle, and
+    # the default prune (complete-walk TDS) guarantees it: the two agree, and
+    # keep exactly the vertices, arcs and candidacies the matches use
+    check(not any(diff.values()),
+          f"the edge-prune prune differs from the default prune's: {diff}")
+    check_keeps_the_matches(res, tmpl)
+    # device time by kernel and the busy share over one more such prune
+    def prune_again():
+        return prune(dg, tmpl, label_freq=g.label_frequency(),
+                     nlcc_edge_prune=True)
+
+    profile_device(prune_again, 1, "edge-prune prune", "bitset_spmm")
+    # every bitset_wave call of one more such prune against the plain version
+    with waves_held_to_plain(dg) as calls:
+        again = prune_again()
+    check(np.array_equal(again.omega, res.omega)
+          and np.array_equal(again.edge_mask, res.edge_mask),
+          "a second edge-prune prune differs from the first")
+    summary = {}
+    for graph, w, hops, in_deg, err in calls:
+        key = (graph, w, hops)
+        n_calls, top, worst = summary.get(key, (0, 0, 0))
+        summary[key] = (n_calls + 1, max(top, in_deg), max(worst, err))
+    log("bitset_wave calls of the edge-prune prune, by (graph, W, L): "
+        + "; ".join(f"{k}: {c} calls, largest candidate in-degree {d}, "
+                    f"max_abs_err {e}" for k, (c, d, e) in sorted(summary.items())))
+    check(all(c[4] == 0 for c in calls),
+          "bitset_wave differs from its plain version on the edge-prune prune")
+    check(any(k[0] == "reversed" for k in summary)
+          and any(k[0] == "graph" and k[2] == 1 for k in summary),
+          "the pass's one-hop calls over the graph and its reverse were not "
+          "all checked")
+    counts = {}
+    for route in ("device", "host"):
+        sync()
+        t1 = time.perf_counter()
+        c = count_matches(res, route=route)
+        sync()
+        counts[route] = (c.n_embeddings, time.perf_counter() - t1)
+        check(c.route == route, f"count took {c.route}, not {route}")
+    log(f"count: device join {counts['device'][0]} matches in "
+        f"{counts['device'][1]:.4f} s, host join {counts['host'][0]} in "
+        f"{counts['host'][1]:.4f} s ({CARD})")
+    check(counts["device"][0] == counts["host"][0] == default_count,
+          "the edge-prune prune's count differs from the default prune's")
+    return {"seconds": t_prune, "peak_gib": peak, "counts": res.counts(),
+            "default_counts": default.counts(), "skipped_tds": skipped,
+            "launches": {k: launches[k] for k in registry.PRUNE_KERNELS},
+            "count_device_s": counts["device"][1],
+            "count_host_s": counts["host"][1]}
+
+
+@contextlib.contextmanager
+def waves_held_to_plain(dg):
+    """Within the block, every `ops.bitset_wave` call (the kernel on the
+    card) is also computed by `ref.bitset_wave_ref` on the same inputs;
+    yields the list of (graph: "graph" for `dg`, else "reversed"; W; L; the
+    largest in-degree of a candidate; max_abs_err) per call."""
+    calls = []
+    kernel = ops.bitset_wave
+
+    def checked(vals, graph, edge_active, cand):
+        out = kernel(vals, graph, edge_active, cand)
+        want = ref.bitset_wave_ref(vals, graph.src, graph.dst, graph.n,
+                                   edge_active, cand)
+        deg = graph.dst_ptr[1:] - graph.dst_ptr[:-1]
+        live = (cand != 0).any(0)
+        calls.append(("graph" if graph is dg else "reversed", vals.shape[1],
+                      cand.shape[0], int(deg[live].max()) if live.any() else 0,
+                      max_abs_err(out, want)))
+        return out
+
+    ops.bitset_wave = checked
+    try:
+        yield calls
+    finally:
+        ops.bitset_wave = kernel
+
+
+def check_keeps_the_matches(res, tmpl):
+    """The prune kept exactly the vertices, arcs and omega bits that some
+    match uses (what an exact prune keeps)."""
+    rows = enumerate_matches(res).embeddings.astype(np.int64)
+    n = res.omega.shape[0]
+    omega = np.zeros_like(res.omega)
+    for q in range(tmpl.n0):
+        omega[rows[:, q], q] = True
+    used = np.unique(np.concatenate(
+        [rows[:, a] * n + rows[:, b]
+         for a in range(tmpl.n0) for b in tmpl.adj[a]]))
+    keys = res.dg.src.long().cpu().numpy() * n + res.dg.dst.long().cpu().numpy()
+    arcs = np.isin(keys, used)
+    check(np.array_equal(omega, res.omega) and np.array_equal(arcs, res.edge_mask)
+          and np.array_equal(omega.any(1), res.vertex_mask),
+          f"the prune keeps more or less than its {rows.shape[0]} matches use: "
+          f"{int((omega != res.omega).sum())} omega bits, "
+          f"{int((arcs != res.edge_mask).sum())} arcs differ")
+
+
+def same_result(res, default, default_count, what):
+    check(np.array_equal(res.omega, default.omega), f"{what}: omega differs")
+    check(np.array_equal(res.edge_mask, default.edge_mask),
+          f"{what}: edge mask differs")
+    check(count_matches(res).n_embeddings == default_count,
+          f"{what}: match count differs")
+
+
+def phase_planner_policy(g, dg, default, default_count):
+    """Scale 20: graph statistics and the planner's seconds; the LCC, NLCC
+    and join routes tuned on the card (cache in a temporary directory); the
+    prune under the tuned policy and under a recorded plan, each equal to
+    the untuned prune."""
+    log(f"== phase 4c: R-MAT scale {SCALE_FULL} planner and tuned policy "
+        f"({CARD})")
+    tmpl = Template(*HEX)
+    backend = dg.device.type
+    sync()
+    t0 = time.perf_counter()
+    stats = collect_graph_stats(dg, n_labels=g.n_labels)
+    t_stats = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    plan = planner.plan_query(tmpl, stats, backend=backend, wave=WAVE)
+    t_plan = time.perf_counter() - t0
+    host_stats = collect_graph_stats(g)
+    check(np.array_equal(stats.label_hist, host_stats.label_hist)
+          and np.array_equal(stats.degree_hist, host_stats.degree_hist),
+          "device graph stats differ from the host's")
+    log(f"collect_graph_stats(dg) {t_stats:.4f} s (bucket {stats.bucket()}); "
+        f"plan_query {t_plan:.4f} s: {plan.source}, "
+        f"{[(p.signature, p.engine, p.direction) for p in plan.phases]}, "
+        f"predicted {plan.predicted_s:.6g} s")
+
+    # candidates of one LCC sweep, one NLCC wave and the join per mode, as
+    # the JAX package's dispatch-policy benchmark times them. The unpacked
+    # wave is no candidate here: its [m, wave] message plane alone would be
+    # 32 GB of bools at this size.
+    state0 = init_state(dg, tmpl)
+    tdev = TemplateDev(tmpl, dg.device)
+    state1 = lcc_fixpoint(dg, tdev, state0, route=registry.ROUTE_PACKED)
+    c = next(c for c in generate_constraints(tmpl, label_freq=g.label_frequency())
+             if c.kind == "cycle")
+    walk = nlcc.expand_walks(c)[0]
+    cand = torch.stack([state1.omega[:, q] for q in walk], dim=0)
+    sources = np.flatnonzero(state1.omega[:, walk[0]].cpu().numpy())
+    ids, _ = next(nlcc.wave_batches(sources, WAVE))
+    ids = torch.from_numpy(ids.astype(np.int64)).to(dg.device)
+    routes = [
+        (lcc.LCC_ROUTE, lcc.lcc_route_bucket(dg), {
+            registry.ROUTE_PACKED: lambda: lcc.lcc_iteration_packed(
+                dg, tdev, state0),
+            registry.ROUTE_UNPACKED: lambda: lcc.lcc_iteration(dg, tdev, state0),
+        }),
+        (nlcc.NLCC_ROUTE, nlcc.nlcc_route_bucket(dg.n, WAVE), {
+            r: (lambda fused=(r == registry.ROUTE_FUSED):
+                nlcc.check_walk_constraint_packed(dg, state1, cand, True, ids,
+                                                  fused=fused))
+            for r in (registry.ROUTE_FUSED, registry.ROUTE_PACKED)}),
+    ]
+    registry.set_policy(None)
+    for mode in ("count", "materialize"):
+        routes.append((ENUM_ROUTE, ("local", mode), {
+            r: (lambda m=mode, r=r: enumerate_matches(default, mode=m, route=r))
+            for r in (registry.ROUTE_HOST, registry.ROUTE_DEVICE)}))
+    os.makedirs(ROOT / "experiments", exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "experiments") as tmp:
+        path = os.path.join(tmp, "torch_dispatch_policy.json")
+        t0 = time.perf_counter()
+        pol = registry.tune(routes=routes, backend=backend, repeat=3, path=path)
+        t_tune = time.perf_counter() - t0
+        check(registry.DispatchPolicy.load(path).to_json() == pol.to_json(),
+              "the tuned cache does not read back")
+    tuned = {}
+    for key, entry in sorted(pol.routes.items()):
+        tuned[key] = {"choice": entry.choice, "measured_s": entry.measured_s}
+        log(f"  tuned {key}: {entry.choice}; measured "
+            f"{ {k: round(v, 6) for k, v in entry.measured_s.items()} } s")
+    log(f"tune {t_tune:.2f} s ({CARD})")
+
+    out = {"stats_s": t_stats, "plan_s": t_plan, "plan_source": plan.source,
+           "plan": [(p.signature, p.engine, p.direction) for p in plan.phases],
+           "tuned": tuned}
+    # the prune under the tuned policy (the routes it names), then under the
+    # recorded plan; each equals the untuned prune
+    for label in ("tuned", "planned"):
+        if label == "planned":
+            pol = registry.DispatchPolicy()
+            planner.record_plan(pol, tmpl, host_stats, plan, backend=backend)
+        registry.set_policy(pol)
+        registry.reset_launches()
+        t0 = time.perf_counter()
+        res = prune(dg, tmpl, label_freq=g.label_frequency())
+        sync()
+        secs = time.perf_counter() - t0
+        launches = {k: registry.launch_counts()[k] for k in registry.PRUNE_KERNELS}
+        registry.set_policy(None)
+        same_result(res, default, default_count, f"the {label} prune")
+        log(f"{label} prune {secs:.3f} s: routes {res.stats['dispatch_routes']}, "
+            f"plan {res.stats['plan']['source']} "
+            f"{[(p['sig'], p['direction']) for p in res.stats['plan']['phases']]}, "
+            f"launches {launches}; omega, edge mask and count equal the untuned "
+            f"prune's")
+        if label == "planned":
+            check(res.stats["plan"]["source"] == "policy",
+                  "the recorded plan was not used")
+        out[label] = {"seconds": secs, "routes": res.stats["dispatch_routes"],
+                      "launches": launches}
+    return out
+
+
+def phase_quickstart_cli():
+    """`python -m repro_torch.launch.quickstart` on the card, in a process of
+    its own."""
+    log("== phase 4d: python -m repro_torch.launch.quickstart")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    cmd = [sys.executable, "-m", "repro_torch.launch.quickstart"]
+    if DEVICE == "cpu":  # a rehearsal on the CPU
+        cmd += ["--device", "cpu"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, env=env,
+                          timeout=300, cwd=ROOT)
+    log(proc.stdout.strip())
+    check(proc.returncode == 0 and proc.stdout.strip().endswith("OK"),
+          f"the quickstart failed ({proc.returncode}): {proc.stderr[-2000:]}")
+    check(f"on {DEVICE}" in proc.stdout, f"the quickstart did not run on {DEVICE}")
+    log(f"quickstart exited 0 in {time.perf_counter() - t0:.1f} s")
 
 # ------------------------------------------------------------- phase 5: GNN
 def gnn_setup():
@@ -1662,7 +2109,12 @@ def phase_recsys_full(cfg=None, serve_batch=None, n_cand=None):
 
 
 def run_prune():
-    """The prune path (phases 2-4) -> its kernels' entries of the JSON line."""
+    """The prune path (phases 2-4) -> its kernels' entries of the JSON line,
+    with their launches on the main path (phase 4) and on the edge-prune,
+    tuned and planned prunes (4b, 4c)."""
+    # no dispatch policy: a cache left in the checkout must not move the
+    # routes of phases 2-4 off the kernels (4c installs its own and clears it)
+    registry.set_policy(None)
     phase_kernels_small()
     t0 = time.perf_counter()
     g = gen.rmat_graph(SCALE_FULL, edge_factor=EDGE_FACTOR, seed=SEED)
@@ -1674,14 +2126,22 @@ def run_prune():
         f"host in {t1 - t0:.1f} s, dst-sorted and staged in "
         f"{time.perf_counter() - t1:.1f} s)")
     timing = phase_kernel_timing(dg, Template(*HEX), g.label_frequency())
-    phase_parity()
-    launches = phase_full(g, dg)
-    del g, dg
+    g14 = phase_parity()
+    phase_parity_a2(g14)
+    phase_join_many(g14)
+    launches, default, cnt = phase_full(g, dg)
+    edge = phase_edge_prune_full(g, dg, default, cnt.n_embeddings)
+    plans = phase_planner_policy(g, dg, default, cnt.n_embeddings)
+    phase_quickstart_cli()
+    del g, dg, default
     return [{
         "name": name, "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/bitset.cu",
         "replaces": replaces, "launches": launches[name], "library_ms": None,
         "bit_exact": True, **timing[name],
+        "launches_edge_prune": edge["launches"][name],
+        "launches_tuned": plans["tuned"]["launches"][name],
+        "launches_planned": plans["planned"]["launches"][name],
     } for name, replaces in (("bitset_spmm", "src/repro/kernels/bitset_spmm.py:77"),
                              ("bitset_wave", "src/repro/kernels/bitset_wave.py:89"))]
 

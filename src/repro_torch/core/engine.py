@@ -33,6 +33,7 @@ class LocalBackend:
         nlcc_route: Optional[str] = None,
         edge_elimination: bool = True,
         collect_stats: bool = False,
+        nlcc_edge_prune: bool = False,
         tds_chunk: int = 4096,
         tds_max_rows: int = 2_000_000,
         work_aggregation: bool = True,
@@ -44,6 +45,7 @@ class LocalBackend:
         self.wave = wave
         self.edge_elimination = edge_elimination
         self.collect_stats = collect_stats
+        self.nlcc_edge_prune = nlcc_edge_prune
         self.tds_chunk = tds_chunk
         self.tds_max_rows = tds_max_rows
         self.work_aggregation = work_aggregation
@@ -51,10 +53,11 @@ class LocalBackend:
         # the Fig-6a ablation (_lcc_no_edge_elim) always runs boolean planes
         self.lcc_route = (
             registry.ROUTE_UNPACKED if not edge_elimination else
-            lcc_resolved_route(self.tdev, collect_stats=collect_stats,
+            lcc_resolved_route(self.tdev, dg, collect_stats=collect_stats,
                                route=lcc_route))
         self.nlcc_route = nlcc_resolved_route(
-            wave, count_messages=collect_stats, route=nlcc_route)
+            dg.n, wave, dg.device.type, count_messages=collect_stats,
+            route=nlcc_route)
         self.state: Optional[PruneState] = None
 
     # -- state
@@ -139,7 +142,8 @@ class LocalBackend:
         self.state = nlcc_mod.verify_constraint(
             self.dg, before, c, wave=self.wave, stats=cstats,
             count_messages=self.collect_stats, route=self.nlcc_route,
-            direction=direction)
+            direction=direction, edge_prune=self.nlcc_edge_prune,
+            template=self.template)
         return _state_changed(before, self.state)
 
     def tds(self, c: NonLocalConstraint, cstats: Dict) -> torch.Tensor:

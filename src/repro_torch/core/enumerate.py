@@ -1,16 +1,25 @@
-"""Full match enumeration and counting on the pruned solution subgraph (§4).
+"""Full match enumeration, counting and streaming on the pruned solution
+subgraph (§4).
 
 Per the paper, enumeration is Alg. 6 with the full template as the
 constraint, work aggregation off, and every possible match verified. The
-host join (core/join.py) walks the complete edge-cover walk of the template;
+join (core/join.py) walks the complete edge-cover walk of the template;
 omega from pruning filters candidates.
 
-Two result modes:
+Three result modes:
   materialize  every embedding as a row of `EnumerationResult.embeddings`
                (template-vertex column order).
   count        completion counts only; symmetry restrictions from the
                template's automorphism group are enforced in-flight, and
                `n_embeddings` is restricted_count * |Aut|.
+  stream       `stream_matches`: a generator of embedding blocks under a
+               fixed row budget (bounded memory).
+
+Two join routes serve every mode, resolved through the dispatch policy
+(route name ``enumerate.join``, bucket ``("local", mode)``):
+  host    the numpy row-table join over the compacted active subgraph (the
+          default);
+  device  the device-resident join (`join.DeviceJoin`).
 
 On a TdsOverflow that survives chunk back-off to a single source, that
 source is finished by the streaming emitter instead of raising.
@@ -18,7 +27,7 @@ source is finished by the streaming emitter instead of raising.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional
+from typing import Dict, Iterator, Optional
 
 import numpy as np
 
@@ -26,9 +35,15 @@ from repro_torch.core.state import PruneState
 from repro_torch.core.template import Template, _edge_cover_walk
 from repro_torch.core.tds import compact_active, TdsOverflow
 from repro_torch.core import join as join_mod
+from repro_torch.kernels import registry
+
+# dispatch-policy route name of the enumeration join (host or device),
+# bucketed by ("local", mode)
+ENUM_ROUTE = "enumerate.join"
 
 MODE_MATERIALIZE = "materialize"
 MODE_COUNT = "count"
+MODE_STREAM = "stream"
 
 
 @dataclasses.dataclass
@@ -38,6 +53,7 @@ class EnumerationResult:
     n_distinct_vertex_sets: int  # -1 in count mode (needs materialized rows)
     automorphisms: int
     mode: str = MODE_MATERIALIZE
+    route: str = registry.ROUTE_HOST
     n_canonical: Optional[int] = None  # symmetry-restricted row count, if broken
 
 
@@ -54,6 +70,43 @@ def template_walk(template: Template, label_freq: Optional[np.ndarray] = None):
 def count_automorphisms(template: Template) -> int:
     """|Aut(T)|, cached on the template."""
     return max(template.automorphism_count(), 1)
+
+
+def _resolve_route(mode: str, route: Optional[str], backend: str) -> str:
+    """The join route: "host" or "device" when pinned, else the policy's
+    choice for ("local", mode), the host join by default. The sharded row
+    placements need shards, which this backend has not."""
+    if route is not None:
+        if route in (registry.ROUTE_ROWSHARDED, registry.ROUTE_REPLICATED):
+            raise ValueError(
+                f"route={route!r} is a sharded row placement; the local "
+                "backend has no shards to place rows on")
+        if route not in (registry.ROUTE_HOST, registry.ROUTE_DEVICE):
+            raise ValueError(f"unknown enumerate.join route {route!r}")
+        return route
+    return registry.resolve_route(
+        ENUM_ROUTE, ("local", mode), default=registry.ROUTE_HOST,
+        backend=backend, allowed=(registry.ROUTE_HOST, registry.ROUTE_DEVICE))
+
+
+def _unpack_args(dg, state, template):
+    """Accept (dg, state, template) or a PruneResult first argument."""
+    if state is None and hasattr(dg, "dg") and hasattr(dg, "state"):
+        result = dg
+        template = template if template is not None else result.template
+        return result.dg, result.state, template
+    return dg, state, template
+
+
+def _make_engine(route, dg, state, template, walk, max_rows, symmetry_break,
+                 stats):
+    if route == registry.ROUTE_DEVICE:
+        return join_mod.DeviceJoin(
+            join_mod.LocalJoinContext(dg, state), template, walk, max_rows,
+            symmetry_break=symmetry_break, stats=stats)
+    return join_mod.HostJoin(compact_active(dg, state), template, walk,
+                             max_rows, symmetry_break=symmetry_break,
+                             stats=stats)
 
 
 def _run_engine(engine, chunk: int, max_rows: int, count_only: bool,
@@ -108,17 +161,15 @@ def enumerate_matches(
     *,
     mode: str = MODE_MATERIALIZE,
     symmetry_break: Optional[bool] = None,
+    route: Optional[str] = None,
 ) -> EnumerationResult:
-    """Enumerate (or count) all template embeddings in the pruned graph with
-    the host join (the device-resident join is not ported yet).
+    """Enumerate (or count) all template embeddings in the pruned graph.
 
     `dg` may be a `PruneResult` (then `state`/`template` default from it).
     `mode` is "materialize" (default) or "count"; `symmetry_break` defaults
-    to True exactly in count mode."""
-    if state is None and hasattr(dg, "dg") and hasattr(dg, "state"):
-        result = dg
-        template = template if template is not None else result.template
-        dg, state = result.dg, result.state
+    to True exactly in count mode. `route` pins "host" or "device";
+    otherwise the dispatch policy decides, the host join by default."""
+    dg, state, template = _unpack_args(dg, state, template)
     if mode not in (MODE_MATERIALIZE, MODE_COUNT):
         raise ValueError(f"unknown enumeration mode {mode!r}")
     aut = count_automorphisms(template)
@@ -130,19 +181,21 @@ def enumerate_matches(
                 np.zeros((0, 1), np.int32), emb.shape[0], -1, 1, mode=mode)
         return EnumerationResult(emb, emb.shape[0], emb.shape[0], 1)
 
+    route = _resolve_route(mode, route, dg.device.type)
     sb = symmetry_break if symmetry_break is not None else (mode == MODE_COUNT)
     if stats is not None:
+        stats["enumerate_route"] = route
         stats["enumerate_mode"] = mode
     walk = template_walk(template, label_freq)
-    engine = join_mod.HostJoin(compact_active(dg, state), template, walk,
-                               max_rows, symmetry_break=sb, stats=stats)
+    engine = _make_engine(route, dg, state, template, walk, max_rows, sb,
+                          stats)
     total, blocks = _run_engine(engine, chunk, max_rows,
                                 count_only=(mode == MODE_COUNT), stats=stats)
     if mode == MODE_COUNT:
         n_emb = total * aut if sb else total
         return EnumerationResult(
             np.zeros((0, template.n0), np.int32), n_emb, -1, aut,
-            mode=mode, n_canonical=(total if sb else None))
+            mode=mode, route=route, n_canonical=(total if sb else None))
     if blocks:
         emb = np.unique(np.concatenate(blocks, axis=0), axis=0)
     else:
@@ -155,6 +208,7 @@ def enumerate_matches(
         n_distinct_vertex_sets=vsets.shape[0],
         automorphisms=aut,
         mode=mode,
+        route=route,
         n_canonical=(emb.shape[0] if sb else None),
     )
 
@@ -162,3 +216,36 @@ def enumerate_matches(
 def count_matches(dg, state=None, template=None, **kw) -> EnumerationResult:
     """The counting fast path: `enumerate_matches(..., mode="count")`."""
     return enumerate_matches(dg, state, template, mode=MODE_COUNT, **kw)
+
+
+def stream_matches(
+    dg,
+    state: Optional[PruneState] = None,
+    template: Optional[Template] = None,
+    label_freq: Optional[np.ndarray] = None,
+    chunk: int = 4096,
+    max_rows: int = 1_000_000,
+    stats: Optional[Dict] = None,
+    *,
+    symmetry_break: bool = False,
+    route: Optional[str] = None,
+) -> Iterator[np.ndarray]:
+    """Stream embedding blocks (int32[k, n0], template-vertex column order)
+    under a fixed `max_rows` budget instead of materializing every match:
+    source chunks are walked depth-first and row blocks split before each
+    expansion (`join.stream_join`), so the whole row table never exists at
+    once. `route` as in `enumerate_matches`."""
+    dg, state, template = _unpack_args(dg, state, template)
+    if template.n0 == 1:
+        verts = np.flatnonzero(state.omega[:, 0].cpu().numpy()).astype(np.int32)
+        for off in range(0, verts.size, max(max_rows, 1)):
+            yield verts[off: off + max_rows].reshape(-1, 1)
+        return
+    route = _resolve_route(MODE_STREAM, route, dg.device.type)
+    if stats is not None:
+        stats["enumerate_route"] = route
+        stats["enumerate_mode"] = MODE_STREAM
+    walk = template_walk(template, label_freq)
+    engine = _make_engine(route, dg, state, template, walk, max_rows,
+                          symmetry_break, stats)
+    yield from join_mod.stream_join(engine, engine.sources(), chunk, max_rows)

@@ -129,16 +129,27 @@ def _fixpoint(iter_fn: Callable, state: PruneState, max_iters: int,
     return state
 
 
-def lcc_resolved_route(tdev: TemplateDev, *, collect_stats: bool = False,
+def lcc_route_bucket(dg: DeviceGraph):
+    """Shape bucket of the packed-vs-unpacked LCC decision: the vertex and
+    arc counts set a sweep's cost (the packed width, ceil(n0 / 32) words,
+    hardly varies)."""
+    return registry.shape_bucket(dg.n, dg.m)
+
+
+def lcc_resolved_route(tdev: TemplateDev, dg: DeviceGraph, *,
+                       collect_stats: bool = False,
                        route: Optional[str] = None) -> str:
     """The route the LCC fixpoint takes. Capability gates come first
     (per-iteration message counting or multiplicity counts need the boolean
-    planes); otherwise the pinned route, packed by default."""
+    planes), then the pinned route, then the tuned policy for this shape
+    bucket, packed by default."""
     if collect_stats or tdev.needs_counts:
         return registry.ROUTE_UNPACKED
-    if route is None:
-        return registry.ROUTE_PACKED
-    return registry.check_route(route, registry.LCC_ROUTES)
+    if route is not None:
+        return registry.check_route(route, registry.LCC_ROUTES)
+    return registry.resolve_route(
+        LCC_ROUTE, lcc_route_bucket(dg), default=registry.ROUTE_PACKED,
+        backend=dg.device.type, allowed=registry.LCC_ROUTES)
 
 
 def lcc_fixpoint(

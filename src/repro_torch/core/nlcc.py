@@ -22,6 +22,11 @@ routes execute a wave: `unpacked` boolean planes, `packed` per-hop
 `bitset_spmm` launches, and `fused` (`bitset_wave`: all hops in one wrapper
 call). The packed routes build the packed frontier directly and read the
 survivors from packed words, so no [n, wave] boolean plane exists on them.
+
+`verify_constraint(edge_prune=True)` first runs the forward-backward
+frontier edge-prune pass (`_edge_prune_pass`): forward and backward packed
+frontiers, one `bitset_wave` hop at a time, mark the active arcs that lie
+on a completing walk, and the others lose the constraint's template arcs.
 """
 from __future__ import annotations
 
@@ -71,16 +76,26 @@ def expand_walks(constraint: NonLocalConstraint, direction: str = "default"):
     return [constraint.walk, tuple(reversed(constraint.walk))]
 
 
-def nlcc_resolved_route(wave: int, *, count_messages: bool = False,
+def nlcc_route_bucket(n: int, wave: int):
+    """Shape bucket of the NLCC wave route: the vertex count and the wave
+    width set a hop's cost (each hop moves n x wave frontier bits)."""
+    return registry.shape_bucket(n, wave)
+
+
+def nlcc_resolved_route(n: int, wave: int, backend: str, *,
+                        count_messages: bool = False,
                         route: Optional[str] = None) -> str:
     """The route CC/PC waves take. Packed and fused waves need a word-aligned
     wave and no message counting (the packed OR absorbs duplicates before
-    they can be counted); otherwise the pinned route, fused by default."""
+    they can be counted); then the pinned route, then the tuned policy for
+    this shape bucket, fused by default."""
     if count_messages or wave % 32 != 0:
         return registry.ROUTE_UNPACKED
-    if route is None:
-        return registry.ROUTE_FUSED
-    return registry.check_route(route, registry.NLCC_ROUTES)
+    if route is not None:
+        return registry.check_route(route, registry.NLCC_ROUTES)
+    return registry.resolve_route(
+        NLCC_ROUTE, nlcc_route_bucket(n, wave), default=registry.ROUTE_FUSED,
+        backend=backend, allowed=registry.NLCC_ROUTES)
 
 
 # --------------------------------------------------------- boolean planes
@@ -143,17 +158,24 @@ def _bit_values(cols: torch.Tensor) -> torch.Tensor:
     return torch.ones_like(cols) << (cols % 32)
 
 
+def _source_bits(n: int, safe_src: torch.Tensor, bits: torch.Tensor
+                 ) -> torch.Tensor:
+    """int32[n, S/32] with bit j of row safe_src[j] set where bits[j]. Each
+    column names one (row, bit), so the scattered bit values sum to their
+    OR."""
+    S = safe_src.shape[0]
+    W = S // 32
+    cols = torch.arange(S, device=safe_src.device)
+    words = torch.zeros(n * W, dtype=torch.int64, device=safe_src.device)
+    words.scatter_add_(0, safe_src * W + cols // 32,
+                       bits.to(torch.int64) * _bit_values(cols))
+    return as_int32_bits(words).reshape(n, W)
+
+
 def _initial_frontier_packed(n, cand0, source_ids, safe_src) -> torch.Tensor:
     """F_0 in packed words int32[n, S/32]: bit j of row safe_src[j] set for
-    every seeded source. Distinct (row, column) bits sum to their OR."""
-    S = source_ids.shape[0]
-    W = S // 32
-    dev = cand0.device
-    cols = torch.arange(S, device=dev)
-    seed = ((source_ids >= 0) & cand0[safe_src]).to(torch.int64)
-    words = torch.zeros(n * W, dtype=torch.int64, device=dev)
-    words.scatter_add_(0, safe_src * W + cols // 32, seed * _bit_values(cols))
-    return as_int32_bits(words).reshape(n, W)
+    every seeded source."""
+    return _source_bits(n, safe_src, (source_ids >= 0) & cand0[safe_src])
 
 
 def _column_any(packed: torch.Tensor) -> torch.Tensor:
@@ -164,20 +186,15 @@ def _column_any(packed: torch.Tensor) -> torch.Tensor:
 
 def _wave_survivors_packed(packed, source_ids, safe_src, is_cyclic: bool):
     """`_wave_survivors` read straight from the packed hop-L frontier."""
-    S = source_ids.shape[0]
-    W = S // 32
-    cols = torch.arange(S, device=packed.device)
+    cols = torch.arange(source_ids.shape[0], device=packed.device)
     word = packed[safe_src, cols // 32]
     arrived_self = ((word >> (cols % 32).to(torch.int32)) & 1).to(torch.bool)
     if is_cyclic:
         survived = arrived_self
     else:
         # clear every source's own bit, then ask whether any row still has it
-        own = torch.zeros(packed.numel(), dtype=torch.int64, device=packed.device)
-        own.scatter_add_(0, safe_src * W + cols // 32,
-                         arrived_self.to(torch.int64) * _bit_values(cols))
-        elsewhere = packed ^ as_int32_bits(own).reshape(packed.shape)
-        survived = _column_any(elsewhere)
+        own = _source_bits(packed.shape[0], safe_src, arrived_self)
+        survived = _column_any(packed ^ own)
     return survived & (source_ids >= 0)
 
 
@@ -209,6 +226,172 @@ def check_walk_constraint_packed(
     return _wave_survivors_packed(packed, source_ids, safe_src, is_cyclic)
 
 
+# ------------------------------------------------- frontier edge pruning
+# Words of one gathered [arcs, W] operand of `_arcs_meet`; arcs are taken in
+# chunks of this many words, so the gathers never grow with m.
+ARC_GATHER_WORDS = 1 << 25
+# Bytes the L+1 forward frontiers of one edge-prune batch may hold; a batch
+# takes fewer sources than `wave` when they would not fit. A source's
+# survival and the arcs its walks use do not depend on the other sources of
+# its batch, so the pass's result does not depend on the batch size.
+EDGE_PRUNE_PLANE_BYTES = 1 << 29
+
+
+def _arcs_meet(a: torch.Tensor, ia: torch.Tensor, b: torch.Tensor,
+               ib: torch.Tensor) -> torch.Tensor:
+    """bool[k]: a[ia[k]] and b[ib[k]] (packed [n, W] planes) share a bit."""
+    k = ia.shape[0]
+    step = max(1, ARC_GATHER_WORDS // a.shape[1])
+    out = torch.empty(k, dtype=torch.bool, device=a.device)
+    for off in range(0, k, step):
+        sl = slice(off, off + step)
+        both = a.index_select(0, ia[sl]) & b.index_select(0, ib[sl])
+        out[sl] = (both != 0).any(dim=1)
+    return out
+
+
+def _wave_live_arcs(dg, rev, edge_active, edge_active_rev, walk_candidacy,
+                    is_cyclic, source_ids, arcs):
+    """One wave of the forward-backward pass on packed words (S % 32 == 0).
+
+    F_r[v, s]: a token from source s sits at v after r hops (a prefix
+    exists). B_r[v, s]: from v a suffix of length L - r completes for a
+    surviving source s, intersected with F_r. Returns (survived bool[S],
+    fwd_live bool[L, k], rev_live bool[L, k]) over the k arcs `arcs` (the
+    active ones: an inactive arc is never live): row r - 1 holds the arcs
+    u -> v used at hop r by a full walk (F_{r-1}[u] & B_r[v]), and their
+    twin use (F_{r-1}[v] & B_r[u]).
+
+    Every hop is a one-hop `bitset_wave` call, which costs what the hop's
+    candidates cost (a `bitset_spmm` sweep walks every in-arc of every
+    vertex): forward over `dg` with the walk's candidacy, backward over
+    `rev` (out-arcs: `src` is not sorted) with the vertices where F_{r-1}
+    is nonzero as candidates, then AND F_{r-1} word by word."""
+    from repro_torch.kernels import ops as kops
+
+    n = dg.n
+    L = walk_candidacy.shape[0] - 1
+    safe_src = source_ids.clamp(0, n - 1)
+    cand = torch.where(walk_candidacy[1:], -1, 0).to(torch.int32)
+    fwd = [_initial_frontier_packed(n, walk_candidacy[0], source_ids, safe_src)]
+    for r in range(1, L + 1):
+        fwd.append(kops.bitset_wave(fwd[-1], dg, edge_active, cand[r - 1: r]))
+    survived = _wave_survivors_packed(fwd[L], source_ids, safe_src, is_cyclic)
+    if is_cyclic:
+        # the walk must end at its own source
+        B = _source_bits(n, safe_src, survived)
+    else:
+        # at a surviving source's columns, and never at the source itself
+        keep = _source_bits(1, torch.zeros_like(safe_src), survived)
+        own = _source_bits(n, safe_src, torch.ones_like(survived))
+        B = fwd[L] & keep & ~own
+    src, dst = dg.src[arcs], dg.dst[arcs]
+    fwd_live = torch.empty((L, arcs.shape[0]), dtype=torch.bool,
+                           device=arcs.device)
+    rev_live = torch.empty_like(fwd_live)
+    for r in range(L, 0, -1):
+        fwd.pop()  # F_r: no hop below r reads it
+        f = fwd[r - 1]
+        fwd_live[r - 1] = _arcs_meet(f, src, B, dst)
+        rev_live[r - 1] = _arcs_meet(f, dst, B, src)
+        if r > 1:
+            # B_{r-1}[u] = OR over active out-arcs (u -> v) of B_r[v], & F_{r-1}
+            live_u = torch.where((f != 0).any(dim=1), -1, 0).to(torch.int32)
+            B = kops.bitset_wave(B, rev, edge_active_rev, live_u[None]) & f
+    return survived, fwd_live, rev_live
+
+
+def _pad_sources(source_ids: torch.Tensor) -> torch.Tensor:
+    """Source ids padded with -1 to a whole number of packed words."""
+    pad = -source_ids.shape[0] % 32
+    if pad == 0:
+        return source_ids
+    return torch.cat([source_ids, source_ids.new_full((pad,), -1)])
+
+
+def walk_frontiers_and_edges(
+    dg: DeviceGraph,
+    state: PruneState,
+    walk_candidacy: torch.Tensor,  # bool[L+1, n]
+    is_cyclic: bool,
+    source_ids: torch.Tensor,      # int[S], -1 = pad
+):
+    """Forward + backward frontiers for one wave (beyond-paper edge pruning).
+
+    Returns (survived bool[S], fwd_live bool[L, m], rev_live bool[L, m]):
+    row r - 1 holds the arcs used at hop r by a walk that completes for a
+    surviving source, and the twin-direction use of the same arcs. The
+    frontiers are packed words; S is padded to a word multiple inside."""
+    S = source_ids.shape[0]
+    ids = _pad_sources(source_ids.long())
+    rev, perm = dg.reversed()
+    ea = state.edge_active
+    arcs = torch.nonzero(ea).squeeze(1)
+    survived, fl, rl = _wave_live_arcs(dg, rev, ea, ea[perm], walk_candidacy,
+                                       is_cyclic, ids, arcs)
+    L = walk_candidacy.shape[0] - 1
+    fwd_live = torch.zeros((L, dg.m), dtype=torch.bool, device=ea.device)
+    rev_live = torch.zeros_like(fwd_live)
+    fwd_live[:, arcs], rev_live[:, arcs] = fl, rl
+    return survived[:S], fwd_live, rev_live
+
+
+def _edge_prune_batch(n: int, L: int, wave: int) -> int:
+    """Sources per edge-prune batch: `wave`, cut so that the L + 1 forward
+    frontiers fit EDGE_PRUNE_PLANE_BYTES, in whole words."""
+    words = max(1, EDGE_PRUNE_PLANE_BYTES // (4 * max(n, 1) * (L + 1)))
+    return 32 * max(1, min(-(-wave // 32), words))
+
+
+def _edge_prune_pass(
+    dg: DeviceGraph,
+    state: PruneState,
+    constraint: NonLocalConstraint,
+    template,
+    wave: int,
+    stats: Optional[Dict],
+) -> PruneState:
+    """Forward-backward frontier edge elimination for one CC/PC constraint.
+
+    An arc stays when some template arc (qa, qb) admits it: qa in omega(u)
+    and qb in omega(v), and, for a template arc that the constraint's walk
+    covers, the arc lies on a completing walk at a hop that uses (qa, qb).
+    A live arc already meets the omega test of its template arc (F_{r-1} and
+    B_r are nonzero only at candidates of walk[r-1] and walk[r]), so the
+    support is the OR of the live arcs and of the omega test of the
+    uncovered template arcs, all on the device."""
+    walk = list(constraint.walk)
+    L = len(walk) - 1
+    omega = state.omega
+    sources = np.flatnonzero(omega[:, walk[0]].cpu().numpy())
+    if sources.size == 0:
+        return state
+    ea = state.edge_active
+    cand = torch.stack([omega[:, q] for q in walk], dim=0)
+    rev, perm = dg.reversed()
+    ea_rev = ea[perm]
+    arcs = torch.nonzero(ea).squeeze(1)
+    live = torch.zeros(arcs.shape[0], dtype=torch.bool, device=ea.device)
+    for idsp, _ in wave_batches(sources, _edge_prune_batch(dg.n, L, wave)):
+        ids = torch.from_numpy(idsp.astype(np.int64)).to(ea.device)
+        _, fl, rl = _wave_live_arcs(dg, rev, ea, ea_rev, cand,
+                                    constraint.is_cyclic, ids, arcs)
+        live |= (fl | rl).any(dim=0)
+    support = torch.zeros_like(ea)
+    support[arcs] = live
+    covered = set(zip(walk[:-1], walk[1:])) | set(zip(walk[1:], walk[:-1]))
+    for qa in range(template.n0):
+        for qb in template.adj[qa]:
+            if (qa, qb) not in covered:
+                support |= (omega[:, qa].index_select(0, dg.src)
+                            & omega[:, qb].index_select(0, dg.dst))
+    new_ea = ea & support
+    if stats is not None:
+        stats["nlcc_edges_pruned"] = stats.get("nlcc_edges_pruned", 0) + int(
+            ea.sum() - new_ea.sum())
+    return PruneState(omega=omega, edge_active=new_ea)
+
+
 # ---------------------------------------------------------- wave executor
 def verify_constraint(
     dg: DeviceGraph,
@@ -219,17 +402,28 @@ def verify_constraint(
     count_messages: bool = False,
     route: Optional[str] = None,
     direction: str = "default",
+    edge_prune: bool = False,
+    template=None,
 ) -> PruneState:
     """Alg. 5 for CC/PC (+ each rotation for cycles): eliminate the head
     template vertex from omega of every failing token source.
+
+    edge_prune=True (requires `template`) first removes the arcs that lie on
+    no completing walk for the template arcs this constraint covers
+    (`_edge_prune_pass`): sound, since a true match realizes every hop of
+    the walk.
 
     All walks of the constraint run against the constraint-entry omega;
     survivors accumulate in a device-side `keep` plane; the head columns are
     cleared on the device at the end. One host read per constraint (the
     head-candidacy columns that size the wave loop), plus one message-count
     read under `count_messages`."""
+    if edge_prune and template is not None:
+        state = _edge_prune_pass(dg, state, constraint, template, wave, stats)
     walks = expand_walks(constraint, direction)
-    route = nlcc_resolved_route(wave, count_messages=count_messages, route=route)
+    route = nlcc_resolved_route(state.omega.shape[0], wave,
+                                state.omega.device.type,
+                                count_messages=count_messages, route=route)
     wave_stat = {
         registry.ROUTE_FUSED: "nlcc_fused_waves",
         registry.ROUTE_PACKED: "nlcc_packed_waves",

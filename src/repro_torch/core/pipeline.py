@@ -103,12 +103,17 @@ def prune(
     `device` defaults to `cuda` (a `DeviceGraph` keeps its own device);
     `device="cpu"` runs the plain PyTorch versions of the kernels.
     `lcc_route` ("packed" | "unpacked") and `nlcc_route` ("fused" | "packed"
-    | "unpacked") pin the routes; unpinned, LCC takes the packed
-    `bitset_spmm` sweep and NLCC the fused `bitset_wave` wave wherever the
-    capability gates allow. The routes taken land in
-    `stats["dispatch_routes"]`."""
-    if nlcc_edge_prune:
-        raise NotImplementedError("the NLCC edge-prune pass is not ported yet")
+    | "unpacked") pin the routes; unpinned, the tuned dispatch policy
+    (`kernels/registry.py`) picks them per shape bucket, and untuned LCC
+    takes the packed `bitset_spmm` sweep and NLCC the fused `bitset_wave`
+    wave wherever the capability gates allow. The routes taken land in
+    `stats["dispatch_routes"]`.
+
+    `nlcc_edge_prune=True` runs the forward-backward frontier edge pruning
+    before each CC/PC constraint (`nlcc._edge_prune_pass`). With no `plan`
+    and no `constraints` given, a plan cached in the active policy for this
+    template and graph-stats bucket is used (`planner.resolve_query_plan`);
+    otherwise the paper's heuristic order."""
     if resilience is not None:
         raise NotImplementedError("resilience= is not ported yet")
     if isinstance(graph, Graph) and label_freq is None:
@@ -123,6 +128,7 @@ def prune(
         graph, template, device=device, mesh=mesh, partition=partition,
         wave=wave, lcc_route=lcc_route, nlcc_route=nlcc_route,
         edge_elimination=edge_elimination, collect_stats=collect_stats,
+        nlcc_edge_prune=nlcc_edge_prune,
         tds_chunk=tds_chunk, tds_max_rows=tds_max_rows,
         work_aggregation=work_aggregation,
         guarantee_precision=guarantee_precision)
@@ -136,21 +142,39 @@ def prune(
         return PruneResult(backend.final_state(), template, dg, [], stats)
 
     backend.record_routes(stats)
+    # Beyond-paper fast path: with forward-backward frontier edge pruning,
+    # CC alone yields the exact edge set for unique-label edge-monocyclic
+    # templates (every surviving edge lies on a completing label cycle, and
+    # unique labels make any such cycle a true match), so the complete-walk
+    # TDS is not generated.
+    skip_complete = (
+        nlcc_edge_prune and guarantee_precision
+        and not template.is_acyclic()
+        and template.is_edge_monocyclic() and not template.repeated_labels())
+    if skip_complete:
+        stats["tds_skipped_via_frontier_edge_prune"] = True
     if constraints is None:
         constraints = generate_constraints(
             template, label_freq=label_freq,
-            guarantee_precision=guarantee_precision)
+            guarantee_precision=guarantee_precision and not skip_complete)
+        if plan is None:
+            plan = _maybe_resolve_plan(graph, dg, template, constraints,
+                                       label_freq)
     if plan is not None:
         _check_plan(plan, constraints)
+        constraints = plan.constraints()
     else:
         plan = planner_mod.heuristic_plan(constraints)
-    stats["n_constraints"] = len(plan.phases)
+    stats["n_constraints"] = len(constraints)
     stats["plan"] = {
         "source": plan.source,
         "phases": [
             {"sig": p.signature, "engine": p.engine,
-             "direction": p.direction, "actual_s": None}
-            for p in plan.phases
+             "direction": p.direction,
+             "predicted_s": (plan.per_phase_s[i] if plan.per_phase_s
+                             else None),
+             "actual_s": None}
+            for i, p in enumerate(plan.phases)
         ],
     }
 
@@ -158,6 +182,27 @@ def prune(
                      collect_stats=collect_stats)
     driver.run()
     return driver.finish(template, dg)
+
+
+def _maybe_resolve_plan(graph, dg, template, constraints, label_freq):
+    """The policy's cached plan for this run, or None. Graph statistics are
+    collected only when the active policy holds plans, so an untuned run
+    never computes them."""
+    from repro_torch.kernels import registry
+
+    policy = registry.get_policy()
+    if policy is None or not policy.plans:
+        return None
+    from repro_torch.graph import stats as gstats
+
+    if isinstance(graph, Graph):
+        st = gstats.collect_graph_stats(graph)
+    else:
+        nl = (len(label_freq) if label_freq is not None
+              else int(dg.labels.max()) + 1)
+        st = gstats.collect_graph_stats(dg, n_labels=nl)
+    return planner_mod.resolve_query_plan(template, constraints, st,
+                                          backend=dg.device.type)
 
 
 def _check_plan(plan, constraints):

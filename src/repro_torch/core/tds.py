@@ -127,6 +127,13 @@ def expand_capacity(sub: ActiveSubgraph, rows: np.ndarray,
     return (sub.offsets[cur + 1] - sub.offsets[cur]).astype(np.int64)
 
 
+def expansion_slots(deg: np.ndarray) -> Tuple[np.ndarray, int]:
+    """Slot layout of one expansion step from per-row degrees: the int64
+    inclusive running capacity and the total slot count."""
+    cum = np.cumsum(np.asarray(deg, np.int64))
+    return cum, (int(cum[-1]) if cum.size else 0)
+
+
 def tds_walk(
     sub: ActiveSubgraph,
     walk: Sequence[int],

@@ -514,3 +514,20 @@ def estimate_walk_cost(
         cost += level
         level = level * f(q)
     return cost
+
+
+def estimate_constraint_selectivity(
+    template: Template,
+    constraint: NonLocalConstraint,
+    label_freq: np.ndarray,
+) -> float:
+    """Expected fraction of token sources the constraint ELIMINATES
+    ([Tripoul et al. 2018]'s selectivity primitive): the probability that a
+    random walk of this label sequence fails to close, modelled as
+    1 - prod(freq ratios) -- rarer interior labels eliminate more sources."""
+    total = max(float(np.sum(label_freq)), 1.0)
+    p = 1.0
+    for q in constraint.walk[1:]:
+        l = int(template.labels[q])
+        p *= float(label_freq[l]) / total if l < len(label_freq) else 0.0
+    return 1.0 - min(p, 1.0)

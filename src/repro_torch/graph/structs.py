@@ -12,7 +12,7 @@ v are the arcs `dst_ptr[v] .. dst_ptr[v+1]-1`.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Union
+from typing import Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -127,6 +127,9 @@ class DeviceGraph:
     dst: torch.Tensor      # int32[m]
     dst_ptr: torch.Tensor  # int64[n+1] dst-CSR offsets into src/dst
     labels: torch.Tensor   # int32[n]
+    # (reversed graph, perm), built by the first `reversed()` call and kept
+    _rev: Optional[Tuple["DeviceGraph", torch.Tensor]] = dataclasses.field(
+        default=None, init=False, repr=False, compare=False)
 
     @property
     def m(self) -> int:
@@ -150,3 +153,23 @@ class DeviceGraph:
             dst_ptr=torch.from_numpy(dst_ptr).to(dev),
             labels=torch.from_numpy(np.ascontiguousarray(g.labels)).to(dev),
         )
+
+    def reversed(self) -> Tuple["DeviceGraph", torch.Tensor]:
+        """The arcs reversed and sorted by their new destination (this
+        graph's source), with its dst-CSR. Returns (the reversed graph,
+        perm): its arc k is arc perm[k] here. Its in-arcs of u are the
+        out-arcs of u here, with their heads in ascending order in `src`:
+        OR-aggregating over it ORs along out-arcs. Built on the first call
+        and kept: the edge-prune pass and every join context read this one
+        copy (the arcs are never changed in place)."""
+        if self._rev is None:
+            perm = torch.sort(self.src, stable=True).indices
+            dst_ptr = torch.zeros(self.n + 1, dtype=torch.int64,
+                                  device=self.device)
+            dst_ptr[1:] = torch.cumsum(
+                torch.bincount(self.src.long(), minlength=self.n), 0)
+            rev = DeviceGraph(n=self.n, src=self.dst[perm].contiguous(),
+                              dst=self.src[perm].contiguous(), dst_ptr=dst_ptr,
+                              labels=self.labels)
+            self._rev = (rev, perm)
+        return self._rev

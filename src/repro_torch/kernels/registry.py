@@ -11,20 +11,50 @@ through the kernels. A kernel with more than one variant (`flash_attention`:
 "bf16_tc" on the tensor cores, "f32" on the CUDA cores) also counts each
 variant's launches.
 
-Route names are the JAX package's. Without a pin, the LCC sweep takes the
-packed route (`bitset_spmm`) and NLCC waves take the fused route
-(`bitset_wave`); the capability gates of `core/lcc.py` and `core/nlcc.py`
-send a run to the boolean planes where the packed words cannot express it.
+Route names are the JAX package's. Without a pin or a tuned policy, the LCC
+sweep takes the packed route (`bitset_spmm`), NLCC waves take the fused
+route (`bitset_wave`) and enumeration the host join; the capability gates of
+`core/lcc.py` and `core/nlcc.py` send a run to the boolean planes where the
+packed words cannot express it.
+
+Dispatch policy
+---------------
+
+Above the kernels sits a measured-cost policy (`DispatchPolicy`): a table of
+route decisions per (route name, backend, shape bucket), produced by `tune()`
+(which times each candidate route) and persisted to a JSON cache
+(`policy_path()`, overridable by ``REPRO_TORCH_DISPATCH_POLICY``), plus a
+table of tuned query plans (`core/planner.py`). The backend is the device
+type, "cuda" or "cpu". `resolve_route` serves route decisions to
+`core/lcc.py`, `core/nlcc.py` and `core/enumerate.py`; with no policy, or no
+entry for the bucket, it returns the caller's default, so an untuned run
+routes as above. The policy chooses among routes only: which of a kernel and
+its plain version runs still follows the tensor's device, and no entry can
+send a CUDA tensor to a plain version.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+import dataclasses
+import json
+import os
+import time
+import warnings
+from typing import Any, Callable, Dict, Iterable, List, Optional, Sequence, Tuple
 
 import torch
 
 ROUTE_PACKED = "packed"
 ROUTE_UNPACKED = "unpacked"
 ROUTE_FUSED = "fused"
+# the enumeration join (route name ``enumerate.join``, core/enumerate.py):
+# host = the numpy row-table join over the compacted subgraph, device = the
+# device-resident join (core/join.py)
+ROUTE_HOST = "host"
+ROUTE_DEVICE = "device"
+# row placements of the sharded device join, which the port has not yet:
+# naming them on the local backend raises, as in the JAX package
+ROUTE_REPLICATED = "replicated"
+ROUTE_ROWSHARDED = "rowsharded"
 
 LCC_ROUTES = (ROUTE_PACKED, ROUTE_UNPACKED)
 NLCC_ROUTES = (ROUTE_PACKED, ROUTE_UNPACKED, ROUTE_FUSED)
@@ -78,3 +108,329 @@ def check_route(route: str, allowed) -> str:
     if route not in allowed:
         raise ValueError(f"unknown route {route!r}; expected one of {allowed}")
     return route
+
+
+# ------------------------------------------------------------------ buckets
+# wildcard bucket: one decision for every shape of a (route, backend) pair
+BUCKET_ANY = "*"
+
+
+def shape_bucket(*dims: int) -> Tuple[int, ...]:
+    """Round each dimension up to the next power of two: calls whose dims land
+    in one bucket share one tuned decision."""
+    out = []
+    for d in dims:
+        d = max(int(d), 1)
+        b = 1
+        while b < d:
+            b <<= 1
+        out.append(b)
+    return tuple(out)
+
+
+def bucket_key(bucket) -> str:
+    """A shape bucket as policy-table keys spell it ("2048x32", "*",
+    "scalar")."""
+    if bucket == BUCKET_ANY:
+        return BUCKET_ANY
+    return "x".join(str(b) for b in tuple(bucket)) or "scalar"
+
+
+def _entry_key(name: str, backend: str, bucket) -> str:
+    return f"{name}|{backend}|{bucket_key(bucket)}"
+
+
+# ------------------------------------------------------------------- policy
+@dataclasses.dataclass
+class PolicyEntry:
+    """One tuned decision: the winning candidate and the measurements behind
+    it (candidate -> best wall seconds over the tuning repeats)."""
+
+    choice: str
+    measured_s: Dict[str, float] = dataclasses.field(default_factory=dict)
+
+    def to_json(self) -> Dict:
+        return {"choice": self.choice, "measured_s": self.measured_s}
+
+    @staticmethod
+    def from_json(d: Dict) -> "PolicyEntry":
+        return PolicyEntry(
+            choice=str(d["choice"]),
+            measured_s={k: float(v) for k, v in d.get("measured_s", {}).items()},
+        )
+
+
+@dataclasses.dataclass
+class PlanEntry:
+    """One tuned query plan for a (template-signature, graph-stats) bucket:
+    the ordered phases -- each a dict with the constraint signature
+    (``"cycle:0,1,2,0"``), the engine (``"nlcc"``/``"tds"``) and the walk
+    direction -- plus the cost model's prediction and any measurements."""
+
+    phases: List[Dict] = dataclasses.field(default_factory=list)
+    predicted_s: float = 0.0
+    measured_s: Dict[str, float] = dataclasses.field(default_factory=dict)
+
+    def signatures(self) -> List[str]:
+        return [str(p["sig"]) for p in self.phases]
+
+    def to_json(self) -> Dict:
+        return {
+            "phases": self.phases,
+            "predicted_s": self.predicted_s,
+            "measured_s": self.measured_s,
+        }
+
+    @staticmethod
+    def from_json(d: Dict) -> "PlanEntry":
+        phases = [dict(p) for p in d["phases"]]
+        for p in phases:
+            p["sig"]  # KeyError on a malformed phase: the caller skips the entry
+        return PlanEntry(
+            phases=phases,
+            predicted_s=float(d.get("predicted_s", 0.0)),
+            measured_s={k: float(v) for k, v in d.get("measured_s", {}).items()},
+        )
+
+
+# plan keys render as ``prune.plan|<backend>|<template-sig>x<stats-bucket>``
+PLAN_ROUTE = "prune.plan"
+
+POLICY_SCHEMA_VERSION = 1
+
+
+@dataclasses.dataclass
+class DispatchPolicy:
+    """Measured-cost route table keyed "<name>|<backend>|<bucket>", and the
+    plan table. Route lookup tries the exact bucket, then the ``*``
+    wildcard."""
+
+    routes: Dict[str, PolicyEntry] = dataclasses.field(default_factory=dict)
+    plans: Dict[str, PlanEntry] = dataclasses.field(default_factory=dict)
+    meta: Dict[str, Any] = dataclasses.field(default_factory=dict)
+
+    def route_entry_for(self, name: str, backend: str, bucket
+                        ) -> Optional[PolicyEntry]:
+        """The tuned entry (choice and measurements) for a bucket, exact key
+        first, then the wildcard."""
+        entry = self.routes.get(_entry_key(name, backend, bucket))
+        if entry is None and bucket != BUCKET_ANY:
+            entry = self.routes.get(_entry_key(name, backend, BUCKET_ANY))
+        return entry
+
+    def route_for(self, name: str, backend: str, bucket) -> Optional[str]:
+        entry = self.route_entry_for(name, backend, bucket)
+        return entry.choice if entry is not None else None
+
+    def plan_for(self, backend: str, bucket) -> Optional[PlanEntry]:
+        """The plan for a (template-sig, stats-bucket) bucket, exact key
+        only: a plan never transfers across templates or graph classes."""
+        return self.plans.get(_entry_key(PLAN_ROUTE, backend, bucket))
+
+    def set_route(self, name: str, backend: str, bucket, choice: str,
+                  measured_s: Optional[Dict[str, float]] = None):
+        self.routes[_entry_key(name, backend, bucket)] = PolicyEntry(
+            choice, dict(measured_s or {}))
+
+    def set_plan(self, backend: str, bucket, entry: PlanEntry):
+        self.plans[_entry_key(PLAN_ROUTE, backend, bucket)] = entry
+
+    def to_json(self) -> Dict:
+        out = {
+            "schema_version": POLICY_SCHEMA_VERSION,
+            "meta": self.meta,
+            "routes": {k: e.to_json() for k, e in sorted(self.routes.items())},
+        }
+        if self.plans:
+            out["plans"] = {k: e.to_json() for k, e in sorted(self.plans.items())}
+        return out
+
+    @staticmethod
+    def from_json(d: Dict) -> "DispatchPolicy":
+        ver = d.get("schema_version")
+        if ver != POLICY_SCHEMA_VERSION:
+            raise ValueError(
+                f"dispatch policy schema_version {ver!r} != "
+                f"{POLICY_SCHEMA_VERSION}; re-run registry.tune()")
+        plans: Dict[str, PlanEntry] = {}
+        for k, e in d.get("plans", {}).items():
+            try:
+                plans[k] = PlanEntry.from_json(e)
+            except (KeyError, TypeError, ValueError) as err:
+                # a malformed plan entry must not take down the route table
+                warnings.warn(f"ignoring malformed plan cache entry {k!r}: {err}",
+                              RuntimeWarning, stacklevel=2)
+        return DispatchPolicy(
+            routes={k: PolicyEntry.from_json(e)
+                    for k, e in d.get("routes", {}).items()},
+            plans=plans,
+            meta=dict(d.get("meta", {})),
+        )
+
+    def save(self, path: Optional[str] = None) -> str:
+        path = path or policy_path()
+        d = os.path.dirname(path)
+        if d:
+            os.makedirs(d, exist_ok=True)
+        with open(path, "w") as f:
+            json.dump(self.to_json(), f, indent=1, sort_keys=True)
+        return path
+
+    @staticmethod
+    def load(path: Optional[str] = None) -> "DispatchPolicy":
+        with open(path or policy_path()) as f:
+            return DispatchPolicy.from_json(json.load(f))
+
+
+# the port's own cache, apart from the JAX package's dispatch_policy.json
+DEFAULT_POLICY_PATH = os.path.join("experiments", "policy",
+                                   "torch_dispatch_policy.json")
+POLICY_ENV = "REPRO_TORCH_DISPATCH_POLICY"
+
+
+def policy_path() -> str:
+    """Where the persisted policy cache lives (the environment variable
+    ``REPRO_TORCH_DISPATCH_POLICY`` wins)."""
+    return os.environ.get(POLICY_ENV, DEFAULT_POLICY_PATH)
+
+
+_POLICY_UNSET = object()
+_POLICY: Any = _POLICY_UNSET
+
+
+def set_policy(policy: Optional[DispatchPolicy]) -> None:
+    """Install `policy` as the active one (None: explicitly no policy, and no
+    lazy load of the cache)."""
+    global _POLICY
+    _POLICY = policy
+
+
+def clear_policy() -> None:
+    """Forget the active policy; the next lookup reads the cache again."""
+    global _POLICY
+    _POLICY = _POLICY_UNSET
+
+
+def get_policy() -> Optional[DispatchPolicy]:
+    """The active policy: what `set_policy` installed, else the cache at
+    `policy_path()` if one exists (loaded once), else None. An unreadable
+    cache warns and counts as none."""
+    global _POLICY
+    if _POLICY is _POLICY_UNSET:
+        path = policy_path()
+        _POLICY = None
+        if os.path.exists(path):
+            try:
+                _POLICY = DispatchPolicy.load(path)
+            except (ValueError, KeyError, TypeError, OSError) as e:
+                warnings.warn(
+                    f"ignoring unreadable dispatch policy cache {path!r}: {e}",
+                    RuntimeWarning, stacklevel=2)
+    return _POLICY
+
+
+def resolve_route(name: str, bucket=BUCKET_ANY, *, default: str, backend: str,
+                  allowed: Optional[Sequence[str]] = None) -> str:
+    """The tuned choice for (name, backend, bucket) when the active policy
+    has one inside `allowed`, else `default` -- which callers set to their
+    untuned route, so an untuned run routes exactly as before. A cache entry
+    outside `allowed` (a typo, a stale candidate) falls back to `default`."""
+    policy = get_policy()
+    if policy is not None:
+        choice = policy.route_for(name, backend, bucket)
+        if choice is not None and (allowed is None or choice in allowed):
+            return choice
+    return default
+
+
+def resolve_plan(bucket, signatures: Sequence[str], *,
+                 backend: str) -> Optional[PlanEntry]:
+    """The tuned plan for a (template-sig, stats-bucket) bucket, checked
+    against the constraint signatures the template generates now. None when
+    there is no policy, no plan for the bucket, or the plan is stale (its
+    phase signatures differ: a plan that drops or invents a constraint is
+    unsound), the last with a warning."""
+    policy = get_policy()
+    if policy is None or not policy.plans:
+        return None
+    entry = policy.plan_for(backend, bucket)
+    if entry is None:
+        return None
+    want = sorted(str(s) for s in signatures)
+    if sorted(entry.signatures()) != want:
+        warnings.warn(
+            f"ignoring stale plan cache entry for bucket {bucket_key(bucket)!r}: "
+            f"cached constraint signatures {sorted(entry.signatures())} != "
+            f"current {want}; re-run the planner", RuntimeWarning, stacklevel=2)
+        return None
+    return entry
+
+
+# ---------------------------------------------------------------- autotune
+def _time_thunk(thunk: Callable[[], Any], repeat: int, backend: str) -> float:
+    """Best wall seconds over `repeat` runs after one warm-up run; on the
+    card the device is synchronized before and after each run, so a run's
+    time holds its device work."""
+
+    def sync():
+        if backend == "cuda":
+            torch.cuda.synchronize()
+
+    sync()
+    thunk()
+    sync()
+    best = float("inf")
+    for _ in range(max(repeat, 1)):
+        t0 = time.perf_counter()
+        thunk()
+        sync()
+        best = min(best, time.perf_counter() - t0)
+    return best
+
+
+def tune(
+    routes: Iterable[Tuple[str, Any, Dict[str, Callable[[], Any]]]] = (),
+    *,
+    backend: str,
+    repeat: int = 3,
+    policy: Optional[DispatchPolicy] = None,
+    path: Optional[str] = None,
+    persist: bool = True,
+) -> DispatchPolicy:
+    """Time candidate routes and record the winners in a `DispatchPolicy`.
+
+    routes  iterable of (route_name, bucket, {candidate: thunk}); each thunk
+            is timed as it is, and the fastest candidate becomes the route
+            decision for (route_name, backend, bucket).
+    backend the device type the thunks run on ("cuda" or "cpu").
+    policy  extend this policy; when omitted, a readable cache at the target
+            path is loaded and extended, so decisions not measured again
+            survive (an unreadable cache is replaced).
+    path/persist  where (and whether) to save the JSON cache; the tuned
+            policy is installed as the active one either way.
+
+    Only routes are tuned: which of a kernel and its plain version runs
+    follows the tensor's device and is never a policy decision."""
+    pol = policy
+    if pol is None:
+        target = path or policy_path()
+        if os.path.exists(target):
+            try:
+                pol = DispatchPolicy.load(target)
+            except (ValueError, KeyError, TypeError, OSError):
+                pol = None  # unreadable cache: tune from scratch, overwrite
+    if pol is None:
+        pol = DispatchPolicy()
+    pol.meta.update({"backend": backend, "torch": torch.__version__,
+                     "repeat": int(repeat), "tuned_unix": time.time()})
+    if backend == "cuda":
+        pol.meta["device"] = torch.cuda.get_device_name(0)
+    for name, bucket, candidates in routes:
+        measured = {cand: _time_thunk(thunk, repeat, backend)
+                    for cand, thunk in candidates.items()}
+        winner = min(measured, key=measured.get)
+        pol.set_route(name, backend, bucket, winner, measured)
+    if persist:
+        pol.save(path)
+    set_policy(pol)
+    return pol

@@ -14,8 +14,9 @@ pytest.importorskip("torch")
 ROOT = Path(__file__).resolve().parents[1]
 IMPORT_RE = re.compile(r"^\s*(import|from)\s+(jax|repro)\b")
 
-# Runs in a fresh interpreter: a tiny CPU prune through the whole main path,
-# a tiny sampled GNN forward, a tiny greedy generation and a retrieval, then
+# Runs in a fresh interpreter: a tiny CPU prune through the whole main path
+# (with the edge-prune pass, the device join, streaming, a planned prune, a
+# tune and the quickstart), a tiny sampled GNN forward, a tiny greedy generation and a retrieval, then
 # checks that nothing of JAX or the JAX package was loaded, and that the
 # default device is CUDA (which raises where there is none).
 SCRIPT = textwrap.dedent("""
@@ -31,6 +32,24 @@ SCRIPT = textwrap.dedent("""
     t = Template([0, 1, 2, 3], [(0, 1), (1, 2), (2, 3), (3, 0)])
     res = prune(g, t, device="cpu")
     assert count_matches(res).n_embeddings == 1
+
+    from repro_torch.core.enumerate import stream_matches
+    from repro_torch.core.planner import plan_query
+    from repro_torch.graph.stats import collect_graph_stats
+    from repro_torch.kernels import registry
+    from repro_torch.launch import quickstart
+    ep = prune(g, t, device="cpu", nlcc_edge_prune=True)
+    assert ep.stats["tds_skipped_via_frontier_edge_prune"]
+    assert count_matches(ep, route="device").n_embeddings == 1
+    assert sum(b.shape[0] for b in stream_matches(ep, route="device")) == 1
+    plan = plan_query(t, collect_graph_stats(g), backend="cpu")
+    assert prune(g, t, device="cpu", plan=plan).counts() == res.counts()
+    pol = registry.tune(routes=[("prune.lcc", registry.BUCKET_ANY,
+                                 {"packed": lambda: None})],
+                        backend="cpu", repeat=1, persist=False)
+    assert pol.route_for("prune.lcc", "cpu", (4, 8)) == "packed"
+    registry.set_policy(None)
+    assert quickstart.main(["--device", "cpu"]).n_embeddings >= 20
 
     from repro_torch.configs import get_arch
     from repro_torch.data.graphs import SampledBatchStream
@@ -68,6 +87,7 @@ SCRIPT = textwrap.dedent("""
         assert Bert4Rec(rec_cfg).device.type == "cuda"
     else:
         for name, call in (("prune()", lambda: prune(g, t)),
+                           ("quickstart", lambda: quickstart.main([])),
                            ("GNN()", lambda: GNN(cfg, 6, 3)),
                            ("Transformer()", lambda: Transformer(lm_cfg)),
                            ("Bert4Rec()", lambda: Bert4Rec(rec_cfg))):

@@ -195,8 +195,7 @@ def test_generators_and_device_graph_match_reference():
 def test_unported_options_raise():
     g, (labels, edges) = SCENARIOS["triangle_er"]
     tg, tm = _port_graph(g), Template(labels, edges)
-    for kw in (dict(nlcc_edge_prune=True), dict(partition=2),
-               dict(resilience=object())):
+    for kw in (dict(partition=2), dict(resilience=object())):
         with pytest.raises(NotImplementedError):
             prune(tg, tm, device="cpu", **kw)
     with pytest.raises(ValueError):

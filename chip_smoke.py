@@ -118,6 +118,36 @@ From the root of a checkout, on a machine with a CUDA device and `nvcc`:
                retrieval_cand (1 user x 1,000,000 candidates, exactly one
                `embedding_bag` launch), seconds and peak memory;
             e. the serving CLI (`launch/serve.py --arch bert4rec`).
+8. many     many queries against one graph (run with the prune path, on
+            its graphs):
+            a. R-MAT scale 14, card against CPU: `prune_batch` of the 8
+               templates of tests/test_batch.py (labels moved up by 3 to
+               this graph's degree labels), its straggler pair at wave 32
+               and a deadline that passes in the middle of the run (a
+               ticking fake clock): statuses, counters, and each lane's
+               omega, edge mask and count equal on both devices and to the
+               single prune of its template; `GraphQueryEngine` in count
+               mode (the single prunes' counts) and stream mode (the rows of
+               `enumerate_matches`); the incremental session and the
+               exploratory search of examples/interactive_search.py, card
+               == CPU;
+            b. scale 20, the phase-4 graph: `GraphQueryEngine` serves
+               `example_workload(32)` in prune mode in batches of 8, without
+               the complete-walk TDS (`SERVE_PRECISION` says why): q/s,
+               seconds per batch beside the 32 single prunes' seconds, the
+               batched counters, peak memory, launches per batch (both
+               kernels nonzero), each lane's omega and edge mask equal to
+               its single prune's; then a batch of 6 with the complete TDS
+               (`SERVE_TDS_BATCH`), each lane equal to its single prune;
+               the profiler over one more batch;
+            c. scale 20: `IncrementalSession` over the example's three
+               revisions, seconds and constraints reused per revision, each
+               revision keeping every vertex of the exact prune, inside the
+               candidate set, both kernels launched; `exploratory_search` on
+               the example's planted-squares recipe at scale 20 over 1,000
+               labels, its levels, the squares found at k = 2;
+            d. `launch/serve.py --graph-queries 32 --graph-scale 14` and
+               `launch/interactive_search` in processes of their own.
 
 Every time is printed beside the card's name and power limit. The line
 before the last is a JSON object listing each kernel with its launches on
@@ -148,8 +178,11 @@ sys.path.insert(0, str(ROOT / "src"))
 from repro_torch.configs import get_arch  # noqa: E402
 from repro_torch.configs.base import GNN_CLASSES, LMConfig  # noqa: E402
 from repro_torch.core import lcc, nlcc, planner  # noqa: E402
+from repro_torch.core.batch import prune_batch  # noqa: E402
 from repro_torch.core.enumerate import (  # noqa: E402
     ENUM_ROUTE, count_matches, enumerate_matches, stream_matches)
+from repro_torch.core.exploratory import exploratory_search  # noqa: E402
+from repro_torch.core.incremental import IncrementalSession  # noqa: E402
 from repro_torch.core.lcc import TemplateDev, lcc_fixpoint  # noqa: E402
 from repro_torch.core.pipeline import prune  # noqa: E402
 from repro_torch.core.state import init_state, pack_bits  # noqa: E402
@@ -161,10 +194,13 @@ from repro_torch.graph import generators as gen  # noqa: E402
 from repro_torch.graph.stats import collect_graph_stats  # noqa: E402
 from repro_torch.graph.structs import DeviceGraph, Graph  # noqa: E402
 from repro_torch.kernels import build, ops, ref, registry  # noqa: E402
+from repro_torch.launch import interactive_search  # noqa: E402
 from repro_torch.launch import serve as serve_cli  # noqa: E402
 from repro_torch.models.bert4rec import Bert4Rec  # noqa: E402
 from repro_torch.models.gnn import GNN  # noqa: E402
 from repro_torch.models.transformer import Transformer  # noqa: E402
+from repro_torch.serve import (  # noqa: E402
+    MODE_COUNT, MODE_PRUNE, MODE_STREAM, GraphQueryEngine, example_workload)
 from repro_torch.serve.engine import build_decode_step, build_prefill, greedy_generate  # noqa: E402
 
 SEED = 3
@@ -187,6 +223,60 @@ WAVE = 1024
 # emitter.
 TRI_MANY = ([7, 7, 7], [(0, 1), (1, 2), (2, 0)])
 JOIN_TIGHT_ROWS, JOIN_TIGHT_CHUNK = 1024, 256
+# Phase 8, many queries against one graph. 8a batches the templates of
+# tests/test_batch.py (cyclic, path, counted and TDS-bearing ones of one
+# shape bucket) with their labels moved up by BATCH_LABEL_SHIFT to this
+# graph's degree labels (the reference's scale-8 graph has labels 0-7, the
+# scale-14 graph 0-12), where every lane keeps matches, and that file's
+# straggler pair (a one-vertex head beside a wide one, wave 32); 8b serves
+# example_workload(32) in batches of 8.
+BATCH_VARIANTS = [
+    ([5, 4, 4, 3], [(0, 1), (1, 2), (2, 3), (3, 0)]),
+    ([5, 4, 3, 2], [(0, 1), (1, 2), (2, 3)]),
+    ([4, 3, 3], [(0, 1), (1, 2), (2, 0)]),
+    ([6, 5, 4, 3], [(0, 1), (1, 2), (2, 3), (3, 0)]),
+    ([3, 2, 2, 2], [(0, 1), (1, 2), (2, 3)]),
+    ([5, 5, 4], [(0, 1), (1, 2), (2, 0)]),
+    ([4, 4, 3, 3], [(0, 1), (1, 2), (2, 3), (3, 0)]),
+    ([6, 4, 2], [(0, 1), (1, 2), (2, 0)]),
+]
+BATCH_LABEL_SHIFT = 3
+BATCH_STRAGGLERS = [([8, 3, 8], [(0, 1), (1, 2), (2, 0)]),
+                    ([6, 5, 6], [(0, 1), (1, 2), (2, 0)])]
+BATCH_COUNTERS = ("lcc_iterations", "nlcc_waves", "nlcc_tokens",
+                  "nlcc_lockstep_padded", "nlcc_constraints", "nlcc_host_syncs",
+                  "tds_gather_bridge")
+SERVE_QUERIES, SERVE_MAX_BATCH = 32, 8
+# 8b prunes without the precision-guaranteeing complete-walk TDS. With it the
+# workload is bound by that host phase on the graph's dense core (labels
+# 10-14): on an H100 machine, 30-61 s a query for the [10,11,12],
+# [11,12,13] and [12,12,13] triangles and the [10,11,12,13] square, and the
+# [11,12,13,14] square overflows tds_max_rows (57,552,476 partial rows from
+# one source), in the single prune as in the reference's design. Without
+# it, every query is LCC and NLCC waves on the card.
+SERVE_PRECISION = False
+# 8b also prunes this same-bucket batch with the complete TDS: templates of
+# example_workload's shapes whose single prunes with it took 0.06-0.26 s
+# each on an H100 machine, on this graph
+SERVE_TDS_BATCH = [
+    ([3, 4, 5, 6], [(0, 1), (0, 3), (1, 2), (2, 3)]),
+    ([5, 5, 6], [(0, 1), (0, 2), (1, 2)]),
+    ([6, 6, 7], [(0, 1), (0, 2), (1, 2)]),
+    ([5, 6, 7], [(0, 1), (0, 2), (1, 2)]),
+    ([10, 10, 11], [(0, 1), (0, 2), (1, 2)]),
+    ([9, 10, 11], [(0, 1), (0, 2), (1, 2)]),
+]
+# 8c's planted-squares recipe at scale 20 draws labels from this many (the
+# example's 50 at scale 10). With 50, label 44 marks 21,000 vertices of
+# the scale-20 background, which hold natural 4-cliques found at k = 0;
+# with 1,000 it marks about 1,000, among which about 6 background edges
+# are expected, so the planted squares are found at k = 2
+EXPLORE_LABELS_FULL = 1000
+# 8d serves the CLI's workload at this scale: in count mode at scale 20 the
+# CLI's graph (edge factor 8) holds triangles of 2.2 M matches whose
+# complete TDS and host count take 72 s on an H100 machine, and 32 queries
+# did not finish in 700 s; at scale 16 they took 123 s, at scale 18 228 s.
+SERVE_CLI_SCALE = 14
 DEVICE = "cuda"
 # Phase 5: graphsage-reddit on the minibatch_lg shape, over an Erdos-Renyi
 # graph of that shape's size (Reddit: 232,965 vertices, 114,615,892 arcs).
@@ -1139,6 +1229,331 @@ def phase_quickstart_cli():
     check(f"on {DEVICE}" in proc.stdout, f"the quickstart did not run on {DEVICE}")
     log(f"quickstart exited 0 in {time.perf_counter() - t0:.1f} s")
 
+# ------------------------------------------------- phase 8: many queries
+def lane_arrays(res):
+    """(omega, arc mask) of one prune result or batched lane, on the host."""
+    return res.state.omega.cpu().numpy(), res.state.edge_active.cpu().numpy()
+
+
+def same_lane(a, b):
+    (oa, ea), (ob, eb) = a, b
+    return np.array_equal(oa, ob) and np.array_equal(ea, eb)
+
+
+def batch_counters(stats):
+    return {k: stats.get(k) for k in BATCH_COUNTERS}
+
+
+def phase_batch_parity(g):
+    """Scale 14, card against CPU: `prune_batch` of the batch of
+    tests/test_batch.py (labels moved to this graph's), a straggler pair at
+    wave 32 and a deadline that passes in the middle of the run, each lane
+    equal on both devices and to the single prune of its template; the
+    serving engine in count and stream mode; the incremental session and
+    the exploratory search of examples/interactive_search.py."""
+    log(f"== phase 8a: R-MAT scale {SCALE_PARITY}, template-batched prune, "
+        f"card vs CPU ({CARD})")
+    batch = [Template([lab + BATCH_LABEL_SHIFT for lab in labels], edges)
+             for labels, edges in BATCH_VARIANTS]
+    stragglers = [Template(*s) for s in BATCH_STRAGGLERS]
+    singles = {}
+
+    def single(t, **kw):
+        key = (repr(t), t.edge_set, tuple(sorted(kw.items())))
+        if key not in singles:
+            res = prune(g, t, device=DEVICE, **kw)
+            singles[key] = (lane_arrays(res), count_matches(res).n_embeddings,
+                            res)
+        return singles[key]
+
+    def ticking():
+        tick = {"t": 0.0}
+
+        def clock():
+            tick["t"] += 1.0
+            return tick["t"]
+        return clock
+
+    cases = {
+        "batch": (batch, {}),
+        "stragglers": (stragglers, {"wave": 32, "guarantee_precision": False}),
+        # lane 0 (a path) is cancelled after the first LCC; lane 1 (a
+        # square) goes on to its cycle waves
+        "deadline": ([batch[1], batch[0]], {"deadlines": [1.5, None]}),
+    }
+    runs = {}
+    for dev in (DEVICE, "cpu"):
+        for name, (tmpls, kw) in cases.items():
+            if name == "deadline":
+                kw = dict(kw, clock=ticking())
+            registry.reset_launches()
+            bres, secs = timed(lambda: prune_batch(g, tmpls, device=dev, **kw))
+            launches = {k: registry.launch_counts()[k]
+                        for k in registry.PRUNE_KERNELS}
+            counts = [count_matches(r).n_embeddings if s == "ok" else None
+                      for r, s in zip(bres.results, bres.status)]
+            runs[dev, name] = ([lane_arrays(r) for r in bres.results], counts,
+                               bres.status, batch_counters(bres.stats))
+            log(f"{dev} {name}: B={len(tmpls)} {secs:.3f} s, status "
+                f"{bres.status}, counts {counts}, "
+                f"{batch_counters(bres.stats)}, routes "
+                f"{bres.stats['dispatch_routes']}, launches {launches}")
+            if dev == "cuda":
+                for k in registry.PRUNE_KERNELS:
+                    check(launches[k] > 0,
+                          f"{k} never launched on the scale-14 batch {name}")
+    for name, (tmpls, kw) in cases.items():
+        lanes, counts, status, counters = runs[DEVICE, name]
+        check(runs["cpu", name][2] == status and runs["cpu", name][3] == counters,
+              f"{name}: statuses or counters differ card vs CPU")
+        check(runs["cpu", name][1] == counts, f"{name}: counts differ card vs CPU")
+        for i, t in enumerate(tmpls):
+            check(same_lane(lanes[i], runs["cpu", name][0][i]),
+                  f"{name} lane {i}: omega or edge mask differs card vs CPU")
+            if status[i] != "ok":
+                check(not lanes[i][0].any() and not lanes[i][1].any(),
+                      f"{name} lane {i}: a cancelled lane is not empty")
+                continue
+            skw = {k: v for k, v in kw.items()
+                   if k in ("wave", "guarantee_precision")}
+            want, want_count, _ = single(t, **skw)
+            check(same_lane(lanes[i], want) and counts[i] == want_count,
+                  f"{name} lane {i}: differs from the single prune")
+    check(runs[DEVICE, "stragglers"][3]["nlcc_lockstep_padded"] > 0,
+          "no straggler rode pad waves")
+    check(runs[DEVICE, "deadline"][2] == ["deadline_missed", "ok"],
+          "the mid-run deadline did not cancel lane 0 alone")
+    log(f"card == CPU == single prunes: {len(batch)} lanes, "
+        f"{sum(1 for c in runs[DEVICE, 'batch'][1] if c)} with matches "
+        f"({sum(runs[DEVICE, 'batch'][1])} in all); stragglers; mid-run "
+        f"deadline")
+
+    # the serving engine on the card: count mode, then one stream query
+    eng = GraphQueryEngine(g, max_batch=len(batch), device=DEVICE)
+    ids = [eng.submit(t, mode=MODE_COUNT) for t in batch]
+    sid = eng.submit(batch[1], mode=MODE_STREAM)
+    results = {r.query_id: r for r in eng.drain()}
+    check([results[q].n_embeddings for q in ids]
+          == [single(t)[1] for t in batch], "count mode differs from the "
+          "single prunes' counts")
+    blocks = list(eng.stream(sid, chunk=1024))
+    rows = (np.unique(np.concatenate(blocks), axis=0) if blocks
+            else np.zeros((0, batch[1].n0), np.int32))
+    want = enumerate_matches(single(batch[1])[2]).embeddings
+    check(np.array_equal(rows, want) and rows.shape[0] > 0,
+          "stream mode's rows differ from enumerate_matches")
+    log(f"GraphQueryEngine on {eng.dg.device}: {eng.stats['n_batches']} "
+        f"batches {[b['B'] for b in eng.stats['batches']]}; count mode == "
+        f"single prunes; stream mode {rows.shape[0]} rows == enumerate_matches")
+
+    # incremental and exploratory search, card against CPU
+    gi = gen.rmat_graph(11, edge_factor=8, seed=0)
+    gx = interactive_search.planted_squares()
+    out = {}
+    for dev in (DEVICE, "cpu"):
+        session = IncrementalSession(
+            gi, Template(interactive_search.LABELS,
+                         interactive_search.REVISIONS[0]), device=dev)
+        searches = []
+        for edges in interactive_search.REVISIONS:
+            state, stat = session.search(
+                Template(interactive_search.LABELS, edges))
+            searches.append((state.omega.cpu().numpy(), stat.matched_vertices,
+                             stat.constraints_checked, stat.constraints_reused))
+        ex = exploratory_search(gx, Template(*interactive_search.CLIQUE),
+                                device=dev)
+        out[dev] = (searches, ex)
+        log(f"{dev}: incremental {[s[1:] for s in searches]}; exploratory "
+            f"found at k={ex.found_level}, levels "
+            f"{[(lv.k, lv.n_variants, lv.matched_vertices) for lv in ex.levels]}")
+    (sc, xc), (sp, xp) = out[DEVICE], out["cpu"]
+    check(all(np.array_equal(a[0], b[0]) and a[1:] == b[1:]
+              for a, b in zip(sc, sp)),
+          "incremental search differs card vs CPU")
+    check(xc.found_level == xp.found_level
+          and np.array_equal(xc.vertex_mask, xp.vertex_mask)
+          and [(lv.k, lv.n_variants, lv.matched_vertices) for lv in xc.levels]
+          == [(lv.k, lv.n_variants, lv.matched_vertices) for lv in xp.levels],
+          "exploratory search differs card vs CPU")
+    check(xc.found_level == 2, "the planted squares were not found at k = 2")
+    log("card == CPU: incremental search (omega and QueryStat counts per "
+        "revision), exploratory search (levels, found_level, vertex_mask)")
+
+
+def phase_batch_full(g, dg):
+    """Scale 20: `GraphQueryEngine` serves `example_workload(32)` in prune
+    mode in batches of 8, without the complete-walk TDS (SERVE_PRECISION);
+    each lane equals the single prune of its template on the card; q/s,
+    seconds per batch beside the single prunes', the batched counters, peak
+    memory, launches per batch. Then SERVE_TDS_BATCH with the complete TDS,
+    each lane equal to its single prune, and the profiler over one more
+    batch."""
+    log(f"== phase 8b: R-MAT scale {SCALE_FULL}, {SERVE_QUERIES} queries "
+        f"served in batches of {SERVE_MAX_BATCH} ({CARD})")
+    templates = example_workload(SERVE_QUERIES, seed=1,
+                                 labels_max=int(g.labels.max()))
+    eng, t_stage = timed(lambda: GraphQueryEngine(
+        g, max_batch=SERVE_MAX_BATCH, device=DEVICE,
+        guarantee_precision=SERVE_PRECISION))
+    ids = [eng.submit(t, mode=MODE_PRUNE) for t in templates]
+    reset_peak()
+    registry.reset_launches()
+    results, secs = timed(eng.drain)
+    launches = {k: registry.launch_counts()[k] for k in registry.PRUNE_KERNELS}
+    peak = peak_gib()
+    check(sorted(r.query_id for r in results) == ids
+          and all(r.status == "ok" for r in results),
+          "a query of the workload was dropped or missed")
+    n_b = eng.stats["n_batches"]
+    per_batch = {}
+    for r in results:
+        st = r.result.stats
+        per_batch.setdefault(r.batch_id, batch_counters(st))
+    lf = g.label_frequency()
+    t_single = 0.0
+    for r in results:
+        res, s = timed(lambda: prune(dg, templates[r.query_id], label_freq=lf,
+                                     guarantee_precision=SERVE_PRECISION))
+        t_single += s
+        check(same_lane(lane_arrays(r.result), lane_arrays(res)),
+              f"query {r.query_id}: the batched lane differs from its single "
+              f"prune")
+        del res
+    for k in registry.PRUNE_KERNELS:  # no kernel runs in a CPU rehearsal
+        check(DEVICE != "cuda" or launches[k] > 0,
+              f"{k} never launched serving the workload")
+    log(f"staged the graph in {t_stage:.2f} s; served {len(results)} queries "
+        f"in {secs:.3f} s ({len(results) / secs:.2f} q/s) in {n_b} batches "
+        f"of {[b['B'] for b in eng.stats['batches']]}; seconds per batch "
+        f"{[round(b['seconds'], 4) for b in eng.stats['batches']]}; the "
+        f"{len(results)} single prunes {t_single:.3f} s in all")
+    for bid, c in sorted(per_batch.items()):
+        log(f"  batch {bid}: {c}")
+    log(f"max_memory_allocated {peak:.3f} GiB; launches {launches} "
+        f"({ {k: v / n_b for k, v in launches.items()} } per batch); every "
+        f"lane's omega and edge mask equal its single prune's ({CARD})")
+    # the complete-walk TDS (the reference's default) on a batch whose TDS
+    # walks take well under a second here, so that the batched TDS bridge
+    # (`tds_lane`) runs at this scale too
+    tds_batch = [Template(*t) for t in SERVE_TDS_BATCH]
+    registry.reset_launches()
+    tres, t_tds = timed(lambda: prune_batch(g, tds_batch, dg=eng.dg))
+    tds_launches = {k: registry.launch_counts()[k]
+                    for k in registry.PRUNE_KERNELS}
+    t_tds_single = 0.0
+    for t, r in zip(tds_batch, tres.results):
+        res, s = timed(lambda: prune(dg, t, label_freq=lf))
+        t_tds_single += s
+        check(same_lane(lane_arrays(r), lane_arrays(res)),
+              f"{t.labels}: the batched lane with the complete TDS differs "
+              f"from its single prune")
+        del res
+    check(tres.status == ["ok"] * len(tds_batch)
+          and tres.stats.get("tds_gather_bridge", 0) >= len(tds_batch),
+          "the complete TDS did not run in every lane")
+    for k in registry.PRUNE_KERNELS:
+        check(DEVICE != "cuda" or tds_launches[k] > 0,
+              f"{k} never launched in the batch with the complete TDS")
+    log(f"with the complete TDS: B={len(tds_batch)} {t_tds:.3f} s (the "
+        f"single prunes {t_tds_single:.3f} s in all), "
+        f"{[r.counts() for r in tres.results]}, "
+        f"{batch_counters(tres.stats)}, launches {tds_launches}; every lane "
+        f"equal to its single prune ({CARD})")
+    first = templates[:SERVE_MAX_BATCH]
+    profile_device(lambda: prune_batch(g, first, dg=eng.dg,
+                                       guarantee_precision=SERVE_PRECISION),
+                   1, "batch", "bitset_spmm")
+    return {"launches": launches, "seconds": secs, "qps": len(results) / secs,
+            "batch_seconds": [b["seconds"] for b in eng.stats["batches"]],
+            "single_seconds": t_single, "peak_gib": peak, "batches": n_b}
+
+
+def phase_incremental_full(g, dg):
+    """Scale 20: `IncrementalSession` over the three revisions of
+    examples/interactive_search.py; each result keeps every vertex of the
+    single prune of its template (100% recall), inside the candidate set;
+    then `exploratory_search` on the example's planted-squares recipe at
+    scale 20 over EXPLORE_LABELS_FULL labels, which must find the planted
+    squares at k = 2."""
+    log(f"== phase 8c: R-MAT scale {SCALE_FULL} incremental and exploratory "
+        f"search ({CARD})")
+    labels, revisions = interactive_search.LABELS, interactive_search.REVISIONS
+    lf = g.label_frequency()
+    exact = [prune(dg, Template(labels, es), label_freq=lf).state.omega.any(dim=1)
+             for es in revisions]
+    sync()
+    registry.reset_launches()
+    session, t_cand = timed(lambda: IncrementalSession(
+        g, Template(labels, revisions[0]), device=DEVICE))
+    cand = session._cand.omega.any(dim=1)
+    log(f"candidate set: {int(cand.sum())} vertices in {t_cand:.3f} s "
+        f"(with staging the graph)")
+    for es, want in zip(revisions, exact):
+        state, stat = session.search(Template(labels, es))
+        got = state.omega.any(dim=1)
+        missed = int((want & ~got).sum())
+        outside = int((got & ~cand).sum())
+        log(f"  m0={stat.template_edges}: {stat.seconds:.4f} s, "
+            f"{stat.matched_vertices} vertices (exact {int(want.sum())}), "
+            f"{stat.constraints_reused}/{stat.constraints_checked} constraints "
+            f"reused")
+        check(missed == 0, f"revision m0={stat.template_edges} misses "
+              f"{missed} vertices of the exact prune")
+        check(outside == 0, f"revision m0={stat.template_edges} keeps "
+              f"{outside} vertices outside the candidate set")
+    launches = {k: registry.launch_counts()[k] for k in registry.PRUNE_KERNELS}
+    log(f"launches {launches}; every revision keeps the exact prune's "
+        f"vertices, inside the candidate set")
+    for k in registry.PRUNE_KERNELS:
+        check(DEVICE != "cuda" or launches[k] > 0,
+              f"{k} never launched on the incremental path")
+
+    t0 = time.perf_counter()
+    gx = interactive_search.planted_squares(scale=SCALE_FULL,
+                                            n_labels=EXPLORE_LABELS_FULL)
+    t_gen = time.perf_counter() - t0
+    ex, secs = timed(lambda: exploratory_search(
+        gx, Template(*interactive_search.CLIQUE), device=DEVICE))
+    log(f"exploratory search, n={gx.n} m={gx.m} (generated in {t_gen:.1f} s): "
+        f"{secs:.3f} s, {ex.candidate_vertices} candidate vertices, found at "
+        f"k={ex.found_level}")
+    for lv in ex.levels:
+        log(f"  k={lv.k}: {lv.n_variants} variants, matched "
+            f"{lv.matched_vertices}, {lv.avg_seconds_per_variant * 1e3:.2f} "
+            f"ms/variant")
+    check(ex.found_level == 2, f"the planted squares were found at "
+          f"k={ex.found_level}, not at k = 2")
+    check(ex.vertex_mask[np.arange(gx.n - 12, gx.n)].all(),
+          "a planted square is missing")
+    return {"launches": launches}
+
+
+def phase_batch_clis(scale=SERVE_CLI_SCALE):
+    """`launch/serve.py --graph-queries 32` and `launch/interactive_search`
+    in processes of their own."""
+    log(f"== phase 8d: python -m repro_torch.launch.serve --graph-queries "
+        f"{SERVE_QUERIES} --graph-scale {scale}; python -m "
+        f"repro_torch.launch.interactive_search ({CARD})")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    for args, want in (
+            (["repro_torch.launch.serve", "--graph-queries",
+              str(SERVE_QUERIES), "--graph-scale", str(scale)],
+             f"served {SERVE_QUERIES} queries on {DEVICE}"),
+            (["repro_torch.launch.interactive_search"],
+             f"incremental search on {DEVICE}")):
+        t0 = time.perf_counter()
+        if args[0].endswith("serve") or DEVICE == "cpu":
+            args = args + ["--device", DEVICE]
+        proc = subprocess.run(
+            [sys.executable, "-m", *args],
+            capture_output=True, text=True, env=env, timeout=600, cwd=ROOT)
+        log(proc.stdout.strip())
+        check(proc.returncode == 0, f"{args[0]} failed ({proc.returncode}): "
+              f"{proc.stderr[-2000:]}")
+        check(want in proc.stdout, f"{args[0]} did not run on {DEVICE}")
+        log(f"{args[0]} exited 0 in {time.perf_counter() - t0:.1f} s")
+
+
 # ------------------------------------------------------------- phase 5: GNN
 def gnn_setup():
     """(config, shape, classes) of the GNN path."""
@@ -1465,9 +1880,11 @@ def profile_device(fn, n, unit, kernel=None, device_ms=None):
         f"{unit}, device busy {busy_ms / n:.3f} ms per {unit} "
         f"({100 * busy_ms / wall_ms:.1f}% busy, "
         f"{100 - 100 * busy_ms / wall_ms:.1f}% idle)")
-    for e in kern[:12]:
-        log(f"  {e.self_device_time_total / 1e3 / n:9.4f} ms/{unit} "
-            f"x{e.count // n:<3d} {e.key[:90]}")
+    # the top 12, and our kernel's rows wherever they rank
+    for i, e in enumerate(kern):
+        if i < 12 or (kernel and re.search(KERNEL_SYMBOLS[kernel], e.key)):
+            log(f"  {e.self_device_time_total / 1e3 / n:9.4f} ms/{unit} "
+                f"x{e.count // n:<3d} {e.key[:90]}")
     return busy_ms / n
 
 
@@ -2109,9 +2526,11 @@ def phase_recsys_full(cfg=None, serve_batch=None, n_cand=None):
 
 
 def run_prune():
-    """The prune path (phases 2-4) -> its kernels' entries of the JSON line,
-    with their launches on the main path (phase 4) and on the edge-prune,
-    tuned and planned prunes (4b, 4c)."""
+    """The prune path (phases 2-4) and many queries against one graph (phase
+    8) -> their kernels' entries of the JSON line, with their launches on the
+    main path (phase 4), on the edge-prune, tuned and planned prunes (4b,
+    4c), serving the 32-query workload (8b) and on the incremental path
+    (8c)."""
     # no dispatch policy: a cache left in the checkout must not move the
     # routes of phases 2-4 off the kernels (4c installs its own and clears it)
     registry.set_policy(None)
@@ -2133,7 +2552,15 @@ def run_prune():
     edge = phase_edge_prune_full(g, dg, default, cnt.n_embeddings)
     plans = phase_planner_policy(g, dg, default, cnt.n_embeddings)
     phase_quickstart_cli()
-    del g, dg, default
+    del default
+    # phase 8: many queries against one graph, the same two kernels
+    t0 = time.perf_counter()
+    phase_batch_parity(g14)
+    served = phase_batch_full(g, dg)
+    inc = phase_incremental_full(g, dg)
+    del g, dg
+    phase_batch_clis()
+    log(f"phase 8: {time.perf_counter() - t0:.1f} s ({CARD})")
     return [{
         "name": name, "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/bitset.cu",
@@ -2142,6 +2569,9 @@ def run_prune():
         "launches_edge_prune": edge["launches"][name],
         "launches_tuned": plans["tuned"]["launches"][name],
         "launches_planned": plans["planned"]["launches"][name],
+        "launches_batched_serving": served["launches"][name],
+        "batches_served": served["batches"],
+        "launches_incremental": inc["launches"][name],
     } for name, replaces in (("bitset_spmm", "src/repro/kernels/bitset_spmm.py:77"),
                              ("bitset_wave", "src/repro/kernels/bitset_wave.py:89"))]
 

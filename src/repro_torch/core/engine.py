@@ -56,7 +56,7 @@ class LocalBackend:
             lcc_resolved_route(self.tdev, dg, collect_stats=collect_stats,
                                route=lcc_route))
         self.nlcc_route = nlcc_resolved_route(
-            dg.n, wave, dg.device.type, count_messages=collect_stats,
+            dg.n, wave, dg.device.type, m=dg.m, count_messages=collect_stats,
             route=nlcc_route)
         self.state: Optional[PruneState] = None
 

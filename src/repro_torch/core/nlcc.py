@@ -42,6 +42,9 @@ from repro_torch.core.state import PruneState, as_int32_bits
 from repro_torch.kernels import registry
 
 NLCC_ROUTE = "prune.nlcc"
+# bytes the boolean [m, wave] message plane of one unpacked wave may take on
+# the card (at R-MAT scale 20 the plane is 31.3 M x 1024 bools, 32 GB)
+UNPACKED_PLANE_BYTES = 1 << 30
 
 
 def wave_batches(sources: np.ndarray, wave: int):
@@ -82,20 +85,28 @@ def nlcc_route_bucket(n: int, wave: int):
     return registry.shape_bucket(n, wave)
 
 
-def nlcc_resolved_route(n: int, wave: int, backend: str, *,
+def nlcc_resolved_route(n: int, wave: int, backend: str, *, m: int = 0,
                         count_messages: bool = False,
-                        route: Optional[str] = None) -> str:
+                        route: Optional[str] = None, bucket=None) -> str:
     """The route CC/PC waves take. Packed and fused waves need a word-aligned
     wave and no message counting (the packed OR absorbs duplicates before
     they can be counted); then the pinned route, then the tuned policy for
-    this shape bucket, fused by default."""
+    `bucket` (this shape's `nlcc_route_bucket` unless given), fused by
+    default. On the card a policy's unpacked choice runs only where the
+    boolean [m, wave] message plane of one wave fits UNPACKED_PLANE_BYTES;
+    past it the packed route (the same survivors) runs in its place."""
     if count_messages or wave % 32 != 0:
         return registry.ROUTE_UNPACKED
     if route is not None:
         return registry.check_route(route, registry.NLCC_ROUTES)
-    return registry.resolve_route(
-        NLCC_ROUTE, nlcc_route_bucket(n, wave), default=registry.ROUTE_FUSED,
-        backend=backend, allowed=registry.NLCC_ROUTES)
+    choice = registry.resolve_route(
+        NLCC_ROUTE, nlcc_route_bucket(n, wave) if bucket is None else bucket,
+        default=registry.ROUTE_FUSED, backend=backend,
+        allowed=registry.NLCC_ROUTES)
+    if (choice == registry.ROUTE_UNPACKED and backend == "cuda"
+            and m * wave > UNPACKED_PLANE_BYTES):
+        return registry.ROUTE_PACKED
+    return choice
 
 
 # --------------------------------------------------------- boolean planes
@@ -404,6 +415,7 @@ def verify_constraint(
     direction: str = "default",
     edge_prune: bool = False,
     template=None,
+    head_cols: Optional[np.ndarray] = None,
 ) -> PruneState:
     """Alg. 5 for CC/PC (+ each rotation for cycles): eliminate the head
     template vertex from omega of every failing token source.
@@ -412,6 +424,10 @@ def verify_constraint(
     no completing walk for the template arcs this constraint covers
     (`_edge_prune_pass`): sound, since a true match realizes every hop of
     the walk.
+
+    `head_cols` (bool[n, walks]) are the head columns of the walks that
+    `expand_walks(constraint, direction)` gives, where the caller has read
+    them back already; no host read is made for them then.
 
     All walks of the constraint run against the constraint-entry omega;
     survivors accumulate in a device-side `keep` plane; the head columns are
@@ -422,7 +438,7 @@ def verify_constraint(
         state = _edge_prune_pass(dg, state, constraint, template, wave, stats)
     walks = expand_walks(constraint, direction)
     route = nlcc_resolved_route(state.omega.shape[0], wave,
-                                state.omega.device.type,
+                                state.omega.device.type, m=dg.m,
                                 count_messages=count_messages, route=route)
     wave_stat = {
         registry.ROUTE_FUSED: "nlcc_fused_waves",
@@ -433,8 +449,10 @@ def verify_constraint(
     n = omega.shape[0]
     dev = omega.device
     heads = [w[0] for w in walks]
-    head_cols = omega[:, heads].cpu().numpy()
-    host_syncs = 1
+    host_syncs = 0
+    if head_cols is None:
+        head_cols = omega[:, heads].cpu().numpy()
+        host_syncs = 1
     # amax scatter: pads clip onto vertex 0 with survived=False, so repeated
     # indices can only ever leave a set bit set
     keep = torch.zeros((len(walks), n), dtype=torch.int32, device=dev)

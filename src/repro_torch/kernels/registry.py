@@ -128,6 +128,26 @@ def shape_bucket(*dims: int) -> Tuple[int, ...]:
     return tuple(out)
 
 
+def shard_bucket(P: int, *dims: int) -> Tuple:
+    """Shape bucket of a decision made for one shard of a P-way partition:
+    the shard count and the shard-local dims, each rounded up to a power of
+    two ("p1x1048576x1024" in policy keys). One shard holds the whole graph,
+    so at P = 1 the local vertex count is n."""
+    return (f"p{int(P)}",) + shape_bucket(*dims)
+
+
+def batch_bucket(B: int, bucket) -> Tuple:
+    """A bucket of the template-batched executor: a leading "b<B>" segment
+    (the batch size rounded up to a power of two), so that batched routes
+    tune apart from single-query ones ("b8xp1x1048576x1024"). A "b1" key
+    with no entry of its own resolves to the unbatched entry
+    (`DispatchPolicy.route_entry_for`)."""
+    b = shape_bucket(B)[0]
+    if bucket == BUCKET_ANY:
+        return (f"b{b}",)
+    return (f"b{b}",) + tuple(bucket)
+
+
 def bucket_key(bucket) -> str:
     """A shape bucket as policy-table keys spell it ("2048x32", "*",
     "scalar")."""
@@ -202,8 +222,8 @@ POLICY_SCHEMA_VERSION = 1
 @dataclasses.dataclass
 class DispatchPolicy:
     """Measured-cost route table keyed "<name>|<backend>|<bucket>", and the
-    plan table. Route lookup tries the exact bucket, then the ``*``
-    wildcard."""
+    plan table. Route lookup tries the exact bucket, then (for a "b1"
+    batched bucket) the unbatched one, then the ``*`` wildcard."""
 
     routes: Dict[str, PolicyEntry] = dataclasses.field(default_factory=dict)
     plans: Dict[str, PlanEntry] = dataclasses.field(default_factory=dict)
@@ -211,9 +231,15 @@ class DispatchPolicy:
 
     def route_entry_for(self, name: str, backend: str, bucket
                         ) -> Optional[PolicyEntry]:
-        """The tuned entry (choice and measurements) for a bucket, exact key
-        first, then the wildcard."""
+        """The tuned entry (choice and measurements) for a bucket: the exact
+        key first; for a batch-size-1 key ("b1x..."), the unbatched key next,
+        since a single-query decision is the B = 1 decision; then the
+        wildcard."""
         entry = self.routes.get(_entry_key(name, backend, bucket))
+        if (entry is None and isinstance(bucket, tuple)
+                and bucket[:1] == ("b1",)):
+            unbatched = bucket[1:] if len(bucket) > 1 else BUCKET_ANY
+            entry = self.routes.get(_entry_key(name, backend, unbatched))
         if entry is None and bucket != BUCKET_ANY:
             entry = self.routes.get(_entry_key(name, backend, BUCKET_ANY))
         return entry

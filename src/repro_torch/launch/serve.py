@@ -1,14 +1,22 @@
-"""Serving entry point of the port: batched greedy generation (LM) or
-catalog scoring (recsys) on an arch's smoke config, as the JAX package's
-`launch/serve.py --arch` does, on the card unless `--device cpu`. The LM
-smoke config's head dim (16) is raised to 64, the least that
-`flash_attention` takes (`serve_config`).
+"""Serving entry point of the port, as the JAX package's `launch/serve.py`,
+on the card unless `--device cpu`: graph-query serving (the paper's
+multi-tenant pattern-matching scenario), batched greedy generation (LM) or
+catalog scoring (recsys) on an arch's smoke config. The LM smoke config's
+head dim (16) is raised to 64, the least that `flash_attention` takes
+(`serve_config`).
 
+  PYTHONPATH=src python -m repro_torch.launch.serve --graph-queries 32 \\
+      --graph-scale 9 --max-batch 8 [--max-wait S] [--timeout S] \\
+      [--policy PATH]
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-1.5b \\
       --batch 4 --prompt-len 16 --max-new 32
   PYTHONPATH=src python -m repro_torch.launch.serve --arch bert4rec --device cpu
 
-Graph-query serving (`--graph-queries`) waits for the port's batched prune.
+`--graph-queries N` serves N templates of `example_workload` in count mode
+against an R-MAT graph of 2^scale vertices through `GraphQueryEngine`
+(template-batched prunes); `--policy` loads a tuned dispatch-policy cache,
+under which batched wave routes resolve by b<B>-prefixed bucket keys.
+`--partition` (a sharded graph) is not ported yet and raises.
 """
 from __future__ import annotations
 
@@ -22,6 +30,7 @@ import torch
 from repro_torch.configs import get_arch
 from repro_torch.configs.base import LMConfig, RecsysConfig
 from repro_torch.data.recsys import MaskedSequenceStream
+from repro_torch.kernels import registry
 from repro_torch.kernels.ops import ATTENTION_HEAD_DIMS
 from repro_torch.models.bert4rec import Bert4Rec
 from repro_torch.models.transformer import Transformer
@@ -44,13 +53,40 @@ def serve_config(arch: str):
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", choices=SERVED_ARCHS, required=True)
+    ap.add_argument("--arch", choices=SERVED_ARCHS,
+                    help="LM/recsys smoke-config serving (mutually "
+                         "exclusive with --graph-queries)")
     ap.add_argument("--device", default=None,
                     help="cuda (the default) or cpu (the kernels' plain versions)")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=16)
     ap.add_argument("--max-new", type=int, default=32)
+    ap.add_argument("--graph-queries", type=int, default=0, metavar="N",
+                    help="serve N template queries against a synthetic "
+                         "metadata graph through the batched prune engine")
+    ap.add_argument("--graph-scale", type=int, default=9,
+                    help="rmat graph scale (2^scale vertices)")
+    ap.add_argument("--partition", type=int, default=None,
+                    help="shard the background graph P ways (not ported)")
+    ap.add_argument("--max-batch", type=int, default=8)
+    ap.add_argument("--max-wait", type=float, default=0.05,
+                    help="batcher max wait (seconds) before launching a "
+                         "partial batch")
+    ap.add_argument("--timeout", type=float, default=None,
+                    help="per-query serving deadline in seconds")
+    ap.add_argument("--policy", default=None, metavar="PATH",
+                    help="dispatch-policy cache to serve under (default: "
+                         "the registry's lazy load of policy_path())")
     args = ap.parse_args(argv)
+
+    if args.policy:
+        registry.set_policy(registry.DispatchPolicy.load(args.policy))
+        print(f"dispatch policy: {args.policy} "
+              f"({len(registry.get_policy().routes)} tuned routes)")
+    if args.graph_queries:
+        return serve_graph(args)
+    if not args.arch:
+        raise SystemExit("pass --arch (LM/recsys) or --graph-queries N")
 
     cfg = serve_config(args.arch)
     if isinstance(cfg, LMConfig):
@@ -78,6 +114,40 @@ def main(argv=None):
     print(f"scored {tuple(scores.shape)} on {model.device} in "
           f"{time.perf_counter() - t0:.2f}s; top-10 for user 0: {top[0].tolist()}")
     return top
+
+
+def serve_graph(args):
+    """Serve `--graph-queries` templates in count mode through
+    `GraphQueryEngine`; returns the results."""
+    from repro_torch.graph.generators import rmat_graph
+    from repro_torch.serve import GraphQueryEngine, MODE_COUNT, example_workload
+
+    g = rmat_graph(args.graph_scale, edge_factor=8, seed=5)
+    print(f"background graph: n={g.n} m={g.m} "
+          f"(rmat scale {args.graph_scale})")
+    eng = GraphQueryEngine(
+        g, partition=args.partition, max_batch=args.max_batch,
+        max_wait_s=args.max_wait, device=args.device)
+    templates = example_workload(args.graph_queries, seed=1,
+                                 labels_max=int(g.labels.max()))
+    t0 = time.perf_counter()
+    ids = [eng.submit(t, mode=MODE_COUNT, timeout_s=args.timeout)
+           for t in templates]
+    results = eng.drain()
+    dt = time.perf_counter() - t0
+    assert len(results) == len(ids)
+    ok = [r for r in results if r.status == "ok"]
+    missed = len(results) - len(ok)
+    print(f"served {len(results)} queries on {eng.dg.device} in {dt:.2f}s "
+          f"({len(results) / dt:.1f} q/s) across "
+          f"{eng.stats['n_batches']} batches; deadline_missed={missed}")
+    for b in eng.stats["batches"]:
+        print(f"  batch {b['batch_id']}: B={b['B']} bucket={b['bucket']} "
+              f"{b['seconds']:.2f}s")
+    for r in ok[:4]:
+        print(f"  query {r.query_id}: {r.n_embeddings} matches "
+              f"(batch {r.batch_id}, waited {r.wait_s * 1e3:.0f}ms)")
+    return results
 
 
 if __name__ == "__main__":

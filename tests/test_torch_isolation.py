@@ -16,7 +16,9 @@ IMPORT_RE = re.compile(r"^\s*(import|from)\s+(jax|repro)\b")
 
 # Runs in a fresh interpreter: a tiny CPU prune through the whole main path
 # (with the edge-prune pass, the device join, streaming, a planned prune, a
-# tune and the quickstart), a tiny sampled GNN forward, a tiny greedy generation and a retrieval, then
+# tune and the quickstart), a batched prune, graph-query serving (engine and
+# CLI), an incremental and an exploratory search and their launcher, a tiny
+# sampled GNN forward, a tiny greedy generation and a retrieval, then
 # checks that nothing of JAX or the JAX package was loaded, and that the
 # default device is CUDA (which raises where there is none).
 SCRIPT = textwrap.dedent("""
@@ -51,6 +53,25 @@ SCRIPT = textwrap.dedent("""
     registry.set_policy(None)
     assert quickstart.main(["--device", "cpu"]).n_embeddings >= 20
 
+    from repro_torch.core.batch import prune_batch
+    from repro_torch.core.exploratory import exploratory_search
+    from repro_torch.core.incremental import IncrementalSession
+    from repro_torch.launch import interactive_search
+    from repro_torch.launch import serve as serve_cli
+    from repro_torch.serve import GraphQueryEngine, MODE_COUNT
+    bres = prune_batch(g, [t, t], device="cpu")
+    assert all(torch.equal(r.state.omega, res.state.omega)
+               for r in bres.results)
+    eng = GraphQueryEngine(g, device="cpu")
+    eng.submit(t, mode=MODE_COUNT)
+    assert eng.drain()[0].n_embeddings == 1
+    assert IncrementalSession(g, t, device="cpu").search(t)[1].matched_vertices == 4
+    assert exploratory_search(g, t, device="cpu").found_level == 0
+    served = serve_cli.main(["--graph-queries", "4", "--graph-scale", "6",
+                             "--device", "cpu"])
+    assert [r.status for r in served] == ["ok"] * 4
+    assert interactive_search.main(["--device", "cpu"])[1].found_level == 2
+
     from repro_torch.configs import get_arch
     from repro_torch.data.graphs import SampledBatchStream
     from repro_torch.models.gnn import GNN
@@ -82,12 +103,24 @@ SCRIPT = textwrap.dedent("""
     assert not loaded, loaded
     if torch.cuda.is_available():
         assert prune(g, t).state.omega.device.type == "cuda"
+        assert prune_batch(g, [t]).results[0].dg.device.type == "cuda"
+        assert IncrementalSession(g, t).dg.device.type == "cuda"
         assert GNN(cfg, 6, 3).device.type == "cuda"
         assert Transformer(lm_cfg).device.type == "cuda"
         assert Bert4Rec(rec_cfg).device.type == "cuda"
     else:
         for name, call in (("prune()", lambda: prune(g, t)),
                            ("quickstart", lambda: quickstart.main([])),
+                           ("prune_batch()", lambda: prune_batch(g, [t])),
+                           ("GraphQueryEngine()", lambda: GraphQueryEngine(g)),
+                           ("IncrementalSession()",
+                            lambda: IncrementalSession(g, t)),
+                           ("exploratory_search()",
+                            lambda: exploratory_search(g, t)),
+                           ("serve --graph-queries", lambda: serve_cli.main(
+                               ["--graph-queries", "2", "--graph-scale", "6"])),
+                           ("interactive_search",
+                            lambda: interactive_search.main([])),
                            ("GNN()", lambda: GNN(cfg, 6, 3)),
                            ("Transformer()", lambda: Transformer(lm_cfg)),
                            ("Bert4Rec()", lambda: Bert4Rec(rec_cfg))):

@@ -151,6 +151,30 @@ def test_untuned_routes_are_the_defaults():
         LCC: registry.ROUTE_UNPACKED, NLCC: registry.ROUTE_UNPACKED}
 
 
+@pytest.mark.parametrize("backend,m,want", [
+    ("cpu", 1 << 25, registry.ROUTE_UNPACKED),
+    ("cuda", 1 << 20, registry.ROUTE_UNPACKED),
+    ("cuda", 1 << 25, registry.ROUTE_PACKED),
+], ids=["cpu", "cuda-fits", "cuda-too-large"])
+@pytest.mark.parametrize("batched", [False, True], ids=["single", "batched"])
+def test_policy_unpacked_nlcc_route_is_capped_on_the_card(backend, m, want,
+                                                         batched):
+    """A policy's unpacked wave runs on the card only where its [m, wave]
+    bool plane fits; single and batched prunes resolve through one rule."""
+    n, wave = 1 << 20, 1024
+    bucket = (registry.batch_bucket(8, registry.shard_bucket(1, n, wave))
+              if batched else None)
+    pol = registry.DispatchPolicy()
+    pol.set_route(NLCC, backend, registry.BUCKET_ANY, registry.ROUTE_UNPACKED)
+    registry.set_policy(pol)
+    assert nlcc.nlcc_resolved_route(n, wave, backend, m=m,
+                                    bucket=bucket) == want
+    # an explicit pin and the capability gates are not capped
+    assert nlcc.nlcc_resolved_route(n, wave, backend, m=m,
+                                    route="unpacked") == "unpacked"
+    assert nlcc.nlcc_resolved_route(n, 48, backend, m=m) == "unpacked"
+
+
 @pytest.mark.parametrize("exact", [True, False], ids=["bucket", "wildcard"])
 def test_lcc_and_nlcc_routes_follow_injected_policy(exact):
     g, t = _setup()

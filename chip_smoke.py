@@ -148,6 +148,28 @@ From the root of a checkout, on a machine with a CUDA device and `nvcc`:
                labels, its levels, the squares found at k = 2;
             d. `launch/serve.py --graph-queries 32 --graph-scale 14` and
                `launch/interactive_search` in processes of their own.
+9. sharded  the prune and enumeration on a partitioned graph (run with the
+            prune path, on its graphs), `bitset_spmm` as each shard's
+            receive-side OR (`ops.bitset_segment_or`):
+            a. scale 14, `prune(partition=P)` (the sim backend) at P in
+               {1, 2, 4, 8} for hex-unique and the 3c triangle, card against
+               the CPU sim and the card's local prune: omega, edge mask,
+               trajectory, lcc_iterations (card == CPU), the count through
+               both sharded joins; every `bitset_segment_or` call of the
+               P = 4 prunes bit-exact against the plain version;
+            b. scale 20, the phase-4 graph, hex-unique at P = 2 (wave 1024)
+               and P = 4 (wave 512): each prune equal to phase 4's and
+               keeping exactly what its matches use, the count by both
+               flavors; B, slots, padding, plane size, seconds by phase and
+               by flavor, peak memory, `bitset_spmm` launches, the busy
+               share, and the first sweep's gather, exchange, receive (with
+               its plain version and bound) and twin test by CUDA events;
+               that receive and one hop's at the wave's width bit-exact
+               against the plain version, and every `bitset_segment_or`
+               call of one more prune at each P;
+            c. scale 20, `prune(mesh=group)` on an NCCL group of one rank
+               (one card holds one NCCL rank) equal to the sim at P = 1 and
+               to phase 4.
 
 Every time is printed beside the card's name and power limit. The line
 before the last is a JSON object listing each kernel with its launches on
@@ -177,7 +199,7 @@ sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch.configs import get_arch  # noqa: E402
 from repro_torch.configs.base import GNN_CLASSES, LMConfig  # noqa: E402
-from repro_torch.core import lcc, nlcc, planner  # noqa: E402
+from repro_torch.core import engine, lcc, nlcc, planner  # noqa: E402
 from repro_torch.core.batch import prune_batch  # noqa: E402
 from repro_torch.core.enumerate import (  # noqa: E402
     ENUM_ROUTE, count_matches, enumerate_matches, stream_matches)
@@ -185,12 +207,13 @@ from repro_torch.core.exploratory import exploratory_search  # noqa: E402
 from repro_torch.core.incremental import IncrementalSession  # noqa: E402
 from repro_torch.core.lcc import TemplateDev, lcc_fixpoint  # noqa: E402
 from repro_torch.core.pipeline import prune  # noqa: E402
-from repro_torch.core.state import init_state, pack_bits  # noqa: E402
+from repro_torch.core.state import init_state, pack_bits, unpack_bits  # noqa: E402
 from repro_torch.core.template import Template, generate_constraints  # noqa: E402
 from repro_torch.data.graphs import PatternFilteredDataset, SampledBatchStream  # noqa: E402
 from repro_torch.data.recsys import MaskedSequenceStream  # noqa: E402
 from repro_torch.data.tokens import SyntheticTokenStream  # noqa: E402
 from repro_torch.graph import generators as gen  # noqa: E402
+from repro_torch.graph.partition import partition_graph  # noqa: E402
 from repro_torch.graph.stats import collect_graph_stats  # noqa: E402
 from repro_torch.graph.structs import DeviceGraph, Graph  # noqa: E402
 from repro_torch.kernels import build, ops, ref, registry  # noqa: E402
@@ -335,6 +358,14 @@ PEAK_BF16_FLOPS_PER_S = 989e12
 
 # the card's name and power limit as nvidia-smi reads them (phase 1), printed
 # beside every time
+# Phase 9, a sharded graph: the sim backend at every P of tests/
+# test_torch_sharded.py at scale 14 (9a); at scale 20 (9b) at P = 2 with the
+# main path's wave and at P = 4 with wave 512, which keeps a frontier plane
+# (P*P*B slots x wave/32 words) near 10 GiB (18.6 GiB at wave 1024; P = 8
+# would need 40 GiB a plane, so it runs in 9a only).
+SHARDS_PARITY = (1, 2, 4, 8)
+SHARDED_FULL = ((2, 1024), (4, 512))
+SHARD_FLAVORS = ("rowsharded", "replicated")
 CARD = "card not read"
 
 
@@ -1554,6 +1585,311 @@ def phase_batch_clis(scale=SERVE_CLI_SCALE):
         log(f"{args[0]} exited 0 in {time.perf_counter() - t0:.1f} s")
 
 
+# ------------------------------------------- phase 9: a sharded graph
+@contextlib.contextmanager
+def segment_ors_held_to_plain():
+    """Within the block, every `ops.bitset_segment_or` call (the
+    `bitset_spmm` kernel on the card, the sharded receive side) is also
+    computed by `ref.bitset_segment_or_ref` on the same inputs; yields the
+    list of (source rows, out rows, arcs, W, max_abs_err) per call."""
+    calls = []
+    kernel = ops.bitset_segment_or
+
+    def checked(vals, src, dst, dst_ptr, n_out, active=None):
+        out = kernel(vals, src, dst, dst_ptr, n_out, active)
+        want = ref.bitset_segment_or_ref(vals, src, dst, n_out, active)
+        calls.append((vals.shape[0], n_out, int(src.shape[0]), vals.shape[1],
+                      max_abs_err(out, want)))
+        return out
+
+    ops.bitset_segment_or = checked
+    try:
+        yield calls
+    finally:
+        ops.bitset_segment_or = kernel
+
+
+def same_prune(res, want, what):
+    """res equals want (a PruneResult or phase 4's host copies) in omega,
+    the edge mask and the phase trajectory."""
+    get = want.get if isinstance(want, dict) else (lambda k: {
+        "omega": want.omega, "edge_mask": want.edge_mask,
+        "traj": trajectory(want)}[k])
+    check(np.array_equal(res.omega, get("omega")), f"{what}: omega differs")
+    check(np.array_equal(res.edge_mask, get("edge_mask")),
+          f"{what}: edge mask differs")
+    check(trajectory(res) == get("traj"), f"{what}: phase trajectory differs")
+
+
+def flavor_counts(res):
+    """{flavor: (count, seconds)} through both sharded joins."""
+    out = {}
+    for flavor in SHARD_FLAVORS:
+        cnt, s = timed(lambda: count_matches(res, route=flavor))
+        out[flavor] = (cnt.n_embeddings, s)
+    return out
+
+
+def phase_sharded_parity(g):
+    """Scale 14: the sim backend at P in SHARDS_PARITY on the card against
+    the port's CPU sim and the card's local prune, for hex-unique and the
+    3c triangle (multiplicity counts); every `bitset_segment_or` call of the
+    P = 4 prunes held bit for bit to the plain version."""
+    log(f"== phase 9a: R-MAT scale {SCALE_PARITY}, the sim backend at P in "
+        f"{SHARDS_PARITY}, card vs CPU vs the local prune ({CARD})")
+    held_calls = []
+    for name, tt in (("hex-unique", HEX), ("3c triangle", TRI_MANY)):
+        tmpl = Template(*tt)
+        local = prune(g, tmpl, device=DEVICE)
+        local_count = count_matches(local).n_embeddings
+        for P in SHARDS_PARITY:
+            registry.reset_launches()
+            with (segment_ors_held_to_plain() if P == 4
+                  else contextlib.nullcontext([])) as calls:
+                card, s_card = timed(lambda: prune(g, tmpl, device=DEVICE,
+                                                   partition=P))
+            spmm = registry.launch_counts()["bitset_spmm"]
+            cpu, s_cpu = timed(lambda: prune(g, tmpl, device="cpu", partition=P))
+            same_prune(card, cpu, f"9a {name} P={P} card vs CPU sim")
+            same_prune(card, local, f"9a {name} P={P} sim vs the local prune")
+            check(card.stats["lcc_iterations"] == cpu.stats["lcc_iterations"],
+                  f"9a {name} P={P}: lcc_iterations differ card vs CPU")
+            counts = flavor_counts(card)
+            check(all(c == local_count for c, _ in counts.values()),
+                  f"9a {name} P={P}: counts {counts} != {local_count}")
+            check(spmm > 0, f"9a {name} P={P}: bitset_spmm never launched")
+            held_calls += calls
+            log(f"{name} P={P}: card {s_card:.3f} s, CPU {s_cpu:.2f} s, "
+                f"{card.counts()}, lcc_iterations "
+                f"{card.stats['lcc_iterations']} (local "
+                f"{local.stats['lcc_iterations']}), routes "
+                f"{card.stats['dispatch_routes']}, bitset_spmm launches {spmm}, "
+                f"count {local_count} by both flavors")
+    check(held_calls and all(c[-1] == 0 for c in held_calls),
+          f"a bitset_segment_or call differs from the plain version: "
+          f"{[c for c in held_calls if c[-1]]}")
+    shapes = sorted({c[:4] for c in held_calls})
+    log(f"9a: {len(held_calls)} bitset_segment_or calls of the P=4 prunes "
+        f"bit-exact against the plain version, at (rows, out rows, arcs, W) "
+        f"{shapes}")
+    log("card == CPU == local prune: omega, edge mask, trajectory; "
+        "lcc_iterations card == CPU; counts by both flavors")
+
+
+def bucket_size(g, P):
+    """The partition's bucket size B at P shards (`partition_graph`'s
+    arithmetic, without building it)."""
+    nl = (g.n + P - 1) // P
+    b = int(np.bincount((g.src // nl).astype(np.int64) * P + g.dst // nl,
+                        minlength=P * P).max())
+    return -(-max(b, 1) // 8) * 8
+
+
+def segment_or_cost(sa, w):
+    """(bytes, operations) of one receive-side `bitset_segment_or` at packed
+    width w, each input read once: every real received slot's source index,
+    destination and active flag, its W words, the dst offsets, and the
+    [Pl*n_local, W] output; one OR per word per slot."""
+    arcs, n_out = int(sa.rx_src.shape[0]), int(sa.rx_ptr.shape[0]) - 1
+    return arcs * (9 + 4 * w) + (n_out + 1) * 8 + n_out * 4 * w, arcs * w
+
+
+def sweep_breakdown(be, wave, reps=5):
+    """The first LCC sweep's pieces on a sharded backend, re-initialised
+    (every arc active: the heaviest sweep), by CUDA events: the send-side
+    gather, the exchange (a transpose under sim), the `bitset_segment_or`
+    receive (with its plain version and bound) and the arc-wide twin test;
+    and a hop of the packed frontier at this wave."""
+    be.init(None)
+    sa, prims, tm = be.sa, be.prims, be.tdev
+    om, ea = be.omega_all, be.ea_all
+    mask = ea & sa.send_live
+
+    def gather():
+        return engine._rows(om, engine._send_index(mask, sa)).view(
+            sa.Pl, sa.P, sa.B, -1)
+
+    msgs = gather()
+    recv = prims.exchange(msgs)
+    om_bits = unpack_bits(om[:, :sa.n_local], tm.n0)
+    W = om.shape[-1]
+    n_out = sa.Pl * sa.n_local
+
+    def plain(buf):
+        return ref.bitset_segment_or_ref(buf.reshape(-1, buf.shape[-1]),
+                                         sa.rx_src, sa.rx_dst, n_out)
+
+    # the sweep's receive and one hop's, each held bit for bit to the plain
+    # version on the same inputs
+    err = max_abs_err(engine._aggregate_or(recv, sa).view(n_out, W), plain(recv))
+    check(err == 0, f"the sweep's bitset_segment_or at W={W} differs from "
+          f"the plain version: max_abs_err {err}")
+    t = {
+        "gather_ms": time_ms(gather, reps),
+        "exchange_ms": time_ms(lambda: prims.exchange(msgs), reps),
+        "receive_ms": time_ms(lambda: engine._aggregate_or(recv, sa), reps),
+        "receive_plain_ms": time_ms(lambda: plain(recv), 1),
+        "receive_max_abs_err": err,
+        "twin_test_ms": time_ms(lambda: engine._twin_test(
+            om_bits, recv, mask, sa, tm), reps),
+        "sweep_ms": time_ms(lambda: engine.lcc_shard_iteration(
+            om, ea, sa, tm, prims), reps),
+    }
+    t["receive_bound_ms"], t["receive_bound_by"] = bound(segment_or_cost(sa, W))
+    t["exchange_bytes"] = msgs.numel() * 4
+    # one packed hop at this wave, from random frontier words with every
+    # vertex a candidate
+    wf = wave // 32
+    rng_t = torch.Generator(device=om.device).manual_seed(SEED)
+    cand = torch.ones((sa.Pl, sa.n_local), dtype=torch.bool, device=om.device)
+    front = torch.randint(-2**31, 2**31 - 1, (sa.Pl, sa.n_local + 1, wf),
+                          generator=rng_t, dtype=torch.int32, device=om.device)
+    front[:, sa.n_local] = 0                       # the padding-sink row
+    t["hop_ms"] = time_ms(lambda: engine.frontier_shard_hop(
+        front, ea, sa, cand, prims), 2)
+    recv_f = prims.exchange(engine._rows(front, sa.send_flat).view(
+        sa.Pl, sa.P, sa.B, -1))
+    err = max_abs_err(engine._aggregate_or(recv_f, sa).view(n_out, wf),
+                      plain(recv_f))
+    check(err == 0, f"a hop's bitset_segment_or at W={wf} differs from the "
+          f"plain version: max_abs_err {err}")
+    t["hop_receive_max_abs_err"] = err
+    t["hop_receive_ms"] = time_ms(lambda: engine._aggregate_or(recv_f, sa), 2)
+    t["hop_receive_bound_ms"], _ = bound(segment_or_cost(sa, wf))
+    del msgs, recv, recv_f, front
+    return t
+
+
+def phase_sharded_full(g, ref4):
+    """Scale 20, the phase-4 graph: the sim backend at SHARDED_FULL, each
+    prune equal to phase 4's (omega, edge mask, trajectory, count) and
+    keeping exactly what its matches use; seconds by phase and by join
+    flavor, peak memory, bitset_spmm launches, the busy share, and one
+    sweep's breakdown. -> a row per P."""
+    log(f"== phase 9b: R-MAT scale {SCALE_FULL}, the sim backend at "
+        f"(P, wave) in {SHARDED_FULL} ({CARD})")
+    tmpl = Template(*HEX)
+    lf = g.label_frequency()
+    rows = []
+    for P, wave in SHARDED_FULL:
+        part, s_part = timed(lambda: partition_graph(g, P))
+        slots = P * P * part.B
+        plane_gib = slots * (wave // 32) * 4 / 2**30
+        reset_peak()
+        registry.reset_launches()
+        res, s_prune = timed(lambda: prune(g, tmpl, device=DEVICE,
+                                           partition=part, wave=wave,
+                                           label_freq=lf))
+        spmm = registry.launch_counts()
+        _, s_plan = timed(part.join_plan)
+        counts = flavor_counts(res)
+        peak = peak_gib()
+        same_prune(res, ref4, f"9b P={P}")
+        check(all(c == ref4["count"] for c, _ in counts.values()),
+              f"9b P={P}: counts {counts} != phase 4's {ref4['count']}")
+        check(spmm["bitset_spmm"] > 0, f"9b P={P}: bitset_spmm never launched")
+        check(spmm["bitset_wave"] == 0, f"9b P={P}: the sharded path ran "
+              "bitset_wave (its fused route is the reference's hop loop)")
+        check_keeps_the_matches(res, tmpl)
+        log(f"sharded sim P={P} wave={wave}: B={part.B} slots={slots} "
+            f"pad={slots / g.m:.2f}x plane={plane_gib:.2f} GiB; partition "
+            f"{s_part:.2f} s and its join plan {s_plan:.2f} s on the host; "
+            f"prune {s_prune:.3f} s, its phases "
+            f"{sum(p.seconds for p in res.phases):.3f} s (phase 4's local "
+            f"prune's {ref4['seconds']:.3f} s); lcc_iterations "
+            f"{res.stats['lcc_iterations']}, routes "
+            f"{res.stats['dispatch_routes']}; count "
+            + ", ".join(f"{fl} {s:.3f} s" for fl, (_, s) in counts.items())
+            + f"; peak {peak:.3f} GiB; bitset_spmm launches "
+            f"{spmm['bitset_spmm']}; {res.counts()}, {ref4['count']} matches,"
+            " omega/edge mask/trajectory == phase 4, keeps exactly what the "
+            "matches use")
+        for p in res.phases:
+            log(f"  {p.phase:11s} {str(p.constraint or ''):28s} "
+                f"{p.seconds:9.4f} s waves={p.extra.get('nlcc_waves', '-')}")
+        busy = profile_device(
+            lambda: prune(g, tmpl, device=DEVICE, partition=part, wave=wave,
+                          label_freq=lf), 1, f"sharded prune P={P}",
+            "bitset_spmm")
+        t = sweep_breakdown(res.backend, wave)
+        registry.reset_launches()
+        with segment_ors_held_to_plain() as held:
+            again = prune(g, tmpl, device=DEVICE, partition=part, wave=wave,
+                          label_freq=lf)
+        same_prune(again, ref4, f"9b P={P} with its receives held")
+        check(len(held) == registry.launch_counts()["bitset_spmm"] > 0
+              and all(c[-1] == 0 for c in held),
+              f"9b P={P}: a bitset_segment_or call differs from the plain "
+              f"version: {[c for c in held if c[-1]]}")
+        log(f"  9b P={P}: all {len(held)} bitset_segment_or calls of one more "
+            f"prune bit-exact against the plain version, at (rows, out rows, "
+            f"arcs, W) {sorted({c[:4] for c in held})}")
+        del again
+        log(f"  first sweep at P={P}: {t['sweep_ms']:.3f} ms = gather "
+            f"{t['gather_ms']:.3f} + exchange {t['exchange_ms']:.3f} "
+            f"({t['exchange_bytes'] / 2**20:.0f} MiB transposed) + receive "
+            f"bitset_segment_or {t['receive_ms']:.4f} (plain "
+            f"{t['receive_plain_ms']:.2f}, bound {t['receive_bound_ms']:.4f} "
+            f"by {t['receive_bound_by']}) + twin test {t['twin_test_ms']:.3f} "
+            f"+ the rest; one packed hop at wave {wave}: {t['hop_ms']:.3f} ms, "
+            f"its receive {t['hop_receive_ms']:.3f} (bound "
+            f"{t['hop_receive_bound_ms']:.3f})")
+        rows.append({"P": P, "wave": wave, "B": part.B, "slots": slots,
+                     "prune_s": round(s_prune, 4), "peak_gib": round(peak, 3),
+                     "launches": spmm["bitset_spmm"],
+                     "busy_ms": busy, **{k: (round(v, 4) if isinstance(v, float)
+                                             else v) for k, v in t.items()}})
+        del res
+    slots8 = 8 * 8 * bucket_size(g, 8)
+    log(f"P=8 runs in 9a only: at scale {SCALE_FULL} its buckets hold "
+        f"{slots8} slots, {slots8 * 128 / 2**30:.1f} GiB a frontier plane at "
+        f"wave 1024, and a hop holds two")
+    return rows
+
+
+def phase_spmd_nccl(g, ref4):
+    """Scale 20: the spmd backend on an NCCL group of one rank (file://
+    rendezvous in a temporary directory), against the sim backend at P = 1
+    and phase 4's prune, both on one P = 1 partition."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_shard_group
+
+    log(f"== phase 9c: R-MAT scale {SCALE_FULL}, spmd on one NCCL rank vs "
+        f"sim P=1 vs phase 4 ({CARD})")
+    tmpl = Template(*HEX)
+    lf = g.label_frequency()
+    part, s_part = timed(lambda: partition_graph(g, 1))
+    sim, s_sim = timed(lambda: prune(g, tmpl, device=DEVICE, partition=part,
+                                     label_freq=lf))
+    same_prune(sim, ref4, "9c sim P=1")
+    with tempfile.TemporaryDirectory() as d:
+        group = make_shard_group(1, backend="nccl", rank=0,
+                                 init_method=f"file://{d}/rendezvous")
+        try:
+            registry.reset_launches()
+            res, s_spmd = timed(lambda: prune(g, tmpl, mesh=group,
+                                              partition=part, label_freq=lf))
+            spmm = registry.launch_counts()["bitset_spmm"]
+            check(res.stats["backend"] == "spmd", "9c: not the spmd backend")
+            same_prune(res, sim, "9c spmd vs sim P=1")
+            same_prune(res, ref4, "9c spmd vs phase 4")
+            check(res.stats["lcc_iterations"] == sim.stats["lcc_iterations"],
+                  "9c: lcc_iterations differ spmd vs sim")
+            counts = flavor_counts(res)
+            check(all(c == ref4["count"] for c, _ in counts.values()),
+                  f"9c: counts {counts} != {ref4['count']}")
+            check(spmm > 0, "9c: bitset_spmm never launched")
+        finally:
+            dist.destroy_process_group()
+    log(f"spmd (nccl, 1 rank): prune {s_spmd:.3f} s, sim P=1 {s_sim:.3f} s "
+        f"(the P=1 partition {s_part:.2f} s on the host); "
+        f"lcc_iterations {res.stats['lcc_iterations']}; bitset_spmm launches "
+        f"{spmm}; count " + ", ".join(f"{fl} {s:.3f} s" for fl, (_, s)
+                                      in counts.items())
+        + "; omega/edge mask/trajectory/count == sim P=1 == phase 4")
+    return {"prune_s": round(s_spmd, 4), "launches": spmm}
+
+
 # ------------------------------------------------------------- phase 5: GNN
 def gnn_setup():
     """(config, shape, classes) of the GNN path."""
@@ -2526,11 +2862,13 @@ def phase_recsys_full(cfg=None, serve_batch=None, n_cand=None):
 
 
 def run_prune():
-    """The prune path (phases 2-4) and many queries against one graph (phase
-    8) -> their kernels' entries of the JSON line, with their launches on the
-    main path (phase 4), on the edge-prune, tuned and planned prunes (4b,
-    4c), serving the 32-query workload (8b) and on the incremental path
-    (8c)."""
+    """The prune path (phases 2-4), many queries against one graph (phase
+    8) and a sharded graph (phase 9) -> their kernels' entries of the JSON
+    line, with their launches on the main path (phase 4), on the edge-prune,
+    tuned and planned prunes (4b, 4c), serving the 32-query workload (8b),
+    on the incremental path (8c), and, for bitset_spmm, on the P = 2
+    sharded prune and count (9b, `launches_sharded`) and the spmd prune
+    (9c)."""
     # no dispatch policy: a cache left in the checkout must not move the
     # routes of phases 2-4 off the kernels (4c installs its own and clears it)
     registry.set_policy(None)
@@ -2552,15 +2890,26 @@ def run_prune():
     edge = phase_edge_prune_full(g, dg, default, cnt.n_embeddings)
     plans = phase_planner_policy(g, dg, default, cnt.n_embeddings)
     phase_quickstart_cli()
+    # phase 9 holds the sharded prunes to this one
+    ref4 = {"omega": default.omega, "edge_mask": default.edge_mask,
+            "traj": trajectory(default), "count": cnt.n_embeddings,
+            "seconds": sum(p.seconds for p in default.phases)}
     del default
     # phase 8: many queries against one graph, the same two kernels
     t0 = time.perf_counter()
     phase_batch_parity(g14)
     served = phase_batch_full(g, dg)
     inc = phase_incremental_full(g, dg)
-    del g, dg
+    del dg
     phase_batch_clis()
     log(f"phase 8: {time.perf_counter() - t0:.1f} s ({CARD})")
+    # phase 9: a sharded graph, bitset_spmm as each shard's receive side
+    t0 = time.perf_counter()
+    phase_sharded_parity(g14)
+    sharded = phase_sharded_full(g, ref4)
+    spmd = phase_spmd_nccl(g, ref4)
+    del g
+    log(f"phase 9: {time.perf_counter() - t0:.1f} s ({CARD})")
     return [{
         "name": name, "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/bitset.cu",
@@ -2572,6 +2921,16 @@ def run_prune():
         "launches_batched_serving": served["launches"][name],
         "batches_served": served["batches"],
         "launches_incremental": inc["launches"][name],
+        **({"launches_sharded": sharded[0]["launches"],
+            "launches_spmd": spmd["launches"],
+            "sharded_receive": [
+                {k: r[k] for k in ("P", "wave", "slots", "launches",
+                                   "receive_ms", "receive_plain_ms",
+                                   "receive_bound_ms", "receive_max_abs_err",
+                                   "hop_receive_ms", "hop_receive_bound_ms",
+                                   "hop_receive_max_abs_err")}
+                for r in sharded]}
+           if name == "bitset_spmm" else {}),
     } for name, replaces in (("bitset_spmm", "src/repro/kernels/bitset_spmm.py:77"),
                              ("bitset_wave", "src/repro/kernels/bitset_wave.py:89"))]
 

@@ -52,7 +52,9 @@ from repro_torch.core.template import (Template, NonLocalConstraint,
 from repro_torch.core import nlcc as nlcc_mod
 from repro_torch.core import planner as planner_mod
 from repro_torch.core import tds as tds_mod
-from repro_torch.core.engine import _state_changed
+from repro_torch.core.engine import (_state_changed, counted_label_bits,
+                                     counts_meet, side_words,
+                                     sweep_vertex_test)
 from repro_torch.core.pipeline import PruneResult
 from repro_torch.kernels import registry
 
@@ -95,8 +97,9 @@ class BatchedEngine:
                  dg: Optional[DeviceGraph] = None):
         if partition is not None or mesh is not None:
             raise NotImplementedError(
-                "sharded execution (mesh=/partition=) is not ported yet: it "
-                "comes with the sharded backends (slice F in ROADMAP.md)")
+                "sharded batches (mesh=/partition=) are not ported yet: they "
+                "come with the batched engine's sharded half (slice F2 in "
+                "ROADMAP.md); prune() takes mesh=/partition=")
         if not templates:
             raise ValueError("prune_batch needs at least one template")
         if not isinstance(graph, Graph):
@@ -196,11 +199,13 @@ class BatchedEngine:
         """One LCC sweep of the lanes `live`, in place -> changed bool[len].
 
         The shard program's sweep (the reference's batched path runs it even
-        on one shard): vertex q of v needs every template neighbour of q
-        covered over v's active in-arcs (and the multiplicity counts), and v
-        some covered neighbour at all if q has any; arc u -> v needs it and
-        its twin active and a template arc between omega(u) and omega(v),
-        both as the sweep found them."""
+        on one shard), through the shard programs' own sweep math
+        (`engine.sweep_vertex_test`, `counts_meet`, `side_words`) over the
+        lane axis: vertex q of v needs every template neighbour of q covered
+        over v's active in-arcs (and the multiplicity counts), and v some
+        covered neighbour at all if q has any; arc u -> v needs it and its
+        twin active and a template arc between omega(u) and omega(v), both
+        as the sweep found them."""
         from repro_torch.kernels import ops as kops
 
         dg, n0p = self.dg, self.n0p
@@ -211,22 +216,16 @@ class BatchedEngine:
         M = torch.stack([
             unpack_bits(kops.bitset_or_aggregate(words[j], dg, ea[j]), n0p)
             for j in range(len(live))])                          # bool[Bl, n, n0p]
-        keep = torch.bmm((~M).to(torch.float32), adj0.transpose(1, 2)) < 0.5
+        new = sweep_vertex_test(om, M, adj0, self.deg_pos_b[idx][:, None, :])
         cj = [j for j, b in enumerate(live) if b in self.counted]
         if cj:
             jc = torch.tensor(cj, dtype=torch.long, device=dg.device)
             cidx = idx[jc]
-            # neighbour u counts toward label c iff omega(u) meets the
-            # template vertices carrying c
-            vind = torch.bmm(om[jc].to(torch.float32), self.vhcl_b[cidx]) > 0.5
+            vind = counted_label_bits(om[jc], self.vhcl_b[cidx])
             ind = vind.index_select(1, dg.src) & ea[jc][..., None]
             cnt = _segment_sum_lanes(ind.to(torch.int32), dg.dst, dg.n)
-            ok = torch.all(cnt[:, :, None, :] >= self.req_b[cidx][:, None], dim=-1)
-            keep[jc] &= ok
-        new = om & keep & (~self.deg_pos_b[idx][:, None, :]
-                           | M.any(dim=2, keepdim=True))
-        side = pack_bits(torch.bmm(om.to(torch.float32), adj0) > 0.5)
-        compat = (side.index_select(1, dg.src)
+            new[jc] &= counts_meet(cnt, self.req_b[cidx])
+        compat = (side_words(om, adj0).index_select(1, dg.src)
                   & words.index_select(1, dg.dst)).ne(0).any(dim=2)
         ea_new = ea & ea.index_select(1, self.twin) & compat
         changed = (new != om).flatten(1).any(dim=1) | (ea_new != ea).any(dim=1)
@@ -240,7 +239,10 @@ class BatchedEngine:
         known to sit at theirs, so their sweeps would change nothing).
         Counts iterations as the reference's lagged batched while-loop: a
         lane runs one sweep past its first unchanged one, and the call
-        counts its longest lane's sweeps, at least 2."""
+        counts its longest lane's sweeps, at least 2. The loop is not the
+        shard programs' lagged `overlap`: that one runs every shard to the
+        end, while this one drops a lane at its first unchanged sweep (the
+        sweep past it changes nothing) and adds that sweep to the count."""
         live = list(range(self.Bq)) if lanes is None else [int(b) for b in lanes]
         it = 0
         while live and it < LCC_MAX_ITERS:

@@ -16,10 +16,17 @@ Three result modes:
                fixed row budget (bounded memory).
 
 Two join routes serve every mode, resolved through the dispatch policy
-(route name ``enumerate.join``, bucket ``("local", mode)``):
+(route name ``enumerate.join``, bucket ``(kind, mode)``, kind "local" or
+"sharded"):
   host    the numpy row-table join over the compacted active subgraph (the
-          default);
-  device  the device-resident join (`join.DeviceJoin`).
+          local default);
+  device  the device-resident join (`join.DeviceJoin`). On a sharded
+          `PruneResult` (prune(..., partition=/mesh=)) it is the only route:
+          it runs on the backend's shard arrays and never gathers the
+          reduced subgraph, in the "rowsharded" flavor (rows on their
+          frontier vertex's owner shard; the default) or the "replicated"
+          one (the row table on every shard), which the policy's
+          ("sharded", mode) bucket or `route=` picks.
 
 On a TdsOverflow that survives chunk back-off to a single source, that
 source is finished by the streaming emitter instead of raising.
@@ -38,7 +45,7 @@ from repro_torch.core import join as join_mod
 from repro_torch.kernels import registry
 
 # dispatch-policy route name of the enumeration join (host or device),
-# bucketed by ("local", mode)
+# bucketed by (kind, mode), kind "local" or "sharded"
 ENUM_ROUTE = "enumerate.join"
 
 MODE_MATERIALIZE = "materialize"
@@ -72,34 +79,68 @@ def count_automorphisms(template: Template) -> int:
     return max(template.automorphism_count(), 1)
 
 
-def _resolve_route(mode: str, route: Optional[str], backend: str) -> str:
-    """The join route: "host" or "device" when pinned, else the policy's
-    choice for ("local", mode), the host join by default. The sharded row
-    placements need shards, which this backend has not."""
+_FLAVORS = (registry.ROUTE_ROWSHARDED, registry.ROUTE_REPLICATED)
+
+
+def _resolve_route(kind: str, mode: str, route: Optional[str],
+                   backend: str) -> str:
+    """The join route. Local kind: "host" or "device" when pinned, else the
+    policy's choice for ("local", mode), the host join by default. Sharded
+    kind: always the device join, in the row-placement flavor pinned
+    ("rowsharded" | "replicated") or the policy's for ("sharded", mode),
+    rowsharded by default; route="device" leaves the flavor to the policy,
+    route="host" raises (it would gather the reduced subgraph)."""
     if route is not None:
-        if route in (registry.ROUTE_ROWSHARDED, registry.ROUTE_REPLICATED):
+        if route not in (registry.ROUTE_HOST, registry.ROUTE_DEVICE) + _FLAVORS:
+            raise ValueError(f"unknown enumerate.join route {route!r}")
+        if kind == "sharded" and route == registry.ROUTE_HOST:
+            raise ValueError(
+                "the sharded enumeration join is device-resident; route="
+                "'host' would gather the reduced subgraph")
+        if kind != "sharded" and route in _FLAVORS:
             raise ValueError(
                 f"route={route!r} is a sharded row placement; the local "
                 "backend has no shards to place rows on")
-        if route not in (registry.ROUTE_HOST, registry.ROUTE_DEVICE):
-            raise ValueError(f"unknown enumerate.join route {route!r}")
-        return route
+        if route in _FLAVORS or kind != "sharded":
+            return route
+    if kind == "sharded":
+        return registry.resolve_route(
+            ENUM_ROUTE, (kind, mode), default=registry.ROUTE_ROWSHARDED,
+            backend=backend, allowed=_FLAVORS)
     return registry.resolve_route(
-        ENUM_ROUTE, ("local", mode), default=registry.ROUTE_HOST,
+        ENUM_ROUTE, (kind, mode), default=registry.ROUTE_HOST,
         backend=backend, allowed=(registry.ROUTE_HOST, registry.ROUTE_DEVICE))
 
 
+def _public_route(route: str) -> str:
+    """What `EnumerationResult.route` and the stats report: the row
+    placements are flavors of the device route."""
+    return registry.ROUTE_DEVICE if route in _FLAVORS else route
+
+
 def _unpack_args(dg, state, template):
-    """Accept (dg, state, template) or a PruneResult first argument."""
+    """Accept (dg, state, template) or a PruneResult first argument ->
+    (dg, state, template, the backend a sharded result carries or None)."""
     if state is None and hasattr(dg, "dg") and hasattr(dg, "state"):
         result = dg
         template = template if template is not None else result.template
-        return result.dg, result.state, template
-    return dg, state, template
+        backend = getattr(result, "backend", None)
+        if backend is None or backend.name not in ("sim", "spmd"):
+            backend = None
+        return result.dg, result.state, template, backend
+    return dg, state, template, None
 
 
 def _make_engine(route, dg, state, template, walk, max_rows, symmetry_break,
-                 stats):
+                 stats, backend=None):
+    if route == registry.ROUTE_ROWSHARDED:
+        return join_mod.RowShardedJoin(
+            backend.join_context(), template, walk, max_rows,
+            symmetry_break=symmetry_break, stats=stats)
+    if route == registry.ROUTE_REPLICATED:
+        return join_mod.ReplicatedJoin(
+            backend.join_context(), template, walk, max_rows,
+            symmetry_break=symmetry_break, stats=stats)
     if route == registry.ROUTE_DEVICE:
         return join_mod.DeviceJoin(
             join_mod.LocalJoinContext(dg, state), template, walk, max_rows,
@@ -165,11 +206,14 @@ def enumerate_matches(
 ) -> EnumerationResult:
     """Enumerate (or count) all template embeddings in the pruned graph.
 
-    `dg` may be a `PruneResult` (then `state`/`template` default from it).
+    `dg` may be a `PruneResult` (then `state`/`template` default from it;
+    a sharded one runs the sharded device join on its shard arrays).
     `mode` is "materialize" (default) or "count"; `symmetry_break` defaults
-    to True exactly in count mode. `route` pins "host" or "device";
-    otherwise the dispatch policy decides, the host join by default."""
-    dg, state, template = _unpack_args(dg, state, template)
+    to True exactly in count mode. `route` pins "host" or "device" (or, on
+    a sharded result, the flavor "rowsharded" or "replicated"); otherwise
+    the dispatch policy decides, the host join by default on a local
+    result."""
+    dg, state, template, backend = _unpack_args(dg, state, template)
     if mode not in (MODE_MATERIALIZE, MODE_COUNT):
         raise ValueError(f"unknown enumeration mode {mode!r}")
     aut = count_automorphisms(template)
@@ -181,21 +225,25 @@ def enumerate_matches(
                 np.zeros((0, 1), np.int32), emb.shape[0], -1, 1, mode=mode)
         return EnumerationResult(emb, emb.shape[0], emb.shape[0], 1)
 
-    route = _resolve_route(mode, route, dg.device.type)
+    kind = "sharded" if backend is not None else "local"
+    route = _resolve_route(kind, mode, route, dg.device.type)
+    public = _public_route(route)
     sb = symmetry_break if symmetry_break is not None else (mode == MODE_COUNT)
     if stats is not None:
-        stats["enumerate_route"] = route
+        stats["enumerate_route"] = public
         stats["enumerate_mode"] = mode
+        if kind == "sharded":
+            stats["enumerate_join_engine"] = route
     walk = template_walk(template, label_freq)
     engine = _make_engine(route, dg, state, template, walk, max_rows, sb,
-                          stats)
+                          stats, backend)
     total, blocks = _run_engine(engine, chunk, max_rows,
                                 count_only=(mode == MODE_COUNT), stats=stats)
     if mode == MODE_COUNT:
         n_emb = total * aut if sb else total
         return EnumerationResult(
             np.zeros((0, template.n0), np.int32), n_emb, -1, aut,
-            mode=mode, route=route, n_canonical=(total if sb else None))
+            mode=mode, route=public, n_canonical=(total if sb else None))
     if blocks:
         emb = np.unique(np.concatenate(blocks, axis=0), axis=0)
     else:
@@ -208,7 +256,7 @@ def enumerate_matches(
         n_distinct_vertex_sets=vsets.shape[0],
         automorphisms=aut,
         mode=mode,
-        route=route,
+        route=public,
         n_canonical=(emb.shape[0] if sb else None),
     )
 
@@ -235,17 +283,20 @@ def stream_matches(
     source chunks are walked depth-first and row blocks split before each
     expansion (`join.stream_join`), so the whole row table never exists at
     once. `route` as in `enumerate_matches`."""
-    dg, state, template = _unpack_args(dg, state, template)
+    dg, state, template, backend = _unpack_args(dg, state, template)
     if template.n0 == 1:
         verts = np.flatnonzero(state.omega[:, 0].cpu().numpy()).astype(np.int32)
         for off in range(0, verts.size, max(max_rows, 1)):
             yield verts[off: off + max_rows].reshape(-1, 1)
         return
-    route = _resolve_route(MODE_STREAM, route, dg.device.type)
+    kind = "sharded" if backend is not None else "local"
+    route = _resolve_route(kind, MODE_STREAM, route, dg.device.type)
     if stats is not None:
-        stats["enumerate_route"] = route
+        stats["enumerate_route"] = _public_route(route)
         stats["enumerate_mode"] = MODE_STREAM
+        if kind == "sharded":
+            stats["enumerate_join_engine"] = route
     walk = template_walk(template, label_freq)
     engine = _make_engine(route, dg, state, template, walk, max_rows,
-                          symmetry_break, stats)
+                          symmetry_break, stats, backend)
     yield from join_mod.stream_join(engine, engine.sources(), chunk, max_rows)

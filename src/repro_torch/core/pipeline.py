@@ -51,6 +51,9 @@ class PruneResult:
     dg: DeviceGraph
     phases: List[PhaseStat]
     stats: Dict
+    # the backend that ran the prune: a sharded result hands its shard
+    # arrays to the enumeration join, which never gathers the reduced graph
+    backend: Optional[object] = None
 
     # host copies, computed once
     @functools.cached_property
@@ -98,12 +101,19 @@ def prune(
     partition=None,
     resilience=None,
 ) -> PruneResult:
-    """Run the full pruning pipeline on one device.
+    """Run the full pruning pipeline.
 
     `device` defaults to `cuda` (a `DeviceGraph` keeps its own device);
     `device="cpu"` runs the plain PyTorch versions of the kernels.
+    `partition=` (a shard count or a `graph.partition.EdgePartition`) runs
+    the `sim` backend, every shard in this process; `mesh=` (a
+    `torch.distributed` process group, `launch.mesh.make_shard_group`) runs
+    the `spmd` backend, a shard per rank: every rank calls `prune` on the
+    same host graph and gets the same result. Both take the host `Graph`
+    and give the gathered global state, which `enumerate_matches` takes
+    (through the sharded joins). `stats["backend"]` names the backend.
     `lcc_route` ("packed" | "unpacked") and `nlcc_route` ("fused" | "packed"
-    | "unpacked") pin the routes; unpinned, the tuned dispatch policy
+    | "unpacked") pin the local backend's routes; unpinned, the tuned dispatch policy
     (`kernels/registry.py`) picks them per shape bucket, and untuned LCC
     takes the packed `bitset_spmm` sweep and NLCC the fused `bitset_wave`
     wave wherever the capability gates allow. The routes taken land in
@@ -139,7 +149,8 @@ def prune(
 
     backend.init(initial_state)
     if template.n0 == 1:
-        return PruneResult(backend.final_state(), template, dg, [], stats)
+        return PruneResult(backend.final_state(), template, dg, [], stats,
+                           backend=backend)
 
     backend.record_routes(stats)
     # Beyond-paper fast path: with forward-backward frontier edge pruning,
@@ -264,8 +275,10 @@ class _Driver:
             self._phase_constraint(k)
 
     def finish(self, template: Template, dg: DeviceGraph) -> PruneResult:
+        self.backend.finalize_stats(self.stats)
         return PruneResult(self.backend.final_state(), template, dg,
-                           _materialize(self.raw), self.stats)
+                           _materialize(self.raw), self.stats,
+                           backend=self.backend)
 
 
 def _materialize(raw_phases: List[tuple]) -> List[PhaseStat]:

@@ -140,9 +140,19 @@ class DeviceGraph:
         return self.src.device
 
     @staticmethod
-    def from_host(g: Graph, device=None) -> "DeviceGraph":
+    def dst_sort_order(g: Graph) -> np.ndarray:
+        """The arc permutation `from_host` applies: by (dst, src)."""
+        return np.lexsort((g.src, g.dst))
+
+    @staticmethod
+    def from_host(g: Graph, device=None,
+                  order: Optional[np.ndarray] = None) -> "DeviceGraph":
+        """The graph on `device`, its arcs in `order` (`dst_sort_order(g)`
+        unless the caller has it already: the sharded backends reuse one
+        sort for the graph and their arc-slot map)."""
         dev = resolve_device(device)
-        order = np.lexsort((g.src, g.dst))
+        if order is None:
+            order = DeviceGraph.dst_sort_order(g)
         src, dst = g.src[order], g.dst[order]
         dst_ptr = np.zeros(g.n + 1, dtype=np.int64)
         dst_ptr[1:] = np.cumsum(np.bincount(dst, minlength=g.n))

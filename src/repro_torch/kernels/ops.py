@@ -103,6 +103,76 @@ def bitset_or_aggregate(
     return _ref.bitset_spmm_ref(vals, dg.src, dg.dst, dg.n, edge_active)
 
 
+# one all-true arc mask per device, grown to the longest arc list seen, that
+# every `bitset_segment_or` call without its own mask shares
+_ALL_ARCS: Dict[str, torch.Tensor] = {}
+
+
+def _all_arcs(m: int, device: torch.device) -> torch.Tensor:
+    key = str(device)
+    mask = _ALL_ARCS.get(key)
+    if mask is None or mask.shape[0] < m:
+        mask = torch.ones(m, dtype=torch.bool, device=device)
+        _ALL_ARCS[key] = mask
+    return mask[:m]
+
+
+def _bitset_segment_or_cuda(vals, src, dst, dst_ptr, n_out, active):
+    from repro_torch.kernels import build
+
+    m = int(src.shape[0])
+    if active is None:
+        active = _all_arcs(m, vals.device)
+    if vals.dtype != torch.int32 or vals.dim() != 2:
+        raise ValueError(f"vals must be int32[R, W], got {vals.dtype}{list(vals.shape)}")
+    if (src.dtype != torch.int32 or dst.dtype != torch.int32
+            or dst.shape != (m,) or dst_ptr.dtype != torch.int64
+            or dst_ptr.shape != (n_out + 1,)
+            or active.dtype != torch.bool or active.shape != (m,)):
+        raise ValueError(
+            f"src, dst must be int32[m], active bool[m], dst_ptr "
+            f"int64[{n_out + 1}] (m = {m})")
+    for name, t in (("src", src), ("dst", dst), ("dst_ptr", dst_ptr),
+                    ("active", active)):
+        if t.device != vals.device:
+            raise ValueError(f"{name} is on {t.device}, vals on {vals.device}")
+    vals = vals.contiguous()
+    w = vals.shape[1]
+    if m == 0 and w <= 2:
+        # the edge-balanced kernel has no arc to take: nothing is launched
+        return torch.zeros((n_out, w), dtype=torch.int32, device=vals.device)
+    out = torch.empty((n_out, w), dtype=torch.int32, device=vals.device)
+    if n_out == 0:
+        return out
+    lib = build.library()
+    code = lib.bitset_spmm_launch(
+        vals.data_ptr(), src.contiguous().data_ptr(),
+        dst.contiguous().data_ptr(), dst_ptr.contiguous().data_ptr(),
+        active.contiguous().data_ptr(), out.data_ptr(), n_out, m,
+        BITSET_ARC_CHUNK, w, vals.device.index or 0, _stream(vals))
+    build.check(code, "bitset_spmm")
+    registry.count_launch("bitset_spmm")
+    return out
+
+
+def bitset_segment_or(
+    vals: torch.Tensor,     # int32[R, W] packed rows, any R
+    src: torch.Tensor,      # int32[m] row of vals per arc
+    dst: torch.Tensor,      # int32[m] out row per arc, sorted ascending
+    dst_ptr: torch.Tensor,  # int64[n_out + 1] CSR offsets of dst
+    n_out: int,
+    active: Optional[torch.Tensor] = None,  # bool[m]; None: every arc
+) -> torch.Tensor:
+    """OR the rows of `vals` into `n_out` rows along a dst-sorted arc list
+    -> int32[n_out, W]: out[v] = OR over active arcs k with dst[k] == v of
+    vals[src[k]]. The `bitset_spmm` kernel with the source rows apart from
+    the out rows (it reads `vals` only through `src`): the receive side of
+    the sharded backends, which OR received buffers into their vertices."""
+    if registry.uses_kernel(vals):
+        return _bitset_segment_or_cuda(vals, src, dst, dst_ptr, n_out, active)
+    return _ref.bitset_segment_or_ref(vals, src, dst, n_out, active)
+
+
 # ------------------------------------------------------------- bitset_wave
 # scratch frontiers the wave kernel rotates hops 0 .. L-2 over; it refuses
 # fewer than min(3, L - 1) (csrc/bitset.cu)

@@ -10,6 +10,8 @@ Packed words are int32 (see `core/state.py`).
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from repro_torch.core.state import pack_bits, unpack_bits
@@ -26,19 +28,46 @@ def bitset_spmm_ref(
     n: int,
     edge_active: torch.Tensor,  # bool[m]
 ) -> torch.Tensor:
-    """out[v] = OR over active arcs (u -> v) of vals[u] -> int32[n, W].
+    """out[v] = OR over active arcs (u -> v) of vals[u] -> int32[n, W]."""
+    return bitset_segment_or_ref(vals, src, dst, n, edge_active)
 
-    Bit planes: unpack, gather by the sources of the active arcs, max-scatter
-    by their destinations into a zero plane (so a vertex with no active
-    in-arc gets 0), pack."""
+
+def bitset_segment_or_ref(
+    vals: torch.Tensor,         # int32[R, W] packed rows, any R
+    src: torch.Tensor,          # int32[m] row of vals per arc
+    dst: torch.Tensor,          # int32[m] out row per arc, < n_out
+    n_out: int,
+    edge_active: Optional[torch.Tensor] = None,  # bool[m]; None: every arc
+) -> torch.Tensor:
+    """out[v] = OR over active arcs k with dst[k] == v of vals[src[k]] ->
+    int32[n_out, W]; `vals` and `out` may differ in rows (the sharded
+    backends OR received buffers into their vertices).
+
+    Bit planes: unpack the rows, gather them by the sources of the active
+    arcs, max-scatter by their destinations into a zero plane (so a row
+    with no active arc gets 0), pack. Where there are no fewer rows than
+    arcs (a receive buffer, each row one arc's), the rows are unpacked a
+    chunk of arcs at a time instead, so no [R, 32W] plane is made, and the
+    arcs whose row is zero (an inactive sender's message) are left out:
+    they OR nothing in."""
     w = vals.shape[1]
-    bits = unpack_bits(vals, 32 * w)                      # bool[n, 32W]
-    acc = torch.zeros((n, 32 * w), dtype=torch.int32, device=vals.device)
-    arcs = torch.nonzero(edge_active).squeeze(1)
-    src_a, dst_a = src[arcs].long(), dst[arcs].long()
+    acc = torch.zeros((n_out, 32 * w), dtype=torch.int32, device=vals.device)
+    if edge_active is None:
+        src_a, dst_a = src.long(), dst.long()
+    else:
+        arcs = torch.nonzero(edge_active).squeeze(1)
+        src_a, dst_a = src[arcs].long(), dst[arcs].long()
+    if vals.shape[0] < src.shape[0]:
+        bits = unpack_bits(vals, 32 * w)                   # bool[R, 32W]
+    else:
+        bits = None
+        live = vals.ne(0).any(dim=1)[src_a]
+        src_a, dst_a = src_a[live], dst_a[live]
     step = max(1, SPMM_REF_CHUNK_BITS // (32 * w))
-    for off in range(0, arcs.shape[0], step):
-        msgs = bits[src_a[off: off + step]].to(torch.int32)
+    for off in range(0, src_a.shape[0], step):
+        rows = src_a[off: off + step]
+        msgs = (bits[rows] if bits is not None
+                else unpack_bits(vals[rows], 32 * w)).to(torch.int32)
         idx = dst_a[off: off + step, None].expand_as(msgs)
         acc.scatter_reduce_(0, idx, msgs, "amax", include_self=True)
     return pack_bits(acc > 0)

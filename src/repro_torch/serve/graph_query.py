@@ -88,8 +88,9 @@ class GraphQueryEngine:
             raise ValueError("max_batch must be >= 1")
         if partition is not None or mesh is not None:
             raise NotImplementedError(
-                "sharded execution (mesh=/partition=) is not ported yet: it "
-                "comes with the sharded backends (slice F in ROADMAP.md)")
+                "sharded batches (mesh=/partition=) are not ported yet: they "
+                "come with the batched engine's sharded half (slice F2 in "
+                "ROADMAP.md); prune() takes mesh=/partition=")
         self.graph = graph
         self.dg = DeviceGraph.from_host(graph, device)
         self.wave = wave

@@ -15,7 +15,7 @@ ROOT = Path(__file__).resolve().parents[1]
 IMPORT_RE = re.compile(r"^\s*(import|from)\s+(jax|repro)\b")
 
 # Runs in a fresh interpreter: a tiny CPU prune through the whole main path
-# (with the edge-prune pass, the device join, streaming, a planned prune, a
+# (sharded on the sim backend too, with the edge-prune pass, the device join, streaming, a planned prune, a
 # tune and the quickstart), a batched prune, graph-query serving (engine and
 # CLI), an incremental and an exploratory search and their launcher, a tiny
 # sampled GNN forward, a tiny greedy generation and a retrieval, then
@@ -34,6 +34,9 @@ SCRIPT = textwrap.dedent("""
     t = Template([0, 1, 2, 3], [(0, 1), (1, 2), (2, 3), (3, 0)])
     res = prune(g, t, device="cpu")
     assert count_matches(res).n_embeddings == 1
+    sharded = prune(g, t, partition=2, device="cpu")
+    assert sharded.stats["backend"] == "sim"
+    assert count_matches(sharded).n_embeddings == 1
 
     from repro_torch.core.enumerate import stream_matches
     from repro_torch.core.planner import plan_query

@@ -192,11 +192,19 @@ def test_generators_and_device_graph_match_reference():
                                       dg.dst.numpy())
 
 
-def test_unported_options_raise():
+def test_unported_options_raise(reference):
+    """resilience= (slice G) still raises; partition= is ported (the sim
+    backend) and equals the reference's prune and enumeration."""
     g, (labels, edges) = SCENARIOS["triangle_er"]
     tg, tm = _port_graph(g), Template(labels, edges)
-    for kw in (dict(partition=2), dict(resilience=object())):
-        with pytest.raises(NotImplementedError):
-            prune(tg, tm, device="cpu", **kw)
+    with pytest.raises(NotImplementedError):
+        prune(tg, tm, device="cpu", resilience=object())
+    ref, ref_enum = reference("triangle_er")
+    res = prune(tg, tm, device="cpu", wave=WAVE, partition=2)
+    assert res.stats["backend"] == "sim"
+    np.testing.assert_array_equal(res.omega, np.asarray(ref.state.omega))
+    np.testing.assert_array_equal(res.edge_mask, ref.edge_mask)
+    assert _trajectory(res) == _trajectory(ref)
+    assert count_matches(res).n_embeddings == ref_enum.n_embeddings
     with pytest.raises(ValueError):
         prune(tg, tm, device="cpu", nlcc_route="sideways")

@@ -170,6 +170,43 @@ From the root of a checkout, on a machine with a CUDA device and `nvcc`:
             c. scale 20, `prune(mesh=group)` on an NCCL group of one rank
                (one card holds one NCCL rank) equal to the sim at P = 1 and
                to phase 4.
+10. faults  resilience, the paper's checkpoint-and-rebalance and sharded
+            batches (run with the prune path, reusing 9b's and 9c's
+            partitions; 10b and 10c run first, while a worker process
+            computes 10a's CPU side):
+            a. scale 14, the scenarios of tests/test_torch_resilience.py on
+               the sim at P = 4 for hex-unique and the 3c triangle: a shard
+               loss at each phase boundary and in the middle of a wave,
+               restarting onto P = 2, a seeded random plan, a collective
+               retried in place, a kernel fault that reaches the ref rung
+               (the plain versions on the card, counted), a chunk
+               back-off, a skew-triggered rebalance; each equal to the
+               fault-free card prune (itself equal to the local prune),
+               its ladder, restarts, rebalances and fired faults equal to
+               the CPU run's, and no plain-version call outside the ref
+               rung; `prune_batch` of 8a's templates at P = 2 and 4, each
+               lane equal to its single sharded prune and to the CPU's,
+               every receive-side call of the P = 4 batch bit-exact
+               against the plain version;
+            b. scale 20, hex-unique from the sim at P = 4 (wave 512) with a
+               checkpoint at every phase: (i) a shard loss at phase 1
+               restarted onto P = 2, (ii)-(iv) the rebalance triggered at
+               the first boundary onto P = 4, 1 (the local backend) and 2,
+               (v) a collective timeout retried on one NCCL rank; each
+               equal to phase 4 with no plain-version call and its number
+               of moves as expected (two onto P = 4, the second at the
+               next boundary); prune seconds beside 9b's and the moves'
+               share of them, checkpoint bytes and seconds, restore and
+               handoff seconds, the compacted graph's n, m, B and padding,
+               the skew before and after, peak memory;
+            c. scale 20, `prune_batch` of 4 same-bucket templates at P = 2
+               with the largest wave of 64 and 32 that the lockstep group
+               budget allows (read after the allocator's cache is
+               emptied), each lane equal to its single P = 2 prune and to
+               the P = 1 batch;
+               `GraphQueryEngine(partition=)` serving 8 counted queries
+               against the one-shard engine; `launch/serve.py
+               --partition 2` in its own process.
 
 Every time is printed beside the card's name and power limit. The line
 before the last is a JSON object listing each kernel with its launches on
@@ -977,6 +1014,8 @@ def phase_full(g, dg):
     log(f"max_memory_allocated {peak / 2**30:.3f} GiB; launches {launches}")
     for name in registry.PRUNE_KERNELS:
         check(launches[name] > 0, f"{name} never launched on the main path")
+    check(sum(registry.plain_counts().values()) == 0,
+          "the main path ran a plain version on the card")
     check(cnt.n_embeddings > 0, "the scale-20 main path found no match")
     # device time by kernel and the device's busy share over one more prune
     profile_device(lambda: prune(dg, tmpl, label_freq=g.label_frequency()), 1,
@@ -1746,7 +1785,7 @@ def sweep_breakdown(be, wave, reps=5):
                           generator=rng_t, dtype=torch.int32, device=om.device)
     front[:, sa.n_local] = 0                       # the padding-sink row
     t["hop_ms"] = time_ms(lambda: engine.frontier_shard_hop(
-        front, ea, sa, cand, prims), 2)
+        front[None], ea[None], sa, cand[None], prims), 2)
     recv_f = prims.exchange(engine._rows(front, sa.send_flat).view(
         sa.Pl, sa.P, sa.B, -1))
     err = max_abs_err(engine._aggregate_or(recv_f, sa).view(n_out, wf),
@@ -1765,14 +1804,15 @@ def phase_sharded_full(g, ref4):
     prune equal to phase 4's (omega, edge mask, trajectory, count) and
     keeping exactly what its matches use; seconds by phase and by join
     flavor, peak memory, bitset_spmm launches, the busy share, and one
-    sweep's breakdown. -> a row per P."""
+    sweep's breakdown. -> (a row per P, the partitions by P)."""
     log(f"== phase 9b: R-MAT scale {SCALE_FULL}, the sim backend at "
         f"(P, wave) in {SHARDED_FULL} ({CARD})")
     tmpl = Template(*HEX)
     lf = g.label_frequency()
-    rows = []
+    rows, parts = [], {}
     for P, wave in SHARDED_FULL:
         part, s_part = timed(lambda: partition_graph(g, P))
+        parts[P] = part  # phase 10 reuses it
         slots = P * P * part.B
         plane_gib = slots * (wave // 32) * 4 / 2**30
         reset_peak()
@@ -1844,13 +1884,14 @@ def phase_sharded_full(g, ref4):
     log(f"P=8 runs in 9a only: at scale {SCALE_FULL} its buckets hold "
         f"{slots8} slots, {slots8 * 128 / 2**30:.1f} GiB a frontier plane at "
         f"wave 1024, and a hop holds two")
-    return rows
+    return rows, parts
 
 
 def phase_spmd_nccl(g, ref4):
     """Scale 20: the spmd backend on an NCCL group of one rank (file://
     rendezvous in a temporary directory), against the sim backend at P = 1
-    and phase 4's prune, both on one P = 1 partition."""
+    and phase 4's prune, both on one P = 1 partition. -> (a row, the
+    partition)."""
     import torch.distributed as dist
     from repro_torch.launch.mesh import make_shard_group
 
@@ -1887,7 +1928,498 @@ def phase_spmd_nccl(g, ref4):
         f"{spmm}; count " + ", ".join(f"{fl} {s:.3f} s" for fl, (_, s)
                                       in counts.items())
         + "; omega/edge mask/trajectory/count == sim P=1 == phase 4")
-    return {"prune_s": round(s_spmd, 4), "launches": spmm}
+    return {"prune_s": round(s_spmd, 4), "launches": spmm}, part
+
+
+# ---------------------- phase 10: resilience, rebalance, sharded batches
+# 10a runs the scenarios of tests/test_torch_resilience.py on the sim at
+# RES_P shards, restarts onto RES_RESTART_P, each template at its wave (the
+# hex-unique's six walks give wave indices 0-5 at any wave size; 32 keeps
+# its CPU run short)
+RES_P, RES_RESTART_P = 4, 2
+RES_TEMPLATES = (("hex-unique", HEX, 32), ("3c triangle", TRI_MANY, WAVE))
+RES_RANDOM_SEED = 1
+# 10b: the skew that triggers the rebalance. The first boundary's active
+# arcs sit on the hubs' shards (low ids): 1.600 at P = 4, and within a
+# few percent after the shuffle. A rebalance onto P = 4 moves a second time
+# at the next boundary, where the 36 arcs left read 1.556 over 4 shards;
+# onto P = 2 and 1 it moves once
+IMBALANCE_TRIGGER = 1.5
+CKPT_WAVE = 512
+# 10c: the sharded batch's templates, batch 1 of 8b's drain (its rounds
+# are few at scale 20), and its engine's queries in count mode; the waves
+# its budget chooses from. A job's hop sends wave/32 words a slot; past 2
+# the receive kernel runs a warp per vertex, which R-MAT's hubs hold up
+# (9b), and a round's lone straggler job runs there alone: at wave 128 the
+# batch took 9.693 s and the engine 207.709 s, at 64 2.971 s and 57.693 s
+SHARDED_BATCH_WAVES = (64, 32)
+SHARDED_BATCH = slice(8, 12)
+ENGINE_QUERIES = SERVE_TDS_BATCH + SERVE_TDS_BATCH[:2]
+
+
+def resilience_scenarios(K, k_tds):
+    """10a's scenarios for a template of K constraints whose TDS is phase
+    k_tds (None without one): [(name, cfg(checkpoint_dir))]."""
+    from repro_torch.core import resilience as res
+
+    def loss(**kw):
+        return res.FaultSpec(kind=res.FAULT_SHARD_LOSS, **kw)
+
+    def restarting(specs):
+        return lambda d: res.ResilienceConfig(
+            checkpoint_dir=d, injector=res.FaultInjector(specs),
+            elastic=res.ElasticConfig(restart_P=RES_RESTART_P))
+
+    out = [(f"shard loss at phase {k}", restarting([loss(phase=k)]))
+           for k in range(K + 1)]
+    out.append(("mid-wave loss (wave 1)",
+                restarting([loss(phase=1, site="wave", wave=1)])))
+    out.append(("seeded random plan", lambda d: res.ResilienceConfig(
+        checkpoint_dir=d, injector=res.FaultInjector.random(
+            RES_RANDOM_SEED, n_phases=K + 1, n_faults=2),
+        elastic=res.ElasticConfig(restart_P=RES_RESTART_P))))
+    out.append(("collective retry", lambda d: res.ResilienceConfig(
+        injector=res.FaultInjector([res.FaultSpec(
+            kind=res.FAULT_COLLECTIVE_TIMEOUT, phase=1,
+            cleared_by="retry")]))))
+    out.append(("kernel fault, ref rung", lambda d: res.ResilienceConfig(
+        injector=res.FaultInjector([res.FaultSpec(
+            kind=res.FAULT_TRANSIENT_KERNEL, phase=1, cleared_by="ref",
+            times=0)]))))
+    if k_tds is not None:
+        out.append(("chunk back-off", lambda d: res.ResilienceConfig(
+            injector=res.FaultInjector([res.FaultSpec(
+                kind=res.FAULT_RESOURCE_EXHAUSTED, phase=k_tds, site="tds",
+                cleared_by="chunk")]))))
+    out.append(("imbalance-triggered rebalance", lambda d: res.ResilienceConfig(
+        elastic=res.ElasticConfig(imbalance_trigger=1.0,
+                                  rebalance_P=RES_RESTART_P))))
+    return out
+
+
+def plan_shape(res):
+    """(K, the TDS phase or None) of a prune result."""
+    phases = res.stats["plan"]["phases"]
+    tds = [k + 1 for k, p in enumerate(phases) if p["engine"] == "tds"]
+    return len(phases), (tds[0] if tds else None)
+
+
+def resilience_records(res, inj):
+    """What 10a holds card against CPU: the ladder, the restarts, the
+    rebalances, the faults fired (JSON-able)."""
+    rs = res.stats["resilience"]
+    return {
+        "ladder": [list(x) for x in rs["ladder"]],
+        "restarts": [[r["cause"], r["restored_phase"], r["from_P"], r["to_P"]]
+                     for r in rs["restarts"]],
+        "rebalances": [[r["phase"], r["from_P"], r["to_P"],
+                        r["max_over_mean_before"]] for r in rs["rebalances"]],
+        "checkpoints": rs["checkpoints"],
+        "fired": [dict(f) for f in (inj.fired if inj is not None else [])],
+    }
+
+
+def shifted_batch():
+    return [Template([lab + BATCH_LABEL_SHIFT for lab in labels], edges)
+            for labels, edges in BATCH_VARIANTS]
+
+
+def phase10_cpu_worker(out_dir, threads=4):
+    """10a's CPU side, in a process of its own while the card runs 9b-10c:
+    every scenario's prune and the sharded batches at P = 2 and 4 on the
+    CPU, saved under out_dir (arrays as .npz, records as JSON)."""
+    torch.set_num_threads(threads)
+    g = gen.rmat_graph(SCALE_PARITY, edge_factor=EDGE_FACTOR, seed=SEED)
+    records = {}
+    for tname, spec, wave in RES_TEMPLATES:
+        tmpl = Template(*spec)
+        base = prune(g, tmpl, device="cpu", partition=RES_P, wave=wave)
+        K, k_tds = plan_shape(base)
+        for i, (name, cfg_of) in enumerate(resilience_scenarios(K, k_tds)):
+            with tempfile.TemporaryDirectory() as d:
+                cfg = cfg_of(d)
+                res = prune(g, tmpl, device="cpu", partition=RES_P, wave=wave,
+                            resilience=cfg)
+            np.savez(os.path.join(out_dir, f"{tname}-{i}.npz"),
+                     omega=res.omega, edge_mask=res.edge_mask)
+            records[f"{tname}-{i}"] = dict(
+                resilience_records(res, cfg.injector), traj=trajectory(res))
+    for P in (2, 4):
+        bres = prune_batch(g, shifted_batch(), device="cpu", partition=P)
+        np.savez(os.path.join(out_dir, f"batch-{P}.npz"), **{
+            f"{k}{i}": a for i, r in enumerate(bres.results)
+            for k, a in zip(("omega", "ea"), lane_arrays(r))})
+        records[f"batch-{P}"] = batch_counters(bres.stats)
+    with open(os.path.join(out_dir, "records.json"), "w") as f:
+        json.dump(records, f)
+
+
+def start_phase10_worker():
+    """(process, its output directory): the CPU side of 10a, started now so
+    that it runs beside the card's phases."""
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_10a_")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    with open(os.path.join(out_dir, "worker.log"), "w") as out:
+        proc = subprocess.Popen(
+            [sys.executable, "-c", "import chip_smoke as cs; "
+             f"cs.phase10_cpu_worker({out_dir!r})"],
+            cwd=ROOT, env=env, stdout=out, stderr=subprocess.STDOUT)
+    return proc, out_dir, time.perf_counter()
+
+
+def stop_worker(worker):
+    proc = worker[0]
+    if proc.poll() is None:
+        proc.kill()
+    proc.wait()
+
+
+def plain_calls():
+    return sum(registry.plain_counts().values())
+
+
+def phase_resilience_parity(g, worker):
+    """10a, scale 14: the resilience scenarios on the sim at RES_P shards,
+    each equal to the fault-free card prune (itself equal to the card's
+    local prune) with the CPU run's records; plain-version calls on the
+    card only on the ref rung. Then `prune_batch` of 8a's templates at P = 2
+    and 4, each lane equal to its single sharded prune and to the CPU's,
+    every receive-side call of the P = 4 batch held to the plain version."""
+    log(f"== phase 10a: R-MAT scale {SCALE_PARITY}, faults on the sim at "
+        f"P={RES_P} (restarts onto {RES_RESTART_P}), card vs CPU ({CARD})")
+    proc, out_dir, t_started = worker
+    proc.wait(timeout=900)
+    with open(os.path.join(out_dir, "worker.log")) as f:
+        check(proc.returncode == 0,
+              f"10a's CPU worker failed: {f.read()[-3000:]}")
+    log(f"10a's CPU worker: {time.perf_counter() - t_started:.1f} s since "
+        f"it started, beside 9b-10c")
+    with open(os.path.join(out_dir, "records.json")) as f:
+        cpu = json.load(f)
+    for tname, spec, wave in RES_TEMPLATES:
+        tmpl = Template(*spec)
+        local = prune(g, tmpl, device=DEVICE, wave=wave)
+        registry.reset_launches()
+        base, s_base = timed(lambda: prune(g, tmpl, device=DEVICE,
+                                           partition=RES_P, wave=wave))
+        same_prune(base, local, f"10a {tname}: fault-free sim vs local")
+        check(plain_calls() == 0, f"10a {tname}: the fault-free prune ran "
+              "a plain version on the card")
+        K, k_tds = plan_shape(base)
+        log(f"{tname} (wave {wave}): fault-free sim P={RES_P} {s_base:.3f} s "
+            f"== the local prune; {K} constraints, TDS at phase {k_tds}")
+        for i, (name, cfg_of) in enumerate(resilience_scenarios(K, k_tds)):
+            with tempfile.TemporaryDirectory() as d:
+                cfg = cfg_of(d)
+                registry.reset_launches()
+                res, s = timed(lambda: prune(g, tmpl, device=DEVICE,
+                                             partition=RES_P, wave=wave,
+                                             resilience=cfg))
+            plain = plain_calls()
+            key = f"{tname}-{i}"
+            rec = dict(resilience_records(res, cfg.injector),
+                       traj=trajectory(res))
+            got = np.load(os.path.join(out_dir, f"{key}.npz"))
+            same_prune(res, base, f"10a {tname} {name}")
+            check(np.array_equal(res.omega, got["omega"])
+                  and np.array_equal(res.edge_mask, got["edge_mask"]),
+                  f"10a {tname} {name}: card != CPU")
+            check(json.loads(json.dumps(rec)) == cpu[key],
+                  f"10a {tname} {name}: records differ card vs CPU: {rec} "
+                  f"vs {cpu[key]}")
+            if "ref rung" in name:
+                # on the card the rung runs the plain versions there, counted
+                check((plain > 0 or DEVICE != "cuda")
+                      and res.stats["resilience"]["plain_calls"]
+                      == registry.plain_counts(),
+                      f"10a {tname}: the ref rung ran no plain version")
+            else:
+                check(plain == 0, f"10a {tname} {name}: {plain} plain-version "
+                      "calls on the card")
+            rs = res.stats["resilience"]
+            log(f"  {name}: {s:.3f} s, ladder {[r for r, _ in rs['ladder']]}, "
+                f"restarts {rec['restarts']}, rebalances "
+                f"{[r[:3] for r in rec['rebalances']]}, fired "
+                f"{[(f['kind'], f['site'], f['phase'], f['wave']) for f in rec['fired']]}"
+                f", plain-version calls {plain}: == fault-free == CPU")
+    batch = shifted_batch()
+    for P in (2, 4):
+        registry.reset_launches()
+        with (segment_ors_held_to_plain() if P == 4
+              else contextlib.nullcontext([])) as held:
+            bres, s = timed(lambda: prune_batch(g, batch, device=DEVICE,
+                                                partition=P))
+        spmm = registry.launch_counts()["bitset_spmm"]
+        got = np.load(os.path.join(out_dir, f"batch-{P}.npz"))
+        check(batch_counters(bres.stats) == cpu[f"batch-{P}"],
+              f"10a batch P={P}: counters differ card vs CPU")
+        check(plain_calls() == 0, f"10a batch P={P}: plain-version calls")
+        check(DEVICE != "cuda" or spmm > 0,
+              f"10a batch P={P}: bitset_spmm never launched")
+        for i, (t, lane) in enumerate(zip(batch, bres.results)):
+            single = prune(g, t, device=DEVICE, partition=P)
+            check(same_lane(lane_arrays(lane), lane_arrays(single)),
+                  f"10a batch P={P} lane {i}: != its single sharded prune")
+            check(same_lane(lane_arrays(lane), (got[f"omega{i}"],
+                                                got[f"ea{i}"])),
+                  f"10a batch P={P} lane {i}: card != CPU")
+        if P == 4:
+            check(held and (DEVICE != "cuda" or len(held) == spmm)
+                  and all(c[-1] == 0 for c in held),
+                  f"10a batch P=4: a bitset_segment_or call differs from the "
+                  f"plain version: {[c for c in held if c[-1]]}")
+        log(f"prune_batch of 8a's 8 templates at P={P}: {s:.3f} s, "
+            f"{batch_counters(bres.stats)}, bitset_spmm {spmm}"
+            + (f", all {len(held)} receive calls bit-exact against the plain "
+               f"version at (rows, out rows, arcs, W) "
+               f"{sorted({c[:4] for c in held})}" if P == 4 else "")
+            + "; every lane == its single sharded prune == CPU")
+
+
+def handoff_line(h):
+    """One handoff's timings and sizes, printed."""
+    if not h:
+        return "no handoff"
+    pad = h["P"] * h["P"] * h["B"] / max(h["m"], 1) if "P" in h else None
+    return (f"handoff compact {h['compact_s']:.3f} + shuffle "
+            f"{h['shuffle_s']:.3f} + partition {h['partition_s']:.3f} s; "
+            f"compacted n={h['n']} m={h['m']} B={h['B']}"
+            + (f" (padding {pad:.2f}x m)" if pad is not None else "")
+            + (f"; the old skew read on the host in {h['skew_s']:.3f} s"
+               if "skew_s" in h else "")
+            + (f"; max/mean {h['max_over_mean_before']:.3f} -> "
+               f"{h['max_over_mean_after']:.3f}, Gini "
+               f"{h['gini_before']:.3f} -> {h['gini_after']:.3f}"
+               if "max_over_mean_before" in h else
+               f"; after: max/mean {h['max_over_mean_after']:.3f}, Gini "
+               f"{h['gini_after']:.3f}"))
+
+
+def phase_checkpoint_rebalance(g, ref4, parts, part1, unbalanced_s):
+    """10b, scale 20, the phase-4 graph, hex-unique: (i) a shard loss at
+    phase 1 restarted onto P = 2 from the phase checkpoints, (ii)-(iv) the
+    skew-triggered rebalance at the first boundary onto P = 4, 1 and 2, (v)
+    a collective timeout retried in place on one NCCL rank; each equal to
+    phase 4 with no plain-version call. -> rows."""
+    import torch.distributed as dist
+    from repro_torch.core import resilience as res
+    from repro_torch.launch.mesh import make_shard_group
+
+    log(f"== phase 10b: R-MAT scale {SCALE_FULL}, checkpoint and rebalance, "
+        f"hex-unique from the sim at P=4 (wave {CKPT_WAVE}) ({CARD})")
+    tmpl = Template(*HEX)
+    lf = g.label_frequency()
+    # (name, config, moves: a restart, or the rebalances at boundaries 0
+    # and 1 as IMBALANCE_TRIGGER's comment says)
+    runs = [
+        ("(i) shard loss at phase 1, restart onto P=2",
+         lambda d: res.ResilienceConfig(
+             checkpoint_dir=d, injector=res.FaultInjector([res.FaultSpec(
+                 kind=res.FAULT_SHARD_LOSS, phase=1)]),
+             elastic=res.ElasticConfig(restart_P=2)), 1)]
+    for to_P, tag in ((4, "(ii) LB-16"), (1, "(iii) LB-1"), (2, "(iv)")):
+        runs.append((f"{tag} rebalance onto P={to_P}",
+                     lambda d, to_P=to_P: res.ResilienceConfig(
+                         checkpoint_dir=d, elastic=res.ElasticConfig(
+                             imbalance_trigger=IMBALANCE_TRIGGER,
+                             rebalance_P=to_P)), 2 if to_P == 4 else 1))
+    rows = []
+    for name, cfg_of, n_moves in runs:
+        with tempfile.TemporaryDirectory() as d:
+            reset_peak()
+            registry.reset_launches()
+            out, s = timed(lambda: prune(
+                g, tmpl, device=DEVICE, partition=parts[4], wave=CKPT_WAVE,
+                label_freq=lf, resilience=cfg_of(d)))
+            launches = {k: registry.launch_counts()[k]
+                        for k in registry.PRUNE_KERNELS}
+            peak = peak_gib()
+        same_prune(out, ref4, f"10b {name}")
+        check(plain_calls() == 0, f"10b {name}: plain-version calls")
+        check(DEVICE != "cuda" or launches["bitset_spmm"] > 0,
+              f"10b {name}: no bitset_spmm")
+        rs = out.stats["resilience"]
+        moves = rs["restarts"] or rs["rebalances"]
+        check(len(moves) == n_moves and out.backend is None
+              and (rs["restarts"] or [m["phase"] for m in moves]
+                   == list(range(n_moves))),
+              f"10b {name}: moves {[m.get('phase') for m in moves]}, "
+              f"expected {n_moves} from the first boundary on")
+        move_s = sum(m["seconds"] for m in moves)
+        if name.startswith("(iii)"):
+            check(DEVICE != "cuda" or launches["bitset_wave"] > 0,
+                  "10b (iii): the local backend "
+                  "after the rebalance onto one shard ran no bitset_wave")
+        hs = []
+        for m in moves:
+            h = dict(m.get("handoff") or {}, P=m["to_P"])
+            if "max_over_mean_before" in m:
+                h.update(max_over_mean_before=m["max_over_mean_before"],
+                         gini_before=m["gini_before"])
+            hs.append(h)
+        log(f"{name}: prune {s:.3f} s, {move_s:.3f} s of it in moves "
+            f"(9b's unbalanced P=4 prune {unbalanced_s:.3f} s); checkpoints {rs['checkpoints']}, bytes "
+            f"{rs['checkpoint_bytes']}, seconds "
+            f"{[round(x, 4) for x in rs['checkpoint_seconds']]}; "
+            + (f"restore {rs['restarts'][0]['restore_seconds']:.3f} s; "
+               if rs["restarts"] else "")
+            + "; ".join(
+                f"move at phase {m.get('phase', m.get('restored_phase'))} "
+                f"{m['from_P']}->{m['to_P']} in {m['seconds']:.3f} s: "
+                f"{handoff_line(h)}" for m, h in zip(moves, hs))
+            + f"; peak {peak:.3f} GiB; launches {launches}; == phase 4")
+        for p in out.phases:
+            log(f"  {p.phase:11s} {str(p.constraint or ''):28s} "
+                f"{p.seconds:9.4f} s E*={p.active_edges}")
+        rows.append({"run": name, "prune_s": round(s, 4),
+                     "move_s": [round(m["seconds"], 4) for m in moves],
+                     "peak_gib": round(peak, 3),
+                     "launches": launches, "handoffs": hs,
+                     "checkpoint_bytes": rs["checkpoint_bytes"],
+                     "checkpoint_s": rs["checkpoint_seconds"],
+                     "restore_s": (rs["restarts"][0]["restore_seconds"]
+                                   if rs["restarts"] else None)})
+        del out
+    with tempfile.TemporaryDirectory() as d:
+        group = make_shard_group(1, backend="nccl", rank=0,
+                                 init_method=f"file://{d}/rendezvous")
+        try:
+            inj = res.FaultInjector([res.FaultSpec(
+                kind=res.FAULT_COLLECTIVE_TIMEOUT, phase=1,
+                cleared_by="retry")])
+            registry.reset_launches()
+            out, s = timed(lambda: prune(
+                g, tmpl, mesh=group, partition=part1, label_freq=lf,
+                resilience=res.ResilienceConfig(checkpoint_dir=d,
+                                                injector=inj)))
+            spmm = registry.launch_counts()["bitset_spmm"]
+        finally:
+            dist.destroy_process_group()
+    same_prune(out, ref4, "10b (v) spmd retry")
+    rs = out.stats["resilience"]
+    check(out.stats["backend"] == "spmd" and [r for r, _ in rs["ladder"]]
+          == ["retry"] and not rs["restarts"], "10b (v): not one retry on spmd")
+    check(plain_calls() == 0 and (DEVICE != "cuda" or spmm > 0),
+          "10b (v): plain calls or no kernel")
+    log(f"(v) one-rank NCCL spmd, a collective timeout at phase 1 retried in "
+        f"place: {s:.3f} s, ladder {rs['ladder']}, checkpoints "
+        f"{rs['checkpoints']} ({[round(x, 4) for x in rs['checkpoint_seconds']]} s)"
+        f", bitset_spmm {spmm}; == phase 4")
+    rows.append({"run": "(v) spmd retry", "prune_s": round(s, 4),
+                 "launches": {"bitset_spmm": spmm}})
+    return rows
+
+
+def lockstep_wave(part, jobs):
+    """The largest of SHARDED_BATCH_WAVES at which `jobs` NLCC jobs of the
+    P-shard sim fit one lockstep group's budget. The allocator's cache is
+    emptied first, so the free memory the budget reads (here and in the
+    batch that follows) is what the live tensors leave, the same on every
+    run of one tree."""
+    from repro_torch.core.batch import LOCKSTEP_MEMORY_FRACTION, lockstep_job_bytes
+
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+    budget = (torch.cuda.mem_get_info()[0] * LOCKSTEP_MEMORY_FRACTION
+              if DEVICE == "cuda" else 1 << 30)
+    for wave in SHARDED_BATCH_WAVES:
+        if jobs * lockstep_job_bytes(part.P, part.P, part.B, part.n_local,
+                                     wave) <= budget:
+            return wave, budget
+    return 32, budget
+
+
+def phase_sharded_batches(g, parts):
+    """10c, scale 20: `prune_batch` of 4 same-bucket templates on the sim at
+    P = 2, the wave (64 or 32) set by the lockstep group budget, each lane
+    equal to its single P = 2 prune and to the P = 1 batch;
+    `GraphQueryEngine(partition=)` serving 8 queries in count mode against
+    the one-shard engine, both at that wave; the serving CLI with
+    --partition 2. -> a row."""
+    from repro_torch.core.batch import lockstep_job_bytes
+
+    part = parts[2]
+    log(f"== phase 10c: R-MAT scale {SCALE_FULL}, sharded batches on the sim "
+        f"at P={part.P} ({CARD})")
+    lf = g.label_frequency()
+    templates = example_workload(SERVE_QUERIES, seed=1,
+                                 labels_max=int(g.labels.max()))[SHARDED_BATCH]
+    dg, s_stage = timed(lambda: DeviceGraph.from_host(
+        g, DEVICE, order=part.dst_order(g)))
+    wave, budget = lockstep_wave(part, len(templates))
+    job = lockstep_job_bytes(part.P, part.P, part.B, part.n_local, wave)
+    reset_peak()
+    registry.reset_launches()
+    bres, s = timed(lambda: prune_batch(
+        g, templates, partition=part, wave=wave, dg=dg, label_freq=lf,
+        guarantee_precision=SERVE_PRECISION))
+    launches = {k: registry.launch_counts()[k] for k in registry.PRUNE_KERNELS}
+    peak = peak_gib()
+    check(plain_calls() == 0, "10c: plain-version calls in the sharded batch")
+    check(DEVICE != "cuda" or launches["bitset_spmm"] > 0,
+          "10c: bitset_spmm never launched")
+    lock = bres.stats["batched"].get("lockstep", {})
+    one, s_one = timed(lambda: prune_batch(
+        g, templates, wave=wave, dg=dg, label_freq=lf,
+        guarantee_precision=SERVE_PRECISION))
+    t_single = 0.0
+    for i, (t, lane) in enumerate(zip(templates, bres.results)):
+        single, s1 = timed(lambda: prune(
+            g, t, device=DEVICE, partition=part, wave=wave, label_freq=lf,
+            guarantee_precision=SERVE_PRECISION))
+        t_single += s1
+        check(same_lane(lane_arrays(lane), lane_arrays(single)),
+              f"10c lane {i}: != its single P={part.P} prune")
+        check(same_lane(lane_arrays(lane), lane_arrays(one.results[i])),
+              f"10c lane {i}: != the P=1 batch's lane")
+        del single
+    log(f"prune_batch B={len(templates)} at P={part.P}, wave {wave} (one "
+        f"job's frontiers and planes {job / 2**30:.2f} GiB, the group budget "
+        f"{budget / 2**30:.1f} GiB; jobs per group {lock.get('jobs_per_group')}"
+        f"): {s:.3f} s, {batch_counters(bres.stats)}, launches {launches}, "
+        f"peak {peak:.3f} GiB; the P=1 batch {s_one:.3f} s; the single P="
+        f"{part.P} prunes {t_single:.3f} s in all, each at wave {wave}; every "
+        f"lane == its single prune == the P=1 batch")
+    queries = [Template(*q) for q in ENGINE_QUERIES]
+    counts = {}
+    for P, kw in ((part.P, {"partition": part}), (1, {})):
+        if DEVICE == "cuda":
+            torch.cuda.empty_cache()   # the engine's group budget, as above
+        eng, s_eng = timed(lambda: GraphQueryEngine(
+            g, device=DEVICE, max_batch=len(queries), wave=wave, **kw))
+        ids = [eng.submit(q, mode=MODE_COUNT) for q in queries]
+        registry.reset_launches()
+        results, s_drain = timed(eng.drain)
+        check([r.query_id for r in results] == ids
+              and all(r.status == "ok" for r in results),
+              f"10c engine P={P}: a query was dropped or missed")
+        counts[P] = [r.n_embeddings for r in results]
+        log(f"GraphQueryEngine P={P}, wave {wave}: {len(results)} queries in "
+            f"count mode in "
+            f"{s_drain:.3f} s ({len(results) / s_drain:.2f} q/s; the engine "
+            f"built in {s_eng:.2f} s), batches "
+            f"{[(b['B'], round(b['seconds'], 3)) for b in eng.stats['batches']]}"
+            f", waits {[round(r.wait_s, 3) for r in results]} s, counts "
+            f"{counts[P]}, bitset_spmm {registry.launch_counts()['bitset_spmm']}")
+        check(plain_calls() == 0, f"10c engine P={P}: plain-version calls")
+        del eng, results
+    check(counts[part.P] == counts[1], "10c: the sharded engine's counts "
+          "differ from the one-shard engine's")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    args = ["repro_torch.launch.serve", "--graph-queries", "8",
+            "--graph-scale", str(SERVE_CLI_SCALE), "--partition", "2",
+            "--device", DEVICE]
+    proc, s_cli = timed(lambda: subprocess.run(
+        [sys.executable, "-m", *args], capture_output=True, text=True,
+        env=env, timeout=600, cwd=ROOT))
+    log(proc.stdout.strip())
+    check(proc.returncode == 0 and "P=2 shards" in proc.stdout,
+          f"serve --partition 2 failed ({proc.returncode}): "
+          f"{proc.stderr[-2000:]}")
+    log(f"python -m {' '.join(args)} exited 0 in {s_cli:.1f} s")
+    return {"wave": wave, "seconds": round(s, 4), "launches": launches,
+            "peak_gib": round(peak, 3), "job_gib": round(job / 2**30, 3),
+            "jobs_per_group": lock.get("jobs_per_group")}
 
 
 # ------------------------------------------------------------- phase 5: GNN
@@ -2906,10 +3438,22 @@ def run_prune():
     # phase 9: a sharded graph, bitset_spmm as each shard's receive side
     t0 = time.perf_counter()
     phase_sharded_parity(g14)
-    sharded = phase_sharded_full(g, ref4)
-    spmd = phase_spmd_nccl(g, ref4)
-    del g
-    log(f"phase 9: {time.perf_counter() - t0:.1f} s ({CARD})")
+    # phase 10a's CPU side runs in its own process beside 9b-10c
+    worker = start_phase10_worker()
+    try:
+        sharded, parts = phase_sharded_full(g, ref4)
+        spmd, part1 = phase_spmd_nccl(g, ref4)
+        log(f"phase 9: {time.perf_counter() - t0:.1f} s ({CARD})")
+        # phase 10: checkpoint and rebalance, sharded batches, faults
+        t0 = time.perf_counter()
+        rebalanced = phase_checkpoint_rebalance(
+            g, ref4, parts, part1, sharded[1]["prune_s"])
+        sharded_batch = phase_sharded_batches(g, parts)
+        del g, parts, part1
+        phase_resilience_parity(g14, worker)
+    finally:
+        stop_worker(worker)
+    log(f"phase 10: {time.perf_counter() - t0:.1f} s ({CARD})")
     return [{
         "name": name, "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/bitset.cu",
@@ -2921,8 +3465,12 @@ def run_prune():
         "launches_batched_serving": served["launches"][name],
         "batches_served": served["batches"],
         "launches_incremental": inc["launches"][name],
+        "launches_rebalanced_lb1": rebalanced[2]["launches"][name],
         **({"launches_sharded": sharded[0]["launches"],
             "launches_spmd": spmd["launches"],
+            "launches_resilient_restart": rebalanced[0]["launches"][name],
+            "launches_sharded_batch": sharded_batch["launches"][name],
+            "sharded_batch_wave": sharded_batch["wave"],
             "sharded_receive": [
                 {k: r[k] for k in ("P", "wave", "slots", "launches",
                                    "receive_ms", "receive_plain_ms",

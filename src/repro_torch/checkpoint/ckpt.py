@@ -1,0 +1,262 @@
+"""Fault-tolerant checkpointing, the JAX package's `checkpoint/ckpt.py` on
+host numpy arrays.
+
+  - atomic: written to a temporary directory `<dir>/.tmp<step>_*`, then
+    `os.replace`d to `<dir>/step_<k>` (a crashed writer never corrupts the
+    newest checkpoint);
+  - self-describing: a JSON manifest records the tree's keys, each array's
+    global shape and dtype, and the caller's metadata (the pipeline records
+    the backend and the shard count there);
+  - elastic: arrays are saved as global host arrays, so a restore may
+    target another shard count or device (the paper's LB-16 / LB-1);
+  - retention: the newest `keep` checkpoints stay, older ones are deleted;
+  - torn-write safe: the manifest is written and fsynced last, so a
+    directory whose manifest parses is complete by construction;
+    `restore_checkpoint(step=None)` also validates each candidate (manifest
+    against arrays.npz shapes and dtypes) and skips a corrupt or partial
+    directory with a warning, falling back to the newest valid one.
+
+The on-disk layout and the manifest keys are the JAX package's: a tree is
+flattened as `jax.tree_util` flattens it (dict keys sorted, lists and
+tuples in order), its leaves saved as `a0, a1, ...` in that order under
+keys like `'omega'` or `'z'/1/'a'`, so a directory written by either
+package restores in the other. Trees are nested dicts, lists and tuples of
+arrays (numpy arrays or torch tensors, saved from the host).
+"""
+from __future__ import annotations
+
+import json
+import os
+import shutil
+import tempfile
+import warnings
+import zipfile
+from typing import Any, Dict, List, Optional, Tuple
+
+import numpy as np
+
+
+def _flatten(tree, path: Tuple[str, ...] = ()) -> List[Tuple[str, Any]]:
+    """(key, leaf) pairs in the JAX package's leaf order and key spelling."""
+    if isinstance(tree, dict):
+        out = []
+        for k in sorted(tree):
+            out += _flatten(tree[k], path + (repr(k),))
+        return out
+    if isinstance(tree, (list, tuple)):
+        out = []
+        for i, v in enumerate(tree):
+            out += _flatten(v, path + (str(i),))
+        return out
+    return [("/".join(path), tree)]
+
+
+def _treedef(tree) -> str:
+    """The structure as `str(PyTreeDef)` spells it, for the manifest."""
+    if isinstance(tree, dict):
+        inner = ", ".join(f"{k!r}: {_treedef(tree[k])}" for k in sorted(tree))
+        return "{" + inner + "}"
+    if isinstance(tree, tuple):
+        inner = ", ".join(_treedef(v) for v in tree)
+        return "(" + inner + ("," if len(tree) == 1 else "") + ")"
+    if isinstance(tree, list):
+        return "[" + ", ".join(_treedef(v) for v in tree) + "]"
+    return "*"
+
+
+def _unflatten(like, leaves: List[Any]):
+    it = iter(leaves)
+
+    def build(t):
+        if isinstance(t, dict):
+            return {k: build(t[k]) for k in sorted(t)}
+        if isinstance(t, (list, tuple)):
+            return type(t)(build(v) for v in t)
+        return next(it)
+
+    return build(like)
+
+
+def _host(leaf) -> np.ndarray:
+    if hasattr(leaf, "detach"):  # a torch tensor, on any device
+        leaf = leaf.detach().cpu().numpy()
+    return np.asarray(leaf)
+
+
+def save_checkpoint(
+    directory: str,
+    step: int,
+    tree: Any,
+    extra_meta: Optional[Dict] = None,
+    keep: int = 3,
+) -> str:
+    os.makedirs(directory, exist_ok=True)
+    pairs = _flatten(tree)
+    arrays = {f"a{i}": _host(leaf) for i, (_, leaf) in enumerate(pairs)}
+    manifest = {
+        "step": step,
+        "keys": [k for k, _ in pairs],
+        "shapes": [list(arrays[f"a{i}"].shape) for i in range(len(pairs))],
+        "dtypes": [str(arrays[f"a{i}"].dtype) for i in range(len(pairs))],
+        "treedef": f"PyTreeDef({_treedef(tree)})",
+        "meta": extra_meta or {},
+    }
+    final = os.path.join(directory, f"step_{step:012d}")
+    tmp = tempfile.mkdtemp(dir=directory, prefix=f".tmp{step}_")
+    try:
+        np.savez(os.path.join(tmp, "arrays.npz"), **arrays)
+        # manifest last and fsynced: its presence certifies the arrays landed
+        with open(os.path.join(tmp, "manifest.json"), "w") as f:
+            json.dump(manifest, f)
+            f.flush()
+            os.fsync(f.fileno())
+        if os.path.exists(final):
+            shutil.rmtree(final)
+        os.replace(tmp, final)
+    except BaseException:
+        shutil.rmtree(tmp, ignore_errors=True)
+        raise
+    _retain(directory, keep)
+    return final
+
+
+def _retain(directory: str, keep: int):
+    steps = sorted(d for d in os.listdir(directory) if d.startswith("step_"))
+    for d in steps[:-keep] if keep > 0 else []:
+        shutil.rmtree(os.path.join(directory, d), ignore_errors=True)
+
+
+def _all_steps(directory: str) -> List[int]:
+    if not os.path.isdir(directory):
+        return []
+    return sorted(int(d.split("_")[1]) for d in os.listdir(directory)
+                  if d.startswith("step_"))
+
+
+def latest_step(directory: str) -> Optional[int]:
+    steps = _all_steps(directory)
+    return steps[-1] if steps else None
+
+
+# every way a torn or truncated checkpoint can fail to read: unparseable
+# JSON, a truncated or missing npz, manifest keys absent, or shape and dtype
+# records that contradict the arrays
+_CORRUPT_ERRORS = (OSError, ValueError, KeyError, EOFError,
+                   json.JSONDecodeError, zipfile.BadZipFile)
+
+
+def checkpoint_valid(path: str) -> bool:
+    """Deep-validate one checkpoint directory: the manifest parses and every
+    array of arrays.npz reads with the recorded shape and dtype (reading
+    each member walks its compressed payload, so a truncated file fails
+    here rather than in the middle of a restore)."""
+    try:
+        with open(os.path.join(path, "manifest.json")) as f:
+            manifest = json.load(f)
+        keys, shapes, dtypes = (manifest["keys"], manifest["shapes"],
+                                manifest["dtypes"])
+        with np.load(os.path.join(path, "arrays.npz"),
+                     allow_pickle=False) as data:
+            for i in range(len(keys)):
+                arr = data[f"a{i}"]
+                if list(arr.shape) != list(shapes[i]):
+                    return False
+                if str(arr.dtype) != dtypes[i]:
+                    return False
+        return True
+    except _CORRUPT_ERRORS:
+        return False
+
+
+def latest_valid_step(directory: str) -> Optional[int]:
+    """The newest step whose checkpoint passes deep validation; a corrupt or
+    partial directory is skipped with a warning (a torn write costs one
+    checkpoint of progress, never the run)."""
+    for step in reversed(_all_steps(directory)):
+        path = os.path.join(directory, f"step_{step:012d}")
+        if checkpoint_valid(path):
+            return step
+        warnings.warn(
+            f"skipping corrupt/partial checkpoint {path} (failed "
+            "manifest/array validation)", RuntimeWarning, stacklevel=2)
+    return None
+
+
+def restore_checkpoint(
+    directory: str,
+    like_tree: Any,
+    step: Optional[int] = None,
+    device=None,
+) -> Tuple[Any, Dict]:
+    """Restore into the structure of `like_tree` -> (tree, meta with
+    "step"). Leaves come back as host numpy arrays, or as torch tensors on
+    `device` when one is given: the caller re-shards them for its own shard
+    count. Each restored global shape is checked against `like_tree`, so a
+    configuration or topology mismatch fails here with the leaf's name.
+
+    With step=None the newest valid checkpoint is used, skipping corrupt or
+    partial directories with a warning; an explicit step is restored as it
+    is and raises on corruption."""
+    if step is None:
+        step = latest_valid_step(directory)
+        if step is None:
+            raise FileNotFoundError(f"no valid checkpoints under {directory}")
+    path = os.path.join(directory, f"step_{step:012d}")
+    with open(os.path.join(path, "manifest.json")) as f:
+        manifest = json.load(f)
+    data = np.load(os.path.join(path, "arrays.npz"))
+    likes = [leaf for _, leaf in _flatten(like_tree)]
+    keys = manifest["keys"]
+    if len(likes) != len(keys):
+        raise ValueError(f"checkpoint has {len(keys)} leaves, expected "
+                         f"{len(likes)}")
+    shapes, dtypes = manifest.get("shapes"), manifest.get("dtypes")
+    leaves = []
+    for i, like in enumerate(likes):
+        arr = data[f"a{i}"]
+        # manifest against npz: on-disk corruption, whatever the caller asks
+        if shapes is not None and list(arr.shape) != list(shapes[i]):
+            raise ValueError(
+                f"checkpoint leaf {keys[i]!r}: arrays.npz has shape "
+                f"{tuple(arr.shape)} but the manifest recorded "
+                f"{tuple(shapes[i])}: corrupt checkpoint")
+        if dtypes is not None and str(arr.dtype) != dtypes[i]:
+            raise ValueError(
+                f"checkpoint leaf {keys[i]!r}: arrays.npz has dtype "
+                f"{arr.dtype} but the manifest recorded {dtypes[i]}: corrupt "
+                "checkpoint")
+        # checkpoint against the restore target: a configuration mismatch
+        want = getattr(like, "shape", None)
+        if want is not None and tuple(arr.shape) != tuple(want):
+            raise ValueError(
+                f"checkpoint leaf {keys[i]!r} has global shape "
+                f"{tuple(arr.shape)}, expected {tuple(want)}: the restore "
+                "target was built from a different config")
+        leaves.append(arr)
+    if device is not None:
+        import torch
+
+        leaves = [torch.from_numpy(np.ascontiguousarray(a)).to(device)
+                  for a in leaves]
+    return (_unflatten(like_tree, leaves),
+            manifest["meta"] | {"step": manifest["step"]})
+
+
+class CheckpointManager:
+    """Step-cadence manager: `maybe_save` every `interval` steps, keeping
+    the newest `keep`."""
+
+    def __init__(self, directory: str, interval: int = 100, keep: int = 3):
+        self.directory = directory
+        self.interval = interval
+        self.keep = keep
+
+    def maybe_save(self, step: int, tree: Any,
+                   extra_meta: Optional[Dict] = None):
+        if self.interval > 0 and step % self.interval == 0:
+            return save_checkpoint(self.directory, step, tree, extra_meta,
+                                   self.keep)
+        return None
+
+    def restore_latest(self, like_tree: Any, device=None):
+        return restore_checkpoint(self.directory, like_tree, device=device)

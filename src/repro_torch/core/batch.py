@@ -2,8 +2,8 @@
 
 Many analysts hold many search templates against one resident background
 graph. This module stacks B same-bucket templates along a leading lane
-dimension and runs the prune pipeline for all of them in lockstep, on one
-device (the JAX package's P = 1 batch):
+dimension and runs the prune pipeline for all of them in lockstep. On one
+device (`BatchedEngine`, the JAX package's P = 1 batch):
 
   - state: omega bool[B, n, n0p] (templates padded to the widest, n0p
     columns; a padded column starts empty and stays empty) and the arc
@@ -30,6 +30,10 @@ device (the JAX package's P = 1 batch):
   - a deadline cancels a lane at the next phase boundary by zeroing its
     state, which every later sweep and wave leaves as it is.
 
+On a partitioned graph (`ShardedBatchedEngine`, `partition=` on the sim
+prims or `mesh=` on a process group) the lanes stand beside the shard axis
+and run the sharded backends' shard programs; see its docstring.
+
 Each lane's omega, arc mask and match count equal those of `prune` of its
 template alone (tests/test_torch_batch.py). Routes resolve `prune.nlcc`
 under the batched bucket key (`registry.batch_bucket`, for example
@@ -45,16 +49,19 @@ import numpy as np
 import torch
 
 from repro_torch.graph.structs import Graph, DeviceGraph
-from repro_torch.core.state import PruneState, pack_bits, unpack_bits
+from repro_torch.core.state import (PruneState, as_int32_bits, pack_bits,
+                                    unpack_bits)
 from repro_torch.core.lcc import TemplateDev
 from repro_torch.core.template import (Template, NonLocalConstraint,
                                        generate_constraints)
 from repro_torch.core import nlcc as nlcc_mod
 from repro_torch.core import planner as planner_mod
 from repro_torch.core import tds as tds_mod
-from repro_torch.core.engine import (_state_changed, counted_label_bits,
-                                     counts_meet, side_words,
-                                     sweep_vertex_test)
+from repro_torch.core.engine import (_pad_row, _state_changed,
+                                     counted_label_bits, counts_meet,
+                                     lcc_shard_iteration, sharded_nlcc_route,
+                                     sharded_wave_frontier, sharded_wave_keep,
+                                     side_words, sweep_vertex_test)
 from repro_torch.core.pipeline import PruneResult
 from repro_torch.kernels import registry
 
@@ -85,33 +92,56 @@ def _stack_template_consts(tdevs: Sequence[TemplateDev], n0p: int,
     return adj0, req, vhcl, counted
 
 
-class BatchedEngine:
+def _check_batch(graph, templates) -> None:
+    if not templates:
+        raise ValueError("prune_batch needs at least one template")
+    if not isinstance(graph, Graph):
+        raise TypeError("prune_batch needs the host Graph")
+    buckets = {registry.shape_bucket(t.n0) for t in templates}
+    if len(buckets) != 1:
+        raise ValueError(
+            f"templates span shape buckets {sorted(buckets)}; a batch "
+            "must be same-bucket (the serving batcher groups by bucket)")
+    if any(t.n0 < 2 for t in templates):
+        raise ValueError("n0 == 1 templates are LCC-only degenerate "
+                         "cases; run them through prune()")
+
+
+class _LaneBridge:
+    """What both batched engines share: the TDS lane bridge (a lane's
+    global state through the host row join) and the device sync."""
+
+    def tds_lane(self, lane: int, c: NonLocalConstraint,
+                 cstats: Optional[Dict] = None) -> bool:
+        state = self.gather_lane(lane)
+        new = tds_mod.verify_tds_constraint(
+            self.dg, state, c, chunk=self.tds_chunk,
+            max_rows=self.tds_max_rows, stats=cstats,
+            annotate=(c.complete and self.guarantee_precision),
+            dedup=self.work_aggregation)
+        changed = bool(_state_changed(state, new))
+        if changed:
+            self.scatter_lane(lane, new)
+        if cstats is not None:
+            cstats["tds_gather_bridge"] = cstats.get("tds_gather_bridge", 0) + 1
+        return changed
+
+    def sync(self) -> None:
+        if self.dg.device.type == "cuda":
+            torch.cuda.synchronize(self.dg.device)
+
+
+class BatchedEngine(_LaneBridge):
     """Lane-stacked state and programs of B same-bucket templates over one
     `DeviceGraph`."""
 
     def __init__(self, graph: Graph, templates: Sequence[Template], *,
-                 partition=None, mesh=None, wave: int = 1024,
+                 wave: int = 1024,
                  tds_chunk: int = 4096, tds_max_rows: int = 2_000_000,
                  work_aggregation: bool = True,
                  guarantee_precision: bool = True, device=None,
                  dg: Optional[DeviceGraph] = None):
-        if partition is not None or mesh is not None:
-            raise NotImplementedError(
-                "sharded batches (mesh=/partition=) are not ported yet: they "
-                "come with the batched engine's sharded half (slice F2 in "
-                "ROADMAP.md); prune() takes mesh=/partition=")
-        if not templates:
-            raise ValueError("prune_batch needs at least one template")
-        if not isinstance(graph, Graph):
-            raise TypeError("prune_batch needs the host Graph")
-        buckets = {registry.shape_bucket(t.n0) for t in templates}
-        if len(buckets) != 1:
-            raise ValueError(
-                f"templates span shape buckets {sorted(buckets)}; a batch "
-                "must be same-bucket (the serving batcher groups by bucket)")
-        if any(t.n0 < 2 for t in templates):
-            raise ValueError("n0 == 1 templates are LCC-only degenerate "
-                             "cases; run them through prune()")
+        _check_batch(graph, templates)
         if dg is None:
             dg = DeviceGraph.from_host(graph, device)
         elif (dg.n, dg.m) != (graph.n, graph.m):
@@ -320,25 +350,312 @@ class BatchedEngine:
             cstats["nlcc_host_syncs"] = cstats.get("nlcc_host_syncs", 0) + 1
         return changed
 
-    # -- TDS lane bridge ------------------------------------------------------
-    def tds_lane(self, lane: int, c: NonLocalConstraint,
-                 cstats: Optional[Dict] = None) -> bool:
-        state = self.gather_lane(lane)
-        new = tds_mod.verify_tds_constraint(
-            self.dg, state, c, chunk=self.tds_chunk,
-            max_rows=self.tds_max_rows, stats=cstats,
-            annotate=(c.complete and self.guarantee_precision),
-            dedup=self.work_aggregation)
-        changed = bool(_state_changed(state, new))
-        if changed:
-            self.scatter_lane(lane, new)
-        if cstats is not None:
-            cstats["tds_gather_bridge"] = cstats.get("tds_gather_bridge", 0) + 1
-        return changed
+    # -- TDS lane bridge: _LaneBridge ---------------------------------------
+    def agree(self, flags: List[bool]) -> List[bool]:
+        """Host decisions every rank takes alike: one process here."""
+        return flags
 
-    def sync(self) -> None:
+
+# the share of the card's free memory one lockstep group of NLCC jobs may
+# hold (its frontiers, send messages and receive buffers); on the CPU a fixed
+# budget
+LOCKSTEP_MEMORY_FRACTION = 0.25
+LOCKSTEP_CPU_BUDGET = 1 << 30
+
+
+def lockstep_job_bytes(Pl: int, P: int, B: int, n_local: int, wave: int,
+                       packed: bool = True) -> int:
+    """Device bytes one NLCC job adds to a lockstep group of the sharded
+    batch: its frontier and the next hop's and their aggregate, its words in
+    the send buffer and in the received buffer (a plane of Pl*P*B slots
+    each), its copy of its lane's arc flags and its send index (int32,
+    gathered and transposed)."""
+    S = Pl * P * B
+    row = (wave // 32) * 4 if packed else wave
+    return 3 * Pl * (n_local + 1) * row + 2 * S * row + 9 * S
+
+
+class _LaneTemplate:
+    """One lane's template constants at the batch's padded width n0p, in the
+    shape the shard programs read (`TemplateDev`'s fields)."""
+
+    def __init__(self, n0p, adj0_f, req, vhcl, needs_counts):
+        self.n0 = n0p
+        self.adj0_f = adj0_f
+        self.deg_pos = adj0_f.sum(dim=1) > 0.5
+        self.req = req
+        self.vertex_has_counted_label = vhcl
+        self.needs_counts = needs_counts
+
+
+class ShardedBatchedEngine(_LaneBridge):
+    """The batched engine on a partitioned graph (the JAX package's
+    `BatchedEngine` at P > 1): lane-stacked shard arrays beside the shard
+    axis, run by the sharded backends' shard programs (`core/engine.py`)
+    under the `sim` prims (`partition=`) or the `spmd` prims (`mesh=`).
+
+      - state: omega int32[Bq, Pl, n_local+1, W] and edge_active bool[Bq,
+        Pl, P, B], each lane in the sharded backend's layout at the
+        batch's padded width;
+      - LCC: each sweep runs every live lane's shard sweep (one
+        `bitset_segment_or` launch per lane), and one reduction of the
+        lanes' change flags per sweep, read one sweep late as the sharded
+        fixpoint reads its flag (the reference's lagged count);
+      - NLCC: the jobs (lane, walk) of a phase run in lockstep wave rounds,
+        grouped by (walk length, cyclicity); a round's jobs run in groups
+        whose frontiers and message planes fit `group_budget()`, each group
+        one wave of the sharded backends' `sharded_wave_frontier` and
+        `sharded_wave_keep` over its job axis (a hop: one send buffer, one
+        exchange and one `bitset_segment_or` launch over all of the group's
+        words; the survivor counts reduced once). Results do not depend on
+        the grouping;
+      - TDS: per lane on the gathered global state, as the sharded backends'
+        bridge.
+    """
+
+    def __init__(self, graph: Graph, templates: Sequence[Template], *,
+                 partition=None, mesh=None, wave: int = 1024,
+                 tds_chunk: int = 4096, tds_max_rows: int = 2_000_000,
+                 work_aggregation: bool = True,
+                 guarantee_precision: bool = True, device=None,
+                 dg: Optional[DeviceGraph] = None):
+        from repro_torch.core import engine as engine_mod
+
+        _check_batch(graph, templates)
+        if device is None and dg is not None:
+            device = dg.device
+        # the shard arrays, prims, staged graph and arc-slot map of a
+        # sharded backend over this partition
+        self.base = engine_mod.make_backend(
+            graph, templates[0], device=device, mesh=mesh, partition=partition,
+            dg=dg, wave=wave)
+        be = self.base
+        self.dg, self.part, self.sa, self.prims = be.dg, be.part, be.sa, be.prims
+        self.mesh = mesh
+        self.P, self.B, self.n_local = be.P, be.B, be.n_local
+        self.templates = list(templates)
+        self.Bq = len(self.templates)
+        self.wave = wave
+        self.tds_chunk = tds_chunk
+        self.tds_max_rows = tds_max_rows
+        self.work_aggregation = work_aggregation
+        self.guarantee_precision = guarantee_precision
+        self.n0p = max(t.n0 for t in self.templates)
+        dev = self.dg.device
+        adj0, req, vhcl, counted = _stack_template_consts(
+            [TemplateDev(t, dev) for t in self.templates], self.n0p, dev)
+        self.lane_tm = [_LaneTemplate(self.n0p, adj0[i], req[i], vhcl[i],
+                                      i in counted)
+                        for i in range(self.Bq)]
+        self.omega_b: Optional[torch.Tensor] = None  # int32[Bq, Pl, nl+1, W]
+        self.ea_b: Optional[torch.Tensor] = None     # bool[Bq, Pl, P, B]
+        self._routes_taken: set = set()
+        self.name = be.name
+        self.group_stats: Dict = {}
+
+    # -- state --------------------------------------------------------------
+    def init(self, stats: Optional[Dict] = None) -> None:
+        """Each lane's omega from label candidacy planes shared across the
+        batch (one plane per distinct template label, the backend's
+        `init_sharded_state` column by column)."""
+        sa = self.sa
+        planes: Dict[int, torch.Tensor] = {}
+
+        def plane(label: int) -> torch.Tensor:
+            if label not in planes:
+                planes[label] = (sa.labels_local == label) & sa.vertex_valid
+            return planes[label]
+
+        zero = torch.zeros_like(sa.vertex_valid)
+        lanes = []
+        for t in self.templates:
+            cols = [plane(int(t.labels[q])) for q in range(t.n0)]
+            cols += [zero] * (self.n0p - t.n0)
+            lanes.append(_pad_row(pack_bits(torch.stack(cols, dim=-1))))
+        if stats is not None:
+            stats["shared_candidacy_planes"] = {
+                "distinct": len(planes),
+                "lane_columns": int(sum(t.n0 for t in self.templates)),
+            }
+        self.omega_b = torch.stack(lanes)
+        self.ea_b = sa.send_live[None].repeat(self.Bq, 1, 1, 1)
+
+    def gather_lane(self, lane: int) -> PruneState:
+        """One lane's global state in its template's own width."""
+        return self.base.gather_arrays(self.omega_b[lane], self.ea_b[lane],
+                                       self.templates[lane].n0)
+
+    def scatter_lane(self, lane: int, state: PruneState) -> None:
+        om, ea = self.base.scatter_state(state, width=self.n0p)
+        self.omega_b[lane] = om
+        self.ea_b[lane] = ea
+
+    def cancel_lane(self, lane: int) -> None:
+        """Deadline cancellation: a zero lane is left as it is by every
+        sweep and wave."""
+        self.omega_b[lane] = 0
+        self.ea_b[lane] = False
+
+    def agree(self, flags: List[bool]) -> List[bool]:
+        """Host decisions every rank must take alike (deadline
+        cancellations): rank 0's, broadcast over the group under spmd."""
+        if self.mesh is None:
+            return flags
+        import torch.distributed as dist
+
+        t = torch.tensor([bool(f) for f in flags], dtype=torch.uint8,
+                         device=self.dg.device)
+        dist.broadcast(t, src=dist.get_process_group_ranks(self.mesh)[0],
+                       group=self.mesh)
+        return [bool(x) for x in t.cpu().tolist()]
+
+    # -- batched LCC ---------------------------------------------------------
+    def lcc(self, stats: Optional[Dict] = None,
+            lanes: Optional[Sequence[int]] = None) -> None:
+        """LCC to a fixpoint in every lane (or in `lanes`; the others sit at
+        theirs). A lane's change flag is read after its next sweep is
+        queued, and it stops one sweep past its first unchanged one, as the
+        reference's sharded while-loop under its lane vmap; the call counts
+        its longest lane's sweeps."""
+        live = list(range(self.Bq)) if lanes is None else [int(b) for b in lanes]
+        pending, it = None, 0
+        while live and it < LCC_MAX_ITERS:
+            flags = []
+            for b in live:
+                om, ea, ch = lcc_shard_iteration(
+                    self.omega_b[b], self.ea_b[b], self.sa, self.lane_tm[b],
+                    self.prims)
+                self.omega_b[b], self.ea_b[b] = om, ea
+                flags.append(ch)
+            it += 1
+            if pending is not None:
+                # one reduction of every live lane's previous flag
+                go = (self.prims.psum(pending.to(torch.int32))[0] > 0).tolist()
+                keep = [j for j, g in enumerate(go) if g]
+                live = [live[j] for j in keep]
+                flags = [flags[j] for j in keep]
+            pending = torch.stack(flags, dim=1) if flags else None
+        if stats is not None:
+            # lanes at their fixpoint count the sweep past it: at least 2
+            stats["lcc_calls"] = stats.get("lcc_calls", 0) + 1
+            stats["lcc_iterations"] = (stats.get("lcc_iterations", 0)
+                                       + (it if live else max(it, 2)))
+
+    # -- batched NLCC waves ---------------------------------------------------
+    def route_bucket(self):
+        return registry.batch_bucket(
+            self.Bq, registry.shard_bucket(self.P, self.n_local, self.wave))
+
+    def _route(self, L: int) -> str:
+        return sharded_nlcc_route(self.route_bucket(), self.sa.Pl, self.P,
+                                  self.B, self.n_local, self.wave, L,
+                                  self.dg.device.type)
+
+    def _column(self, lane: int, q: int) -> torch.Tensor:
+        """bool[Pl, n_local]: lane's candidacy of template vertex q."""
+        w, b = q // 32, q % 32
+        return ((self.omega_b[lane, :, :self.n_local, w] >> b) & 1).to(torch.bool)
+
+    def job_bytes(self, packed: bool) -> int:
+        return lockstep_job_bytes(self.sa.Pl, self.P, self.B, self.n_local,
+                                  self.wave, packed)
+
+    def group_budget(self) -> int:
+        """Bytes a lockstep group may hold: LOCKSTEP_MEMORY_FRACTION of the
+        card's free memory, LOCKSTEP_CPU_BUDGET on the CPU."""
         if self.dg.device.type == "cuda":
-            torch.cuda.synchronize(self.dg.device)
+            free, _ = torch.cuda.mem_get_info(self.dg.device)
+            return int(free * LOCKSTEP_MEMORY_FRACTION)
+        return LOCKSTEP_CPU_BUDGET
+
+    def _group_size(self, packed: bool) -> int:
+        size = max(self.group_budget() // self.job_bytes(packed), 1)
+        if self.mesh is not None:
+            # free memory differs by rank: the smallest group decides
+            import torch.distributed as dist
+
+            t = torch.tensor([size], dtype=torch.int64, device=self.dg.device)
+            dist.all_reduce(t, op=dist.ReduceOp.MIN, group=self.mesh)
+            size = int(t.item())
+        return size
+
+    def nlcc_phase(self, lane_constraints: Sequence[
+            Tuple[int, NonLocalConstraint, str]],
+            cstats: Optional[Dict] = None) -> torch.Tensor:
+        """One lockstep phase of cycle and path constraints, one (lane,
+        constraint, direction) entry per lane, every walk against the
+        phase-entry omega. Returns which lanes changed, bool[Bq] on the
+        device (the caller's one host read)."""
+        jobs: List[Tuple[int, Tuple[int, ...]]] = []
+        for lane, c, direction in lane_constraints:
+            jobs.extend((lane, w) for w in nlcc_mod.expand_walks(c, direction))
+        lanes = sorted({lane for lane, _ in jobs})
+        before = {b: self.omega_b[b].clone() for b in lanes}
+        # one stacked readback of every job's head column sizes the rounds
+        heads = torch.stack([self._column(lane, w[0]) for lane, w in jobs], 1)
+        head = self.prims.gather(heads).cpu().numpy()          # [P, J, nl]
+        head_global = head.transpose(1, 0, 2).reshape(len(jobs), -1)[
+            :, :self.part.n]
+        groups: Dict[Tuple[int, bool], List[int]] = {}
+        for ji, (_, w) in enumerate(jobs):
+            groups.setdefault((len(w) - 1, w[0] == w[-1]), []).append(ji)
+        dev = self.dg.device
+        keep = torch.zeros((len(jobs), self.sa.Pl, self.n_local + 1),
+                           dtype=torch.int32, device=dev)
+        n_waves = n_tokens = n_padded = 0
+        for (L, is_cyclic), members in groups.items():
+            route = self._route(L)
+            self._routes_taken.add(route)
+            packed = route != registry.ROUTE_UNPACKED
+            batches = [list(nlcc_mod.wave_batches(
+                np.flatnonzero(head_global[ji]), self.wave)) for ji in members]
+            n_rounds = max((len(b) for b in batches), default=0)
+            size = self._group_size(packed)
+            self.group_stats = {"jobs_per_group": size,
+                                "job_bytes": self.job_bytes(packed)}
+            cand = {ji: torch.stack([self._column(jobs[ji][0], q)
+                                     for q in jobs[ji][1]], dim=1)
+                    for ji in members}                     # [Pl, L+1, nl]
+            for r in range(n_rounds):
+                live = [(ji, b[r]) for ji, b in zip(members, batches)
+                        if r < len(b)]
+                n_waves += 1
+                n_tokens += sum(n_real for _, (_, n_real) in live)
+                n_padded += len(members) - len(live)
+                for g0 in range(0, len(live), size):
+                    part = live[g0:g0 + size]
+                    sel = torch.tensor([ji for ji, _ in part], device=dev)
+                    lanes_g = torch.tensor([jobs[ji][0] for ji, _ in part],
+                                           device=dev)
+                    ids = torch.from_numpy(np.stack(
+                        [idsp for _, (idsp, _) in part]).astype(np.int64)).to(dev)
+                    f = sharded_wave_frontier(
+                        torch.stack([cand[ji] for ji, _ in part]), ids,
+                        self.ea_b[lanes_g], self.sa, self.prims, packed)
+                    keep[sel] = sharded_wave_keep(f, ids, keep[sel],
+                                                  self.n_local, is_cyclic,
+                                                  self.prims)
+                    del f
+        # head eliminations (Alg. 5 line 8), each job on its own lane
+        for ji, (lane, w) in enumerate(jobs):
+            wd, b = w[0] // 32, w[0] % 32
+            clear = int(as_int32_bits(torch.tensor(0xFFFFFFFF ^ (1 << b))))
+            word = self.omega_b[lane, ..., wd]
+            self.omega_b[lane, ..., wd] = torch.where(keep[ji] > 0, word,
+                                                      word & clear)
+        changed = torch.zeros((self.sa.Pl, self.Bq), dtype=torch.int32,
+                              device=dev)
+        for b in lanes:
+            changed[:, b] = (self.omega_b[b] != before[b]).flatten(1).any(1)
+        if cstats is not None:
+            cstats["nlcc_waves"] = cstats.get("nlcc_waves", 0) + n_waves
+            cstats["nlcc_tokens"] = cstats.get("nlcc_tokens", 0) + n_tokens
+            cstats["nlcc_lockstep_padded"] = (
+                cstats.get("nlcc_lockstep_padded", 0) + n_padded)
+            cstats["nlcc_constraints"] = (
+                cstats.get("nlcc_constraints", 0) + len(lane_constraints))
+            cstats["nlcc_host_syncs"] = cstats.get("nlcc_host_syncs", 0) + 1
+        return self.prims.psum(changed)[0] > 0
 
 
 def _segment_sum_lanes(values: torch.Tensor, segment_ids: torch.Tensor,
@@ -389,15 +706,24 @@ def prune_batch(
     `device` defaults to `cuda`; `device="cpu"` runs the kernels' plain
     versions. `dg` is the graph already staged on the device
     (`DeviceGraph.from_host(graph)`), which a serving engine builds once.
-    `partition=`/`mesh=` (sharded batches) are not ported yet and raise.
+    `partition=` (a shard count or an `EdgePartition`) runs the batch on the
+    sim prims, `mesh=` (a process group) on the spmd prims, every rank with
+    the same arguments (`ShardedBatchedEngine`), the NLCC jobs of a phase
+    in lockstep groups of as many as `LOCKSTEP_MEMORY_FRACTION` of the free
+    device memory holds.
     `deadlines[i]` is an absolute `clock()` time after which lane i is
     cancelled at the next phase boundary (masked inert, never a batch
-    abort); `clock` defaults to time.monotonic."""
-    eng = BatchedEngine(
-        graph, templates, partition=partition, mesh=mesh, wave=wave,
-        tds_chunk=tds_chunk, tds_max_rows=tds_max_rows,
-        work_aggregation=work_aggregation,
-        guarantee_precision=guarantee_precision, device=device, dg=dg)
+    abort; under `mesh=` rank 0's clock decides); `clock` defaults to
+    time.monotonic."""
+    common = dict(wave=wave, tds_chunk=tds_chunk, tds_max_rows=tds_max_rows,
+                  work_aggregation=work_aggregation,
+                  guarantee_precision=guarantee_precision, device=device,
+                  dg=dg)
+    if partition is not None or mesh is not None:
+        eng = ShardedBatchedEngine(graph, templates, partition=partition,
+                                   mesh=mesh, **common)
+    else:
+        eng = BatchedEngine(graph, templates, **common)
     if label_freq is None:
         label_freq = graph.label_frequency()
     cons = [generate_constraints(t, label_freq=label_freq,
@@ -440,8 +766,10 @@ def prune_batch(
         if deadlines is None:
             return
         now = clock()
-        for i, dl in enumerate(deadlines):
-            if dl is not None and status[i] == STATUS_OK and now > dl:
+        expired = eng.agree([dl is not None and status[i] == STATUS_OK
+                             and now > dl for i, dl in enumerate(deadlines)])
+        for i, gone in enumerate(expired):
+            if gone:
                 status[i] = STATUS_DEADLINE_MISSED
                 eng.cancel_lane(i)
                 stats["deadline_cancelled"] = (
@@ -474,6 +802,8 @@ def prune_batch(
             eng.lcc(stats, lanes=np.flatnonzero(changed))
     eng.sync()
     stats["batched"]["seconds"] = time.perf_counter() - t0
+    if isinstance(eng, ShardedBatchedEngine) and eng.group_stats:
+        stats["batched"]["lockstep"] = dict(eng.group_stats)
     stats["dispatch_routes"] = {
         nlcc_mod.NLCC_ROUTE: ("+".join(sorted(eng._routes_taken))
                               if eng._routes_taken else "none")}

@@ -37,6 +37,12 @@ one program, the next wave's hops queued with the previous wave's survivor
 reduction), packed (a program per hop), unpacked (boolean planes, sent as
 uint8). TDS and the frontier edge-prune pass run on the gathered global
 state, the same on every rank, and each shard takes its part back.
+
+Every backend carries the resilience seam of `core/resilience.py`: with an
+`injector`, `_fire` reports the host dispatch points (LCC, NLCC and TDS
+entry, each sharded wave before it is dispatched) and `instrument_prims`
+wraps the collectives; `snapshot` and `restore_snapshot` copy the state,
+which the programs may write in place, for the ladder's in-place retry.
 """
 from __future__ import annotations
 
@@ -52,7 +58,8 @@ from repro_torch.graph import segment_ops
 from repro_torch.core.state import (PruneState, init_state, pack_bits,
                                     unpack_bits, as_int32_bits)
 from repro_torch.core.lcc import LCC_ROUTE, TemplateDev, lcc_resolved_route
-from repro_torch.core.nlcc import NLCC_ROUTE, nlcc_resolved_route
+from repro_torch.core.nlcc import (NLCC_ROUTE, UNPACKED_PLANE_BYTES,
+                                   nlcc_resolved_route)
 from repro_torch.core.template import Template, NonLocalConstraint
 from repro_torch.kernels import registry
 
@@ -77,11 +84,13 @@ class LocalBackend:
         tds_max_rows: int = 2_000_000,
         work_aggregation: bool = True,
         guarantee_precision: bool = True,
+        injector=None,
     ):
         self.dg = dg
         self.template = template
         self.tdev = TemplateDev(template, dg.device)
         self.wave = wave
+        self.injector = injector
         self.edge_elimination = edge_elimination
         self.collect_stats = collect_stats
         self.nlcc_edge_prune = nlcc_edge_prune
@@ -106,6 +115,23 @@ class LocalBackend:
 
     def final_state(self) -> PruneState:
         return self.state
+
+    # -- resilience seam
+    def snapshot(self) -> PruneState:
+        """The phase-entry state for the ladder's in-place retry: a copy
+        (the phases may write tensors in place, so references alone could
+        hand a retry the faulted state)."""
+        return PruneState(omega=self.state.omega.clone(),
+                          edge_active=self.state.edge_active.clone())
+
+    def restore_snapshot(self, snap: PruneState) -> None:
+        self.state = PruneState(omega=snap.omega.clone(),
+                                edge_active=snap.edge_active.clone())
+
+    def _fire(self, site: str, **ctx) -> None:
+        """A fault-injection seam: report the event to the injector."""
+        if self.injector is not None:
+            self.injector.event(site, **ctx)
 
     # -- reporting
     def record_routes(self, stats: Dict) -> None:
@@ -137,6 +163,7 @@ class LocalBackend:
     def lcc(self, stats: Dict) -> None:
         from repro_torch.core.lcc import lcc_fixpoint, lcc_iteration
 
+        self._fire("lcc")
         if not self.edge_elimination:
             self.state = self._lcc_no_edge_elim(stats)
             return
@@ -180,6 +207,7 @@ class LocalBackend:
              direction: str = "default") -> torch.Tensor:
         from repro_torch.core import nlcc as nlcc_mod
 
+        self._fire("nlcc")
         before = self.state
         self.state = nlcc_mod.verify_constraint(
             self.dg, before, c, wave=self.wave, stats=cstats,
@@ -191,6 +219,7 @@ class LocalBackend:
     def tds(self, c: NonLocalConstraint, cstats: Dict) -> torch.Tensor:
         from repro_torch.core import tds as tds_mod
 
+        self._fire("tds")
         before = self.state
         self.state = tds_mod.verify_tds_constraint(
             self.dg, before, c, chunk=self.tds_chunk,
@@ -532,24 +561,43 @@ def _twin_test(om_bits: torch.Tensor, recv: torch.Tensor,
 def frontier_shard_hop(frontier: torch.Tensor, edge_active: torch.Tensor,
                        sa: ShardArrays, cand_next: torch.Tensor,
                        prims: Prims) -> torch.Tensor:
-    """One NLCC token hop (paper Alg. 6 forward) on packed multi-source
-    words int32[Pl, n_local+1, Wf]; `cand_next` bool[Pl, n_local] is the
-    candidacy of the next walk vertex."""
-    recv = _send(frontier, edge_active & sa.send_live, sa, prims)
-    agg = _aggregate_or(recv, sa)
-    return _pad_row(agg.masked_fill_(~cand_next[..., None], 0))
+    """One NLCC token hop (paper Alg. 6 forward) of J jobs at once: each
+    job's frontier[j] (int32[Pl, n_local+1, S/32] packed multi-source words,
+    or bool[Pl, n_local+1, S] boolean planes, 32x the exchange bytes) goes
+    over its own active arcs edge_active[j] (bool[Pl, P, B]) and is masked
+    by cand_next[j] (bool[Pl, n_local]), the next walk vertex's candidacy.
+    The jobs' words share one send buffer ([slots, J, R]), one exchange and
+    one receive OR (one `bitset_spmm` launch for packed words)."""
+    J, Pl, rows, R = frontier.shape
+    nl = sa.n_local
+    idx = torch.where((edge_active & sa.send_live).reshape(J, -1),
+                      sa.send_flat, sa.sink_flat)
+    if J > 1:
+        idx = idx + (torch.arange(J, device=idx.device, dtype=idx.dtype)
+                     * (Pl * rows))[:, None]
+    msgs = frontier.reshape(J * Pl * rows, R).index_select(0, idx.t().reshape(-1))
+    recv = prims.exchange(msgs.view(Pl, sa.P, sa.B, J * R))
+    del msgs
+    agg = _aggregate_or(recv, sa).view(Pl, nl, J, R)
+    del recv
+    agg.masked_fill_(~cand_next.permute(1, 2, 0)[..., None], 0)
+    out = frontier.new_zeros((J, Pl, rows, R))
+    out[:, :, :nl] = agg.permute(2, 0, 1, 3)
+    return out
 
 
-def frontier_shard_hop_unpacked(frontier: torch.Tensor, edge_active: torch.Tensor,
-                                sa: ShardArrays, cand_next: torch.Tensor,
-                                prims: Prims) -> torch.Tensor:
-    """The boolean-plane hop (bool[Pl, n_local+1, S]): the same sweep with
-    32x the exchange bytes, sent as uint8."""
-    S = frontier.shape[-1]
-    msgs = _rows(frontier, _send_index(edge_active & sa.send_live, sa))
-    recv = prims.exchange(msgs.view(sa.Pl, sa.P, sa.B, S).to(torch.uint8))
-    agg = _aggregate_or(recv.to(torch.bool), sa)
-    return _pad_row(agg & cand_next[..., None])
+def sharded_wave_frontier(cand: torch.Tensor, source_ids: torch.Tensor,
+                          edge_active: torch.Tensor, sa: ShardArrays,
+                          prims: Prims, packed: bool) -> torch.Tensor:
+    """Seed and L hops of one wave of J jobs: cand bool[J, Pl, L+1,
+    n_local] (each job's walk candidacy), source_ids int64[J, S] and
+    edge_active bool[J, Pl, P, B] -> the hop-L frontiers [J, Pl,
+    n_local+1, R] (packed words, or boolean planes)."""
+    f = _seed_frontier(cand[:, :, 0], source_ids, sa.n_local,
+                       prims.axis_index(), packed)
+    for r in range(1, cand.shape[2]):
+        f = frontier_shard_hop(f, edge_active, sa, cand[:, :, r], prims)
+    return f
 
 
 def init_sharded_state(part: EdgePartition, template: Template,
@@ -567,86 +615,92 @@ def init_sharded_state(part: EdgePartition, template: Template,
 # ---------------------------------------------------------------------------
 def _owner_local(source_ids: torch.Tensor, n_local: int, p: torch.Tensor
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Global wave-source ids int64[S] -> (local rows int64[Pl, S], valid
-    bool[S]): sources a shard does not own, and pads (-1), land on its
-    padding-sink row n_local."""
+    """Global wave-source ids int64[J, S] -> (local rows int64[J, Pl, S],
+    valid bool[J, S]): sources a shard does not own, and pads (-1), land on
+    its padding-sink row n_local."""
     valid = source_ids >= 0
     owner = torch.where(valid, torch.div(source_ids, n_local, rounding_mode="floor"), -1)
-    local = torch.where(owner[None, :] == p[:, None],
-                        torch.remainder(source_ids, n_local)[None, :], n_local)
+    local = torch.where(owner[:, None, :] == p[None, :, None],
+                        torch.remainder(source_ids, n_local)[:, None, :], n_local)
     return local, valid
 
 
 def _seed_frontier(cand0: torch.Tensor, source_ids: torch.Tensor, n_local: int,
                    p: torch.Tensor, packed: bool) -> torch.Tensor:
-    """F_0: one token per wave source, seeded at candidate sources on their
-    owner shard: packed words int32[Pl, n_local+1, S/32] or boolean planes
-    bool[Pl, n_local+1, S]."""
-    Pl, S = cand0.shape[0], source_ids.shape[0]
+    """F_0 of J jobs (cand0 bool[J, Pl, n_local], source_ids int64[J, S]):
+    one token per wave source, seeded at candidate sources on their owner
+    shard: packed words int32[J, Pl, n_local+1, S/32] or boolean planes
+    bool[J, Pl, n_local+1, S]."""
+    J, Pl, S = cand0.shape[0], cand0.shape[1], source_ids.shape[1]
     dev = cand0.device
     local, valid = _owner_local(source_ids, n_local, p)
-    cand0x = torch.cat([cand0, cand0.new_zeros((Pl, 1))], dim=1)
-    seed = valid[None, :] & torch.gather(cand0x, 1, local)        # [Pl, S]
-    row = torch.arange(Pl, device=dev)[:, None] * (n_local + 1) + local
-    s = torch.arange(S, device=dev).expand(Pl, S)
+    cand0x = torch.cat([cand0, cand0.new_zeros((J, Pl, 1))], dim=2)
+    seed = valid[:, None, :] & torch.gather(cand0x, 2, local)     # [J, Pl, S]
+    row = (torch.arange(J * Pl, device=dev).view(J, Pl, 1) * (n_local + 1)
+           + local)
+    s = torch.arange(S, device=dev).expand(J, Pl, S)
+    rows = J * Pl * (n_local + 1)
     if not packed:
-        f = torch.zeros((Pl * (n_local + 1), S), dtype=torch.bool, device=dev)
+        f = torch.zeros((rows, S), dtype=torch.bool, device=dev)
         f[row[seed], s[seed]] = True
-        return f.view(Pl, n_local + 1, S)
+        return f.view(J, Pl, n_local + 1, S)
     Wf = S // 32
-    f = torch.zeros(Pl * (n_local + 1) * Wf, dtype=torch.int32, device=dev)
+    f = torch.zeros(rows * Wf, dtype=torch.int32, device=dev)
     bit = as_int32_bits(torch.ones(S, dtype=torch.int64, device=dev)
                         << (torch.arange(S, device=dev) % 32))
     # sources are distinct vertices: each (row, word) takes at most one bit
-    f[(row * Wf + s // 32)[seed]] = bit.expand(Pl, S)[seed]
-    return f.view(Pl, n_local + 1, Wf)
+    f[(row * Wf + s // 32)[seed]] = bit.expand(J, Pl, S)[seed]
+    return f.view(J, Pl, n_local + 1, Wf)
 
 
 def _source_bits(f: torch.Tensor, local: torch.Tensor) -> torch.Tensor:
-    """int32[Pl, S]: source s's bit in row local[:, s] of a hop-L frontier
-    (packed words or boolean planes); the padding-sink row reads 0."""
-    Pl, S = local.shape
-    p = torch.arange(Pl, device=f.device)[:, None]
+    """int32[J, Pl, S]: source s's bit in row local[j, :, s] of job j's
+    hop-L frontier (packed words or boolean planes); the padding-sink row
+    reads 0."""
+    J, Pl, S = local.shape
+    j = torch.arange(J, device=f.device)[:, None, None]
+    p = torch.arange(Pl, device=f.device)[None, :, None]
     s = torch.arange(S, device=f.device)
     if f.dtype == torch.bool:
-        return f[p, local, s].to(torch.int32)
-    return (f[p, local, s // 32] >> (s % 32)) & 1
+        return f[j, p, local, s].to(torch.int32)
+    return (f[j, p, local, s // 32] >> (s % 32)) & 1
 
 
 def _column_counts(f: torch.Tensor, S: int) -> torch.Tensor:
-    """int32[Pl, S]: per source s, the real rows of a hop-L frontier that
-    hold its bit."""
-    body = f[:, :-1]
+    """int32[J, Pl, S]: per job and source s, the real rows of a hop-L
+    frontier that hold its bit."""
+    body = f[:, :, :-1]
     if body.dtype == torch.bool:
-        return body.sum(dim=1, dtype=torch.int32)
-    per_bit = [((body >> b) & 1).sum(dim=1, dtype=torch.int32)
-               for b in range(32)]                           # each [Pl, Wf]
-    return torch.stack(per_bit, dim=-1).reshape(f.shape[0], -1)[:, :S]
+        return body.sum(dim=2, dtype=torch.int32)
+    per_bit = [((body >> b) & 1).sum(dim=2, dtype=torch.int32)
+               for b in range(32)]                           # each [J, Pl, Wf]
+    return torch.stack(per_bit, dim=-1).reshape(f.shape[0], f.shape[1], -1)[..., :S]
 
 
-def _sharded_wave_survivors(f: torch.Tensor, source_ids: torch.Tensor,
-                            n_local: int, is_cyclic: bool, prims: Prims
-                            ) -> torch.Tensor:
-    """CC: the token returned to its source. PC: the paper's `ack`, the
-    token reached a vertex other than its source. Per-shard partials are
-    psum-combined, so the decision is the same on every shard:
-    bool[Pl, S]."""
+def sharded_wave_keep(f: torch.Tensor, source_ids: torch.Tensor,
+                      keep: torch.Tensor, n_local: int, is_cyclic: bool,
+                      prims: Prims) -> torch.Tensor:
+    """The survivor decisions of a finished wave of J jobs (hop-L frontiers
+    f [J, Pl, n_local+1, R], source_ids int64[J, S]), ORed into their keep
+    columns keep int32[J, Pl, n_local+1] in place -> keep. CC: the token
+    returned to its source. PC: the paper's `ack`, the token reached a
+    vertex other than its source. The per-shard partials of every job are
+    psum-combined in one reduction, so the decision is the same on every
+    shard; pads and sources owned elsewhere hit the padding-sink row (amax
+    cannot unset a bit)."""
     local, valid = _owner_local(source_ids, n_local, prims.axis_index())
-    self_tot = prims.psum(_source_bits(f, local))
+    parts = [_source_bits(f, local)]
+    if not is_cyclic:
+        parts.append(_column_counts(f, source_ids.shape[1]))
+    tot = prims.psum(torch.stack(parts).permute(2, 0, 1, 3))  # [Pl, k, J, S]
+    self_tot = tot[:, 0].transpose(0, 1)                       # [J, Pl, S]
     if is_cyclic:
-        return (self_tot > 0) & valid
-    cnt_tot = prims.psum(_column_counts(f, source_ids.shape[0]))
-    return (cnt_tot > 0) & (cnt_tot > self_tot) & valid
-
-
-def _scatter_keep(keep: torch.Tensor, survived: torch.Tensor,
-                  source_ids: torch.Tensor, n_local: int, p: torch.Tensor
-                  ) -> torch.Tensor:
-    """OR the survivor bits into each shard's keep column int32[Pl,
-    n_local+1]; pads and sources owned elsewhere hit the padding-sink row
-    (amax cannot unset a bit)."""
-    local, _ = _owner_local(source_ids, n_local, p)
-    return keep.scatter_reduce_(1, local, survived.to(torch.int32), "amax",
+        survived = self_tot > 0
+    else:
+        cnt_tot = tot[:, 1].transpose(0, 1)
+        survived = (cnt_tot > 0) & (cnt_tot > self_tot)
+    survived &= valid[:, None, :]
+    return keep.scatter_reduce_(2, local, survived.to(torch.int32), "amax",
                                 include_self=True)
 
 
@@ -674,6 +728,30 @@ def sharded_fused_eligible(n_local: int, Pn: int, B: int, wave: int, L: int) -> 
     return sharded_fused_resident_bytes(n_local, Pn, B, wave, L) <= SHARDED_FUSED_BUDGET
 
 
+def sharded_nlcc_route(bucket, Pl: int, Pn: int, B: int, n_local: int,
+                       wave: int, L: int, backend: str) -> str:
+    """The NLCC route of a sharded wave of L hops, for the single sharded
+    prune (`bucket` its shard bucket) and the sharded batch (its batch
+    bucket) alike: the policy's route under the bucket, fused by default
+    where the reference's gate admits it, else packed; a fused choice the
+    gate refuses runs packed. On the card a policy's unpacked choice runs
+    only where one job's boolean message plane (Pl*P*B slots x wave) fits
+    `nlcc.UNPACKED_PLANE_BYTES`; past it the packed route runs."""
+    if wave % 32 != 0:
+        return registry.ROUTE_UNPACKED
+    eligible = sharded_fused_eligible(n_local, Pn, B, wave, L)
+    route = registry.resolve_route(
+        NLCC_ROUTE, bucket,
+        default=registry.ROUTE_FUSED if eligible else registry.ROUTE_PACKED,
+        backend=backend, allowed=registry.NLCC_ROUTES)
+    if route == registry.ROUTE_FUSED and not eligible:
+        route = registry.ROUTE_PACKED
+    if (route == registry.ROUTE_UNPACKED and backend == "cuda"
+            and Pl * Pn * B * wave > UNPACKED_PLANE_BYTES):
+        route = registry.ROUTE_PACKED
+    return route
+
+
 # ---------------------------------------------------------------------------
 # Sharded backends
 # ---------------------------------------------------------------------------
@@ -691,7 +769,8 @@ class _ShardedBackend:
                  tds_max_rows: int = 2_000_000, work_aggregation: bool = True,
                  guarantee_precision: bool = True,
                  edge_elimination: bool = True,
-                 arc_order: Optional[np.ndarray] = None):
+                 arc_order: Optional[np.ndarray] = None,
+                 injector=None):
         if not edge_elimination:
             raise ValueError(
                 "edge_elimination=False (the Fig-6a ablation) is a "
@@ -716,6 +795,11 @@ class _ShardedBackend:
         self.tds_max_rows = tds_max_rows
         self.work_aggregation = work_aggregation
         self.guarantee_precision = guarantee_precision
+        self.injector = injector
+        if injector is not None:
+            from repro_torch.core.resilience import instrument_prims
+
+            prims = instrument_prims(prims, injector)
         self.prims = prims
         self.sa = ShardArrays.build(part, shards, dg.device)
         # slot of each of the DeviceGraph's dst-sorted arcs in the flat
@@ -740,19 +824,29 @@ class _ShardedBackend:
         """The global PruneState (dst-sorted DeviceGraph arc order) of the
         sharded arrays, on every rank: the bridge TDS, the edge-prune pass
         and the final result use."""
-        om = self.prims.gather(self.omega_all)[:, :self.n_local]
+        return self.gather_arrays(self.omega_all, self.ea_all, self.tdev.n0)
+
+    def gather_arrays(self, omega_all: torch.Tensor, ea_all: torch.Tensor,
+                      n0: int) -> PruneState:
+        """`gather_state` of any shard arrays of this layout (the batched
+        engine's lanes), omega cut to n0 columns."""
+        om = self.prims.gather(omega_all)[:, :self.n_local]
         omega = unpack_bits(om.reshape(self.P * self.n_local, -1),
-                            self.tdev.n0)[:self.part.n]
-        ea = self.prims.gather(self.ea_all).reshape(-1)[self._arc_slot]
+                            n0)[:self.part.n]
+        ea = self.prims.gather(ea_all).reshape(-1)[self._arc_slot]
         return PruneState(omega=omega, edge_active=ea)
 
-    def scatter_state(self, state: PruneState) -> Tuple[torch.Tensor, torch.Tensor]:
+    def scatter_state(self, state: PruneState, width: Optional[int] = None
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
         """The inverse of gather_state: the shards this process holds of a
-        global PruneState."""
+        global PruneState, omega padded to `width` columns (the template's
+        n0 unless given)."""
         n, P, nl = self.part.n, self.P, self.n_local
         dev = self.dg.device
-        bits = torch.zeros((P * nl, self.tdev.n0), dtype=torch.bool, device=dev)
-        bits[:n] = state.omega.to(dev)
+        n0 = state.omega.shape[1]
+        bits = torch.zeros((P * nl, width or self.tdev.n0), dtype=torch.bool,
+                           device=dev)
+        bits[:n, :n0] = state.omega.to(dev)
         omega = _pad_row(pack_bits(bits).view(P, nl, -1))
         ea = torch.zeros(P * P * self.B, dtype=torch.bool, device=dev)
         ea[self._arc_slot.long()] = state.edge_active.to(dev)
@@ -762,6 +856,21 @@ class _ShardedBackend:
 
     def final_state(self) -> PruneState:
         return self.gather_state()
+
+    # -- resilience seam ----------------------------------------------------
+    def snapshot(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The phase-entry shard arrays for the ladder's in-place retry, as
+        copies (see `LocalBackend.snapshot`)."""
+        return self.omega_all.clone(), self.ea_all.clone()
+
+    def restore_snapshot(self, snap) -> None:
+        self.omega_all, self.ea_all = snap[0].clone(), snap[1].clone()
+
+    def _fire(self, site: str, **ctx) -> None:
+        """A fault-injection seam between device dispatches, where a lost
+        rank would surface."""
+        if self.injector is not None:
+            self.injector.event(site, **ctx)
 
     # -- reporting ----------------------------------------------------------
     def record_routes(self, stats: Dict) -> None:
@@ -814,6 +923,7 @@ class _ShardedBackend:
 
     # -- LCC ----------------------------------------------------------------
     def lcc(self, stats: Dict) -> None:
+        self._fire("lcc")
         self.omega_all, self.ea_all, it = lcc_shard_fixpoint(
             self.omega_all, self.ea_all, self.sa, self.tdev, self.prims)
         if stats is not None:
@@ -822,27 +932,10 @@ class _ShardedBackend:
 
     # -- NLCC cycle/path ----------------------------------------------------
     def _nlcc_route(self, length: int = 3) -> str:
-        """The policy's route under the shard bucket, fused by default where
-        the reference's gate admits it, else packed. On the card a policy's
-        unpacked choice runs only where one hop's boolean message plane fits
-        `nlcc.UNPACKED_PLANE_BYTES`; past it the packed route runs."""
-        from repro_torch.core import nlcc as nlcc_mod
-
-        if self.wave % 32 != 0:
-            return registry.ROUTE_UNPACKED
-        eligible = sharded_fused_eligible(
-            self.n_local, self.P, self.B, self.wave, length)
-        route = registry.resolve_route(
-            NLCC_ROUTE, registry.shard_bucket(self.P, self.n_local, self.wave),
-            default=registry.ROUTE_FUSED if eligible else registry.ROUTE_PACKED,
-            backend=self.dg.device.type, allowed=registry.NLCC_ROUTES)
-        if route == registry.ROUTE_FUSED and not eligible:
-            route = registry.ROUTE_PACKED
-        if (route == registry.ROUTE_UNPACKED and self.dg.device.type == "cuda"
-                and self.sa.Pl * self.P * self.B * self.wave
-                > nlcc_mod.UNPACKED_PLANE_BYTES):
-            route = registry.ROUTE_PACKED
-        return route
+        return sharded_nlcc_route(
+            registry.shard_bucket(self.P, self.n_local, self.wave),
+            self.sa.Pl, self.P, self.B, self.n_local, self.wave, length,
+            self.dg.device.type)
 
     def _omega_column(self, q: int) -> torch.Tensor:
         """bool[Pl, n_local] candidacy of template vertex q."""
@@ -856,6 +949,7 @@ class _ShardedBackend:
              direction: str = "default") -> torch.Tensor:
         from repro_torch.core import nlcc as nlcc_mod
 
+        self._fire("nlcc")
         # taken before the edge-prune bridge: its eliminations count toward
         # the change flag that triggers the LCC re-run
         omega_before, ea_before = self.omega_all, self.ea_all
@@ -894,6 +988,9 @@ class _ShardedBackend:
             # queued after the next wave's hops; flushed at the walk's end
             pending = None
             for idsp, n_real in nlcc_mod.wave_batches(sources, self.wave):
+                # wave k fires before it is dispatched, numbered across the
+                # constraint's walks
+                self._fire("wave", wave=n_waves)
                 ids_dev = torch.from_numpy(idsp.astype(np.int64)).to(dev)
                 if route == registry.ROUTE_FUSED and pending is not None:
                     keep_cols[wi], f = self._wave_overlapped(
@@ -935,25 +1032,19 @@ class _ShardedBackend:
     # -- wave stages ----------------------------------------------------------
     def _wave_frontier(self, route: str, L: int, cand: torch.Tensor,
                        ids: torch.Tensor) -> torch.Tensor:
-        """Seed and L hops of one wave -> the hop-L frontier (packed words,
-        or boolean planes on the unpacked route). The fused route runs them
-        as one program, the packed and unpacked routes a program per hop:
-        the same hops."""
-        packed = route != registry.ROUTE_UNPACKED
-        hop = frontier_shard_hop if packed else frontier_shard_hop_unpacked
-        f = _seed_frontier(cand[:, 0], ids, self.n_local,
-                           self.prims.axis_index(), packed)
-        for r in range(1, L + 1):
-            f = hop(f, self.ea_all, self.sa, cand[:, r], self.prims)
-        return f
+        """Seed and L hops of one wave -> the hop-L frontier [1, Pl,
+        n_local+1, R] (packed words, or boolean planes on the unpacked
+        route). The fused route runs them as one program, the packed and
+        unpacked routes a program per hop: the same hops."""
+        return sharded_wave_frontier(
+            cand[None], ids[None], self.ea_all[None], self.sa, self.prims,
+            packed=route != registry.ROUTE_UNPACKED)
 
     def _wave_finish(self, is_cyclic: bool, f: torch.Tensor,
                      keep: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
         """A finished wave's survivor decision and keep-column scatter."""
-        survived = _sharded_wave_survivors(f, ids, self.n_local, is_cyclic,
-                                           self.prims)
-        return _scatter_keep(keep, survived, ids, self.n_local,
-                             self.prims.axis_index())
+        return sharded_wave_keep(f, ids[None], keep[None], self.n_local,
+                                 is_cyclic, self.prims)[0]
 
     def _wave_overlapped(self, L, is_cyclic, cand, keep, f_prev, ids_prev,
                          ids_cur):
@@ -975,6 +1066,7 @@ class _ShardedBackend:
     def tds(self, c: NonLocalConstraint, cstats: Dict) -> bool:
         from repro_torch.core import tds as tds_mod
 
+        self._fire("tds")
         state = self.gather_state()
         new = tds_mod.verify_tds_constraint(
             self.dg, state, c, chunk=self.tds_chunk,
@@ -1049,7 +1141,7 @@ def _group_device(group, device):
 
 
 def make_backend(graph, template: Template, *, device=None, mesh=None,
-                 partition=None, **kw):
+                 partition=None, dg: Optional[DeviceGraph] = None, **kw):
     """Build the execution backend `prune` drives.
 
     mesh=None, partition=None   -> local (one device; a `DeviceGraph` keeps
@@ -1057,12 +1149,16 @@ def make_backend(graph, template: Template, *, device=None, mesh=None,
     partition=EdgePartition|int -> sim (every shard in this process)
     mesh=ProcessGroup           -> spmd (a shard per rank; partition= must
                                    have as many shards as the group ranks)
+
+    A sharded backend takes `dg`, the host graph already staged
+    (`DeviceGraph.from_host(graph)`), instead of staging it again; `injector`
+    (a `resilience.FaultInjector`) arms the fault seams.
     """
     if mesh is None and partition is None:
-        if isinstance(graph, Graph):
-            dg = DeviceGraph.from_host(graph, device)
-        else:
+        if not isinstance(graph, Graph):
             dg = graph
+        elif dg is None:
+            dg = DeviceGraph.from_host(graph, device)
         return LocalBackend(dg, template, **kw)
 
     if not isinstance(graph, Graph):
@@ -1086,7 +1182,13 @@ def make_backend(graph, template: Template, *, device=None, mesh=None,
     # one dst-sort serves the DeviceGraph and the backend's arc-slot map
     # (the partition's own, when it was built from this graph)
     order = partition.dst_order(graph)
-    dg = DeviceGraph.from_host(graph, device, order=order)
+    if dg is None:
+        dg = DeviceGraph.from_host(graph, device, order=order)
+    elif (dg.n, dg.m) != (graph.n, graph.m) or (
+            device is not None
+            and resolve_device(device).type != dg.device.type):
+        raise ValueError(f"dg (n={dg.n}, m={dg.m}, {dg.device}) is not the "
+                         f"graph (n={graph.n}, m={graph.m}) on {device}")
     kw["arc_order"] = order
     if mesh is None:
         return SimBackend(graph, dg, template, partition, **kw)

@@ -5,7 +5,10 @@ the device graph in place of (src, dst, n, blocked). A CUDA tensor goes to
 the hand-written kernel (`csrc/bitset.cu`, `csrc/segment_agg.cu`,
 `csrc/flash_attention_sm90.cu` and `csrc/flash_attention.cu`,
 `csrc/embedding_bag.cu`), a CPU tensor to its plain PyTorch version
-(`ref.py`); see `registry.py`.
+(`ref.py`); see `registry.py`. Each wrapper reports its kernel's name and
+mode to the registry's dispatch hook before it runs (`registry.use_kernel`),
+and runs the plain version on the card only under the degradation ladder's
+`registry.mode_override(MODE_REF)`.
 
 The bitset kernels take any packed width W and any graph that fits the
 card's memory: they keep no frontier in shared memory, so the TPU's VMEM
@@ -98,7 +101,7 @@ def bitset_or_aggregate(
     edge_active: torch.Tensor,   # bool[m]
 ) -> torch.Tensor:
     """OR-aggregate packed words along active arcs -> int32[n, W]."""
-    if registry.uses_kernel(vals):
+    if registry.use_kernel("bitset_spmm", vals):
         return _bitset_spmm_cuda(vals, dg, edge_active)
     return _ref.bitset_spmm_ref(vals, dg.src, dg.dst, dg.n, edge_active)
 
@@ -168,7 +171,7 @@ def bitset_segment_or(
     vals[src[k]]. The `bitset_spmm` kernel with the source rows apart from
     the out rows (it reads `vals` only through `src`): the receive side of
     the sharded backends, which OR received buffers into their vertices."""
-    if registry.uses_kernel(vals):
+    if registry.use_kernel("bitset_spmm", vals):
         return _bitset_segment_or_cuda(vals, src, dst, dst_ptr, n_out, active)
     return _ref.bitset_segment_or_ref(vals, src, dst, n_out, active)
 
@@ -233,7 +236,7 @@ def bitset_wave(
     NLCC waves pass 0 / -1)."""
     if cand.shape[0] == 0:
         return vals
-    if registry.uses_kernel(vals):
+    if registry.use_kernel("bitset_wave", vals):
         return _bitset_wave_cuda(vals, dg, edge_active, cand)
     return _ref.bitset_wave_ref(vals, dg.src, dg.dst, dg.n, edge_active, cand)
 
@@ -276,7 +279,7 @@ def segment_agg(
     if mask.dtype != torch.bool or mask.shape != feats.shape[:2]:
         raise ValueError(f"mask must be bool{list(feats.shape[:2])}, got "
                          f"{mask.dtype}{list(mask.shape)}")
-    if registry.uses_kernel(feats):
+    if registry.use_kernel("segment_agg", feats):
         return _segment_agg_cuda(feats, mask)
     return _ref.segment_agg_ref(feats, mask)
 
@@ -413,7 +416,7 @@ def attention(
                          f"{q.dtype}, {k.dtype}, {v.dtype}")
     if window is not None and window < 1:
         raise ValueError(f"window must be None or >= 1, got {window}")
-    if registry.uses_kernel(q):
+    if registry.use_kernel("flash_attention", q):
         return _attention_cuda(q, k, v, causal, window)
     return _ref.attention_plain(q, k, v, causal=causal, window=window)
 
@@ -464,6 +467,6 @@ def embedding_bag(
     if weights.dtype != torch.float32 or weights.shape != ids.shape:
         raise ValueError(f"weights must be f32{list(ids.shape)}, got "
                          f"{weights.dtype}{list(weights.shape)}")
-    if registry.uses_kernel(table):
+    if registry.use_kernel("embedding_bag", table):
         return _embedding_bag_cuda(table, ids, weights, mode)
     return _ref.embedding_bag_ref(table, ids, weights, mode=mode)

@@ -2,8 +2,12 @@
 
 A wrapper in `ops.py` runs its CUDA kernel for a tensor on a CUDA device and
 its plain PyTorch version (`ref.py`) for a tensor on the CPU, and raises for
-any other device. The choice follows the tensor's device only: there is no
-fallback from a kernel to its plain version.
+any other device. The choice follows the tensor's device only, with one
+exception that is not a fallback: the degradation ladder's ref rung
+(`core/resilience.py`), reached only after an injected kernel fault has
+spent its retries, runs the plain versions on the card under
+`mode_override(MODE_REF)`. Those calls are counted apart from kernel
+launches (`plain_counts`), so a run shows whether it took that rung.
 
 Each kernel has a plain-integer launch count that its wrapper raises by one
 for every kernel launch, and nowhere else, so a run can show that it went
@@ -34,6 +38,7 @@ send a CUDA tensor to a plain version.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -81,6 +86,79 @@ def uses_kernel(t: torch.Tensor) -> bool:
     raise ValueError(f"no kernel or plain version for device {t.device}")
 
 
+# ------------------------------------------------------ resilience seam
+# MODE_KERNEL runs a CUDA tensor's kernel; MODE_REF the plain version
+MODE_KERNEL = "kernel"
+MODE_REF = "ref"
+MODES = (MODE_KERNEL, MODE_REF)
+# `mode_override` is the ladder's ref rung: every wrapper call inside the
+# context runs the plain version, on the card too
+_MODE_OVERRIDE: Optional[str] = None
+# `set_dispatch_hook` installs a callable invoked as hook(name, mode) by each
+# wrapper before it runs; it may raise (the fault-injection seam). One hook
+# at a time
+_DISPATCH_HOOK: Optional[Callable[[str, str], None]] = None
+# plain-version calls on CUDA tensors (the ref rung), by kernel
+_plain_calls: Dict[str, int] = {name: 0 for name in KERNELS}
+
+
+@contextlib.contextmanager
+def mode_override(mode: str):
+    if mode not in MODES:
+        raise ValueError(f"unknown mode {mode!r}; expected one of {MODES}")
+    global _MODE_OVERRIDE
+    prev = _MODE_OVERRIDE
+    _MODE_OVERRIDE = mode
+    try:
+        yield
+    finally:
+        _MODE_OVERRIDE = prev
+
+
+def set_dispatch_hook(hook: Optional[Callable[[str, str], None]]) -> None:
+    global _DISPATCH_HOOK
+    _DISPATCH_HOOK = hook
+
+
+def get_dispatch_hook() -> Optional[Callable[[str, str], None]]:
+    return _DISPATCH_HOOK
+
+
+@contextlib.contextmanager
+def dispatch_hook(hook: Callable[[str, str], None]):
+    prev = _DISPATCH_HOOK
+    set_dispatch_hook(hook)
+    try:
+        yield
+    finally:
+        set_dispatch_hook(prev)
+
+
+def resolve_mode(t: torch.Tensor) -> str:
+    """MODE_KERNEL for a CUDA tensor, MODE_REF for a CPU tensor, MODE_REF
+    for either under `mode_override(MODE_REF)`."""
+    kernel = uses_kernel(t)
+    return MODE_KERNEL if kernel and _MODE_OVERRIDE != MODE_REF else MODE_REF
+
+
+def use_kernel(name: str, t: torch.Tensor) -> bool:
+    """The wrappers' routing: resolve the mode for `t`, report it to the
+    dispatch hook (which may raise), count a plain-version call on a CUDA
+    tensor, and return True to launch kernel `name`."""
+    mode = resolve_mode(t)
+    if _DISPATCH_HOOK is not None:
+        _DISPATCH_HOOK(name, mode)
+    if mode == MODE_REF and t.is_cuda:
+        _plain_calls[name] += 1
+    return mode == MODE_KERNEL
+
+
+def plain_counts() -> Dict[str, int]:
+    """Plain-version calls on CUDA tensors (the ref rung) since the last
+    `reset_launches`, by kernel."""
+    return dict(_plain_calls)
+
+
 def count_launch(name: str, k: int = 1, variant: Optional[str] = None) -> None:
     _launches[name] += k
     if variant is not None:
@@ -88,8 +166,10 @@ def count_launch(name: str, k: int = 1, variant: Optional[str] = None) -> None:
 
 
 def reset_launches() -> None:
+    """Zero the launch counts and the plain-version counts."""
     for name in _launches:
         _launches[name] = 0
+        _plain_calls[name] = 0
     for counts in _variant_launches.values():
         for variant in counts:
             counts[variant] = 0

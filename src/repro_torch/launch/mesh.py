@@ -43,3 +43,19 @@ def make_shard_group(P: Optional[int] = None, *, backend: Optional[str] = None,
     if P is not None and int(P) != world:
         raise ValueError(f"asked for {P} shards but the world has {world} ranks")
     return dist.group.WORLD
+
+
+def sub_group(group, P_new: int):
+    """The first P_new ranks of `group` as a group of their own, for an spmd
+    restart onto fewer shards (the JAX package's `_mesh_for`: a torch group
+    cannot shrink in place). Collective: every rank of the job calls it
+    together, as `torch.distributed.new_group` requires, so `group` is the
+    default group or every other rank calls it too. A rank outside the new
+    group gets None."""
+    import torch.distributed as dist
+
+    ranks = dist.get_process_group_ranks(group)[:int(P_new)]
+    sub = dist.new_group(ranks=ranks, backend=dist.get_backend(group))
+    if sub == dist.GroupMember.NON_GROUP_MEMBER or dist.get_rank(sub) < 0:
+        return None
+    return sub

@@ -7,7 +7,7 @@ head dim (16) is raised to 64, the least that `flash_attention` takes
 
   PYTHONPATH=src python -m repro_torch.launch.serve --graph-queries 32 \\
       --graph-scale 9 --max-batch 8 [--max-wait S] [--timeout S] \\
-      [--policy PATH]
+      [--policy PATH] [--partition P]
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-1.5b \\
       --batch 4 --prompt-len 16 --max-new 32
   PYTHONPATH=src python -m repro_torch.launch.serve --arch bert4rec --device cpu
@@ -16,7 +16,8 @@ head dim (16) is raised to 64, the least that `flash_attention` takes
 against an R-MAT graph of 2^scale vertices through `GraphQueryEngine`
 (template-batched prunes); `--policy` loads a tuned dispatch-policy cache,
 under which batched wave routes resolve by b<B>-prefixed bucket keys.
-`--partition` (a sharded graph) is not ported yet and raises.
+`--partition P` shards the background graph P ways and serves on the sim
+prims (every shard in this process, `ShardedBatchedEngine`).
 """
 from __future__ import annotations
 
@@ -67,7 +68,8 @@ def main(argv=None):
     ap.add_argument("--graph-scale", type=int, default=9,
                     help="rmat graph scale (2^scale vertices)")
     ap.add_argument("--partition", type=int, default=None,
-                    help="shard the background graph P ways (not ported)")
+                    help="shard the background graph P ways (the sim "
+                         "backend, every shard in this process)")
     ap.add_argument("--max-batch", type=int, default=8)
     ap.add_argument("--max-wait", type=float, default=0.05,
                     help="batcher max wait (seconds) before launching a "
@@ -138,7 +140,9 @@ def serve_graph(args):
     assert len(results) == len(ids)
     ok = [r for r in results if r.status == "ok"]
     missed = len(results) - len(ok)
-    print(f"served {len(results)} queries on {eng.dg.device} in {dt:.2f}s "
+    where = (f"{eng.dg.device}, P={eng.partition.P} shards"
+             if eng.partition is not None else f"{eng.dg.device}")
+    print(f"served {len(results)} queries on {where} in {dt:.2f}s "
           f"({len(results) / dt:.1f} q/s) across "
           f"{eng.stats['n_batches']} batches; deadline_missed={missed}")
     for b in eng.stats["batches"]:

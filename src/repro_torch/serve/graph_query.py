@@ -11,12 +11,18 @@ time; one that expires inside a batch is zeroed at the next phase boundary
 of the batched run, never a batch abort. Matches stream out block by block
 through `stream_matches`, so the whole row table never exists at once.
 
-The engine stages the graph on its device once (`DeviceGraph`) and owns
-no other device state: queueing, batching, deadlines and emission run on
-the host. It is synchronous and single-threaded: `submit()` enqueues,
-`pump()` launches every due batch, `drain()` runs the queue dry. Under an
-injected clock its admission, batching and deadline decisions are
-deterministic.
+The engine stages the graph on its device once (`DeviceGraph`), and on a
+sharded graph (`partition=`, a shard count or an `EdgePartition`, run on
+the sim prims; `mesh=`, a process group, on the spmd prims) builds its
+`EdgePartition` once too; it owns no other device state: queueing,
+batching, deadlines and emission run on the host. It is synchronous and
+single-threaded: `submit()` enqueues, `pump()` launches every due batch,
+`drain()` runs the queue dry. Under an injected clock its admission,
+batching and deadline decisions are deterministic. Under `mesh=` every
+rank runs the engine with the same submissions, and rank 0 decides which
+queries expire, which batch runs next and which lanes a deadline cancels
+(each rank has its own clock): the decisions are broadcast before any rank
+dispatches a batch.
 
 Routing follows the dispatch policy from startup on: pass `policy=` (a path
 or a `DispatchPolicy`) and every batched prune resolves its wave route
@@ -33,6 +39,7 @@ from typing import Dict, Iterator, List, Optional, Sequence, Union
 
 import numpy as np
 
+from repro_torch.graph.partition import partition_graph
 from repro_torch.graph.structs import DeviceGraph, Graph
 from repro_torch.core.template import Template
 from repro_torch.core.batch import (prune_batch, BatchedPruneResult,
@@ -77,7 +84,7 @@ class QueryResult:
 class GraphQueryEngine:
     """The serving front end: one resident graph, a queue of template
     queries, shape-bucketed batched execution on `device` (the card unless
-    `device="cpu"`)."""
+    `device="cpu"`; under an NCCL `mesh=` the rank's card)."""
 
     def __init__(self, graph: Graph, *, partition=None, mesh=None,
                  wave: int = 1024, max_batch: int = 8,
@@ -86,13 +93,23 @@ class GraphQueryEngine:
                  clock=time.monotonic, device=None, **prune_kw):
         if max_batch < 1:
             raise ValueError("max_batch must be >= 1")
-        if partition is not None or mesh is not None:
-            raise NotImplementedError(
-                "sharded batches (mesh=/partition=) are not ported yet: they "
-                "come with the batched engine's sharded half (slice F2 in "
-                "ROADMAP.md); prune() takes mesh=/partition=")
         self.graph = graph
-        self.dg = DeviceGraph.from_host(graph, device)
+        self.mesh = mesh
+        if mesh is not None:
+            import torch.distributed as dist
+            from repro_torch.core.engine import _group_device
+
+            device = _group_device(mesh, device)
+            if partition is None:
+                partition = dist.get_world_size(mesh)
+        if isinstance(partition, int):
+            partition = partition_graph(graph, partition)
+        # built once per engine: every batch shares the partition (and its
+        # device arrays) and the staged graph
+        self.partition = partition
+        self.dg = DeviceGraph.from_host(
+            graph, device,
+            order=partition.dst_order(graph) if partition is not None else None)
         self.wave = wave
         self.max_batch = max_batch
         self.max_wait_s = max_wait_s
@@ -164,12 +181,28 @@ class GraphQueryEngine:
         return self._done.get(query_id)
 
     # ------------------------------------------------------------- batching
+    def _agree(self, decision):
+        """A host decision every rank must take alike: rank 0's under
+        `mesh=`, broadcast before anything is dispatched."""
+        if self.mesh is None:
+            return decision
+        import torch.distributed as dist
+
+        box = [decision]
+        dist.broadcast_object_list(
+            box, src=dist.get_process_group_ranks(self.mesh)[0],
+            group=self.mesh)
+        return box[0]
+
     def _expire_queued(self) -> List[QueryResult]:
         now = self.clock()
+        gone = set(self._agree([q.query_id for q in self._queue
+                                if q.deadline is not None
+                                and now > q.deadline]))
         live = deque()
         expired = []
         for q in self._queue:
-            if q.deadline is not None and now > q.deadline:
+            if q.query_id in gone:
                 expired.append(self._finish_cancelled(q))
             else:
                 live.append(q)
@@ -198,9 +231,12 @@ class GraphQueryEngine:
         while True:
             out.extend(self._expire_queued())
             due = self._ready_bucket(force)
-            if due is None:
+            ids = self._agree(None if due is None
+                              else [q.query_id for q in due[1]])
+            if ids is None:
                 break
-            _, batch = due
+            by_id = {q.query_id: q for q in self._queue}
+            batch = [by_id[i] for i in ids]
             for q in batch:
                 self._queue.remove(q)
             out.extend(self._execute(batch))
@@ -218,7 +254,8 @@ class GraphQueryEngine:
         batch_id = next(self._batch_ids)
         now = self.clock()
         bres: BatchedPruneResult = prune_batch(
-            self.graph, [q.template for q in batch], wave=self.wave,
+            self.graph, [q.template for q in batch],
+            partition=self.partition, mesh=self.mesh, wave=self.wave,
             label_freq=self._label_freq,
             deadlines=[q.deadline for q in batch], clock=self.clock,
             dg=self.dg, **self.prune_kw)
@@ -226,7 +263,9 @@ class GraphQueryEngine:
         self.stats["n_batches"] += 1
         self.stats.setdefault("batches", []).append({
             "batch_id": batch_id, "B": len(batch),
-            "bucket": bres.stats["batched"]["bucket"], "seconds": seconds})
+            "bucket": bres.stats["batched"]["bucket"], "seconds": seconds,
+            "query_ids": [q.query_id for q in batch],
+            "status": list(bres.status)})
         out = []
         for q, lane_res, status in zip(batch, bres.results, bres.status):
             n_emb = None

@@ -8,8 +8,13 @@ lane statuses, `lcc_iterations` (the batched fixpoint's lagged count), the
 wave counters (lockstep rounds, tokens, padded jobs, constraints, host
 syncs), the batched route bucket and the shared candidacy planes equal to
 the reference's. The port runs on the CPU (the kernels' plain versions).
-The two sharded cases (`partition=4`) wait for the sharded backends.
+The sharded cases (`partition=`) run the sharded batched engine on the sim
+prims against the reference's sharded batch, with lockstep groups of one
+job against the ungrouped run, and on a gloo group of two spawned ranks
+(`mesh=`).
 """
+import os
+
 import numpy as np
 import pytest
 
@@ -21,6 +26,7 @@ from repro.core import prune_batch as rprune_batch  # noqa: E402
 from repro.core.template import Template as RT  # noqa: E402
 from repro.graph.structs import Graph as RGraph  # noqa: E402
 from repro.kernels import registry as rregistry  # noqa: E402
+from repro_torch.core import batch as batch_mod  # noqa: E402
 from repro_torch.core.batch import (  # noqa: E402
     STATUS_DEADLINE_MISSED, STATUS_OK, BatchedEngine, BatchedPruneResult,
     prune_batch)
@@ -227,11 +233,120 @@ def test_rejections(case):
             prune_batch(DeviceGraph.from_host(g, "cpu"), [big], device="cpu")
 
 
-@pytest.mark.parametrize("kw", [{"partition": 4}, {"mesh": object()}],
-                         ids=["partition", "mesh"])
-def test_sharded_batches_raise(kw):
-    with pytest.raises(NotImplementedError, match="slice F"):
-        prune_batch(_graph(), [Template(*VARIANTS[0])], device="cpu", **kw)
+def test_batched_parity_sharded(ref8, batch8):
+    """The local contract composed with the shard axis (sim, P = 4): each
+    lane equal to the reference's sharded lane and single prune, the
+    counters (the lagged lcc_iterations among them) equal."""
+    specs = VARIANTS[:3]
+    bres = prune_batch(ref8.g, [Template(*s) for s in specs], device="cpu",
+                       partition=4)
+    _assert_lanes(bres, batch8("P4", specs, partition=4), specs, ref8)
+    assert bres.stats["batched"]["P"] == 4
+    assert bres.stats["batched"]["backend"] == "sim"
+
+
+def test_shared_candidacy_planes_sharded(ref8, batch8):
+    specs = VARIANTS[:4]
+    bres = prune_batch(ref8.g, [Template(*s) for s in specs], device="cpu",
+                       partition=4)
+    planes = bres.stats["shared_candidacy_planes"]
+    assert planes["distinct"] <= planes["lane_columns"]
+    _assert_lanes(bres, batch8("P4 shared", specs, partition=4), specs, ref8)
+
+
+@pytest.mark.parametrize("route", ["packed", "unpacked"])
+def test_sharded_lockstep_groups_of_one(route, ref8, batch8, monkeypatch):
+    """Lockstep groups forced to one job (a budget that holds less than one
+    job) give the lanes and counters of the ungrouped run, on the packed
+    words and on the boolean planes."""
+    specs = VARIANTS[:8]
+    pol = registry.DispatchPolicy()
+    pol.set_route("prune.nlcc", "cpu", registry.batch_bucket(
+        8, registry.shard_bucket(2, -(-ref8.g.n // 2), 1024)), route)
+    registry.set_policy(pol)
+    runs = []
+    for budget in (batch_mod.LOCKSTEP_CPU_BUDGET, 1):
+        monkeypatch.setattr(batch_mod, "LOCKSTEP_CPU_BUDGET", budget)
+        runs.append(prune_batch(ref8.g, [Template(*s) for s in specs],
+                                device="cpu", partition=2))
+    assert runs[0].stats["batched"]["lockstep"]["jobs_per_group"] > 1
+    assert runs[1].stats["batched"]["lockstep"]["jobs_per_group"] == 1
+    assert runs[0].stats["dispatch_routes"] == {"prune.nlcc": route}
+    for a, b in zip(runs[0].results, runs[1].results):
+        assert torch.equal(a.state.omega, b.state.omega)
+        assert torch.equal(a.state.edge_active, b.state.edge_active)
+    for key in COUNTERS:
+        assert runs[0].stats.get(key) == runs[1].stats.get(key), key
+    _assert_lanes(runs[1], batch8("P2", specs, partition=2), specs, ref8)
+
+
+def test_sharded_deadline_and_stragglers():
+    """A sharded batch with a straggler pair at wave 32 (padded lockstep
+    rounds) and a deadline crossed mid-run, against the reference's."""
+    g = gen.rmat_graph(9, edge_factor=8, seed=5)
+    ref = Ref(g)
+    specs = [FAST, SLOW, VARIANTS[2]]
+
+    def ticking():
+        tick = {"t": 0.0}
+
+        def clock():
+            tick["t"] += 1.0
+            return tick["t"]
+        return clock
+
+    kw = dict(wave=32, guarantee_precision=False, partition=2,
+              deadlines=[None, None, 1.5])
+    bres = prune_batch(g, [Template(*s) for s in specs], device="cpu",
+                       clock=ticking(), **kw)
+    rbres = rprune_batch(ref.rg, [RT(*s) for s in specs], clock=ticking(),
+                         **kw)
+    assert bres.stats.get("nlcc_lockstep_padded", 0) > 0
+    assert bres.status[2] == STATUS_DEADLINE_MISSED
+    _assert_lanes(bres, rbres, specs, ref, wave=32, guarantee_precision=False)
+
+
+def _spmd_batch_rank(rank, P, init, out):
+    """One rank of a gloo group running a sharded batch."""
+    import torch.distributed as dist
+    from repro_torch.core.batch import prune_batch as pb
+    from repro_torch.core.template import Template as T
+    from repro_torch.graph.generators import rmat_graph
+    from repro_torch.launch.mesh import make_shard_group
+
+    torch.set_num_threads(1)
+    group = make_shard_group(P, backend="gloo", init_method=init, rank=rank,
+                             timeout_s=60)
+    g = rmat_graph(8, edge_factor=6, seed=3)
+    bres = pb(g, [T(*s) for s in VARIANTS[:4]], mesh=group, device="cpu")
+    assert bres.stats["batched"]["backend"] == "spmd"
+    np.savez(os.path.join(out, f"batch_{rank}.npz"),
+             **{f"omega{i}": r.state.omega.numpy()
+                for i, r in enumerate(bres.results)},
+             **{f"ea{i}": r.state.edge_active.numpy()
+                for i, r in enumerate(bres.results)},
+             counters=np.array([bres.stats.get(k, 0) for k in COUNTERS[:8]]))
+    dist.destroy_process_group()
+
+
+def test_sharded_batch_on_gloo_spmd(tmp_path, ref8, batch8):
+    """Two gloo ranks run the batch with mesh=: every rank's lanes equal the
+    reference's sharded lanes at P = 2, and the counters agree."""
+    from torch_spawn import spawn
+
+    specs = VARIANTS[:4]
+    spawn(_spmd_batch_rank, 2, (2, f"file://{tmp_path / 'rdv'}",
+                                 str(tmp_path)))
+    rbres = batch8("P2 four", specs, partition=2)
+    for rank in range(2):
+        got = np.load(tmp_path / f"batch_{rank}.npz")
+        for i in range(len(specs)):
+            np.testing.assert_array_equal(
+                got[f"omega{i}"], np.asarray(rbres.results[i].state.omega))
+            np.testing.assert_array_equal(
+                got[f"ea{i}"], np.asarray(rbres.results[i].state.edge_active))
+        np.testing.assert_array_equal(
+            got["counters"], [rbres.stats.get(k, 0) for k in COUNTERS[:8]])
 
 
 def test_batched_route_resolution_uses_batch_bucket(ref8):

@@ -303,3 +303,111 @@ def test_route_entry_b1_fallback(stored, looked_up, want):
         8, registry.shard_bucket(1, 1000, 1000))) == rregistry.bucket_key(
         rregistry.batch_bucket(8, rregistry.shard_bucket(1, 1000, 1000))) \
         == "b8xp1x1024x1024"
+
+
+# ------------------------------------------------------------ sharded graph
+@pytest.mark.parametrize("mode", [MODE_COUNT, MODE_STREAM])
+def test_sharded_engine_against_the_reference_and_one_shard(graph, mode):
+    """GraphQueryEngine(partition=2) against the reference's engine at
+    P = 2 (the same decisions and lanes) and the port's one-shard engine
+    (the same counts and rows), with a query cancelled in the queue and one
+    cancelled inside its batch."""
+    pair = Pair(graph, partition=2)
+    assert pair.port.partition.P == 2
+    one = GraphQueryEngine(graph, clock=pair.clock, device="cpu",
+                           max_batch=4, max_wait_s=1.0)
+    specs = [TRI, BIG, ([5, 4, 4, 3], [(0, 1), (1, 2), (2, 3), (3, 0)]),
+             ([4, 4, 3], [(0, 1), (1, 2), (2, 0)])]
+    pair.at(0.0)
+    qids = [pair.submit(s, mode=mode) for s in specs[:2]]
+    qids.append(pair.submit(specs[2], mode=mode, timeout_s=0.5))
+    for s in specs[:2]:
+        one.submit(Template(*s), mode=mode)
+    one.submit(Template(*specs[2]), mode=mode, timeout_s=0.5)
+    pair.at(0.6)  # the third query expires in the queue
+    qids.append(pair.submit(specs[3], mode=mode))
+    one.submit(Template(*specs[3]), mode=mode)
+    out = pair.drain()
+    one_out = {r.query_id: r for r in one.drain()}
+    assert [r.status for r in out].count(STATUS_DEADLINE_MISSED) == 1
+    pair.check_stats()
+    pair.check_lanes(qids)
+    for r in out:
+        o = one_out[r.query_id]
+        assert (r.status, r.n_embeddings) == (o.status, o.n_embeddings)
+        if r.status == STATUS_OK and mode == MODE_STREAM:
+            rows = list(pair.port.stream(r.query_id))
+            want = list(one.stream(r.query_id))
+            got = (np.unique(np.concatenate(rows), axis=0) if rows else [])
+            exp = (np.unique(np.concatenate(want), axis=0) if want else [])
+            np.testing.assert_array_equal(got, exp)
+
+
+def test_sharded_engine_cancels_inside_the_batch(graph):
+    """A deadline that passes while its sharded batch runs zeroes the lane
+    at a phase boundary, as the reference's sharded engine does."""
+
+    class Ticking(FakeClock):
+        def __call__(self):
+            self.t += 0.25
+            return self.t
+
+    port = GraphQueryEngine(graph, partition=2, clock=Ticking(),
+                            device="cpu", max_batch=2, max_wait_s=100.0)
+    ref = RGraphQueryEngine(_ref(graph), partition=2, clock=Ticking(),
+                            max_batch=2, max_wait_s=100.0)
+    for eng, T in ((port, Template), (ref, RT)):
+        eng.submit(T(*TRI), mode=MODE_COUNT)
+        eng.submit(T(*BIG), mode=MODE_COUNT, timeout_s=1.2)
+    out, rout = port.drain(), ref.drain()
+    assert _decisions(out) == _decisions(rout)
+    assert STATUS_DEADLINE_MISSED in [r.status for r in out]
+
+
+def _mesh_rank(rank, P, init, out):
+    """One rank of a two-rank gloo engine. Rank 1's clock runs 100 s ahead:
+    left to itself it would expire every deadline; rank 0 decides."""
+    import json
+    import os
+    import torch.distributed as dist
+    from repro_torch.graph.generators import rmat_graph
+    from repro_torch.launch.mesh import make_shard_group
+
+    torch.set_num_threads(1)
+    group = make_shard_group(P, backend="gloo", init_method=init, rank=rank,
+                             timeout_s=60)
+    clock = FakeClock()
+    clock.t = 100.0 * rank
+    eng = GraphQueryEngine(rmat_graph(8, edge_factor=6, seed=3), mesh=group,
+                           clock=clock, device="cpu", max_batch=3,
+                           max_wait_s=1.0)
+    for spec in (TRI, BIG, TRI, ([4, 4, 3], [(0, 1), (1, 2), (2, 0)])):
+        eng.submit(Template(*spec), mode=MODE_COUNT, timeout_s=50.0)
+    results = eng.drain()
+    log = [{k: v for k, v in b.items() if k != "seconds"}
+           for b in eng.stats["batches"]]
+    with open(os.path.join(out, f"engine_{rank}.json"), "w") as f:
+        json.dump({"results": [(r.query_id, r.status, r.batch_id,
+                                r.batch_size, r.n_embeddings)
+                               for r in results], "log": log}, f)
+    dist.destroy_process_group()
+
+
+def test_mesh_engine_ranks_agree(tmp_path, graph):
+    """Two gloo ranks serve the same submissions with mesh=: identical
+    results and batch logs, rank 0's decisions, the counts of the one-shard
+    engine."""
+    import json
+
+    from torch_spawn import spawn
+
+    spawn(_mesh_rank, 2, (2, f"file://{tmp_path / 'rdv'}", str(tmp_path)))
+    runs = [json.load(open(tmp_path / f"engine_{r}.json")) for r in range(2)]
+    assert runs[0] == runs[1]
+    assert all(r[1] == STATUS_OK for r in runs[0]["results"])
+    one = GraphQueryEngine(graph, clock=FakeClock(), device="cpu",
+                           max_batch=3, max_wait_s=1.0)
+    for spec in (TRI, BIG, TRI, ([4, 4, 3], [(0, 1), (1, 2), (2, 0)])):
+        one.submit(Template(*spec), mode=MODE_COUNT, timeout_s=50.0)
+    assert ([(r.query_id, r.n_embeddings) for r in one.drain()]
+            == [(r[0], r[4]) for r in runs[0]["results"]])

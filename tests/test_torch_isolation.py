@@ -17,6 +17,8 @@ IMPORT_RE = re.compile(r"^\s*(import|from)\s+(jax|repro)\b")
 # Runs in a fresh interpreter: a tiny CPU prune through the whole main path
 # (sharded on the sim backend too, with the edge-prune pass, the device join, streaming, a planned prune, a
 # tune and the quickstart), a batched prune, graph-query serving (engine and
+# CLI), a resilient prune (a checkpoint, an elastic restart onto one shard,
+# a triggered rebalance), a sharded batch and sharded serving (engine and
 # CLI), an incremental and an exploratory search and their launcher, a tiny
 # sampled GNN forward, a tiny greedy generation and a retrieval, then
 # checks that nothing of JAX or the JAX package was loaded, and that the
@@ -73,6 +75,34 @@ SCRIPT = textwrap.dedent("""
     served = serve_cli.main(["--graph-queries", "4", "--graph-scale", "6",
                              "--device", "cpu"])
     assert [r.status for r in served] == ["ok"] * 4
+
+    import tempfile
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.core import loadbalance, resilience
+    with tempfile.TemporaryDirectory() as d:
+        inj = resilience.FaultInjector([resilience.FaultSpec(
+            kind=resilience.FAULT_SHARD_LOSS, phase=1)])
+        cfg = resilience.ResilienceConfig(
+            checkpoint_dir=d, injector=inj,
+            elastic=resilience.ElasticConfig(restart_P=1))
+        rr = prune(g, t, partition=2, device="cpu", resilience=cfg)
+        assert rr.stats["resilience"]["restarts"][0]["to_P"] == 1
+        assert torch.equal(rr.state.omega, res.state.omega)
+        assert ckpt.latest_valid_step(d) is not None
+    rb = prune(g, t, partition=2, device="cpu",
+               resilience=resilience.ResilienceConfig(
+                   elastic=resilience.ElasticConfig(imbalance_trigger=0.5)))
+    assert torch.equal(rb.state.omega, res.state.omega)
+    assert loadbalance.imbalance_stats(g, None, 2).P == 2
+    sb = prune_batch(g, [t, t], partition=2, device="cpu")
+    assert all(torch.equal(r.state.omega, res.state.omega)
+               for r in sb.results)
+    seng = GraphQueryEngine(g, partition=2, device="cpu")
+    seng.submit(t, mode=MODE_COUNT)
+    assert seng.drain()[0].n_embeddings == 1
+    served = serve_cli.main(["--graph-queries", "4", "--graph-scale", "6",
+                             "--device", "cpu", "--partition", "2"])
+    assert [r.status for r in served] == ["ok"] * 4
     assert interactive_search.main(["--device", "cpu"])[1].found_level == 2
 
     from repro_torch.configs import get_arch
@@ -115,7 +145,11 @@ SCRIPT = textwrap.dedent("""
         for name, call in (("prune()", lambda: prune(g, t)),
                            ("quickstart", lambda: quickstart.main([])),
                            ("prune_batch()", lambda: prune_batch(g, [t])),
+                           ("prune_batch(partition=2)",
+                            lambda: prune_batch(g, [t], partition=2)),
                            ("GraphQueryEngine()", lambda: GraphQueryEngine(g)),
+                           ("GraphQueryEngine(partition=2)",
+                            lambda: GraphQueryEngine(g, partition=2)),
                            ("IncrementalSession()",
                             lambda: IncrementalSession(g, t)),
                            ("exploratory_search()",

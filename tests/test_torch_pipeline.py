@@ -192,14 +192,27 @@ def test_generators_and_device_graph_match_reference():
                                       dg.dst.numpy())
 
 
-def test_unported_options_raise(reference):
-    """resilience= (slice G) still raises; partition= is ported (the sim
-    backend) and equals the reference's prune and enumeration."""
+def test_unported_options_raise(tmp_path, reference):
+    """Every option of the reference's prune is ported: resilience= (a
+    checkpointed prune whose collective fault is retried in place) and
+    partition= (the sim backend) equal the reference's prune and
+    enumeration; an unknown route still raises."""
+    from repro_torch.core import resilience as res
+
     g, (labels, edges) = SCENARIOS["triangle_er"]
     tg, tm = _port_graph(g), Template(labels, edges)
-    with pytest.raises(NotImplementedError):
-        prune(tg, tm, device="cpu", resilience=object())
     ref, ref_enum = reference("triangle_er")
+    inj = res.FaultInjector([res.FaultSpec(
+        kind=res.FAULT_COLLECTIVE_TIMEOUT, phase=1, cleared_by="retry")])
+    resilient = prune(tg, tm, device="cpu", wave=WAVE, resilience=(
+        res.ResilienceConfig(checkpoint_dir=str(tmp_path), injector=inj)))
+    rs = resilient.stats["resilience"]
+    assert [r for r, _ in rs["ladder"]] == ["retry"]
+    assert rs["checkpoints"] == resilient.stats["n_constraints"] + 1
+    np.testing.assert_array_equal(resilient.omega, np.asarray(ref.state.omega))
+    np.testing.assert_array_equal(resilient.edge_mask, ref.edge_mask)
+    assert _trajectory(resilient) == _trajectory(ref)
+    assert count_matches(resilient).n_embeddings == ref_enum.n_embeddings
     res = prune(tg, tm, device="cpu", wave=WAVE, partition=2)
     assert res.stats["backend"] == "sim"
     np.testing.assert_array_equal(res.omega, np.asarray(ref.state.omega))

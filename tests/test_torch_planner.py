@@ -286,3 +286,94 @@ def test_policy_plan_drives_prune_bit_identically():
                 == rev.signatures())
         np.testing.assert_array_equal(tuned.omega, base.omega)
         np.testing.assert_array_equal(tuned.edge_mask, base.edge_mask)
+
+
+# --------------------------------------------------- checkpoint identity
+def _constraints(g, t):
+    return generate_constraints(t, label_freq=g.label_frequency())
+
+
+def test_checkpoint_resume_under_different_order_refuses(tmp_path):
+    """A checkpoint keeps the plan it was written under: a run that resumes
+    it under another constraint order refuses with PlanMismatch, as the
+    reference does."""
+    from repro.core import resilience as rres
+    from repro_torch.core import resilience as res
+
+    g, t = _graph(), Template(*MULTI)
+    cs = _constraints(g, t)
+    prune(g, t, device="cpu",
+          resilience=res.ResilienceConfig(checkpoint_dir=str(tmp_path)))
+    # the same constraints, another order: another plan identity
+    alt = planner.QueryPlan(
+        phases=[planner.PlanPhase(c, planner.default_engine(c))
+                for c in (list(cs[:-1])[::-1] + [cs[-1]])],
+        source="planner")
+    inj = res.FaultInjector(
+        [res.FaultSpec(kind=res.FAULT_SHARD_LOSS, phase=1)])
+    cfg2 = res.ResilienceConfig(checkpoint_dir=str(tmp_path), injector=inj)
+    with pytest.raises(res.PlanMismatch, match="written under plan"):
+        prune(g, t, device="cpu", resilience=cfg2, plan=alt)
+    # the reference refuses the port's checkpoint the same way
+    rg, rt = _ref(g), RT(*MULTI)
+    rcs = rgenerate(rt, label_freq=rg.label_frequency())
+    ralt = rplanner.QueryPlan(
+        phases=[rplanner.PlanPhase(c, rplanner.default_engine(c))
+                for c in (list(rcs[:-1])[::-1] + [rcs[-1]])],
+        source="planner")
+    rinj = rres.FaultInjector(
+        [rres.FaultSpec(kind=rres.FAULT_SHARD_LOSS, phase=1)])
+    with pytest.raises(rres.PlanMismatch, match="written under plan"):
+        rprune(rg, rt, plan=ralt, resilience=rres.ResilienceConfig(
+            checkpoint_dir=str(tmp_path), injector=rinj))
+
+
+def test_checkpoint_resume_under_different_direction_refuses(tmp_path):
+    """Identity is signature + engine + direction: the same order run with
+    another walk direction commits another state."""
+    from repro_torch.core import resilience as res
+
+    g, t = _graph(), Template(*SQUARE)
+    cs = _constraints(g, t)
+    prune(g, t, device="cpu",
+          resilience=res.ResilienceConfig(checkpoint_dir=str(tmp_path)))
+    hp = planner.heuristic_plan(cs)
+    alt = planner.QueryPlan(
+        phases=[planner.PlanPhase(
+            p.constraint, p.engine,
+            "head" if p.engine == planner.ENGINE_NLCC else p.direction)
+            for p in hp.phases],
+        source="planner")
+    inj = res.FaultInjector(
+        [res.FaultSpec(kind=res.FAULT_SHARD_LOSS, phase=1)])
+    cfg2 = res.ResilienceConfig(checkpoint_dir=str(tmp_path), injector=inj)
+    with pytest.raises(res.PlanMismatch):
+        prune(g, t, device="cpu", resilience=cfg2, plan=alt)
+
+
+def test_checkpoint_resume_under_same_plan_recovers_bit_identical(tmp_path):
+    """The same plan resumes the checkpoint and lands on the fault-free
+    prune and the reference's, bit for bit."""
+    from repro_torch.core import resilience as res
+
+    g, t = _graph(), Template(*SQUARE)
+    base = prune(g, t, device="cpu",
+                 resilience=res.ResilienceConfig(checkpoint_dir=str(tmp_path)))
+    inj = res.FaultInjector(
+        [res.FaultSpec(kind=res.FAULT_SHARD_LOSS, phase=1)])
+    cfg2 = res.ResilienceConfig(checkpoint_dir=str(tmp_path), injector=inj)
+    out = prune(g, t, device="cpu", resilience=cfg2)
+    assert [r["restored_phase"]
+            for r in out.stats["resilience"]["restarts"]]
+    ref = rprune(_ref(g), RT(*SQUARE))
+    from repro.core.enumerate import count_matches as rcount
+
+    want = rcount(ref.dg, ref.state, ref.template).n_embeddings
+    for res_ in (base, out):
+        np.testing.assert_array_equal(res_.omega, np.asarray(ref.omega))
+        np.testing.assert_array_equal(res_.edge_mask, ref.edge_mask)
+        assert count_matches(res_).n_embeddings == want
+    # the resumed run restored the newest checkpoint, the base run's last
+    # phase, and ran nothing after it
+    assert (out.stats["resilience"]["restarts"][0]["restored_phase"]
+            == base.stats["n_constraints"])

@@ -22,7 +22,7 @@ from repro.core.template import Template as RT  # noqa: E402
 from repro.graph.structs import DeviceGraph as RDeviceGraph  # noqa: E402
 from repro.graph.structs import Graph as RGraph  # noqa: E402
 from repro.kernels import registry as rregistry  # noqa: E402
-from repro_torch.core import lcc, nlcc  # noqa: E402
+from repro_torch.core import engine, lcc, nlcc  # noqa: E402
 from repro_torch.core.pipeline import prune  # noqa: E402
 from repro_torch.core.template import Template  # noqa: E402
 from repro_torch.graph import generators as gen  # noqa: E402
@@ -173,6 +173,36 @@ def test_policy_unpacked_nlcc_route_is_capped_on_the_card(backend, m, want,
     assert nlcc.nlcc_resolved_route(n, wave, backend, m=m,
                                     route="unpacked") == "unpacked"
     assert nlcc.nlcc_resolved_route(n, 48, backend, m=m) == "unpacked"
+
+
+@pytest.mark.parametrize("backend,P,want", [
+    ("cpu", 4, registry.ROUTE_UNPACKED),
+    ("cuda", 2, registry.ROUTE_UNPACKED),
+    ("cuda", 4, registry.ROUTE_PACKED),
+], ids=["cpu", "cuda-fits", "cuda-too-large"])
+@pytest.mark.parametrize("batched", [False, True], ids=["single", "batched"])
+def test_policy_unpacked_sharded_nlcc_route_is_capped_on_the_card(
+        backend, P, want, batched):
+    """The sharded prune and the sharded batch resolve their wave route
+    through one rule: a policy's unpacked wave runs on the card only where
+    one job's [Pl*P*B, wave] bool plane fits (the sim holds Pl = P shards),
+    and a fused choice the reference's gate refuses runs packed."""
+    n_local, B, wave = 1 << 18, 1 << 17, 1024
+    shard = registry.shard_bucket(P, n_local, wave)
+    bucket = registry.batch_bucket(8, shard) if batched else shard
+    pol = registry.DispatchPolicy()
+    pol.set_route(NLCC, backend, registry.BUCKET_ANY, registry.ROUTE_UNPACKED)
+    registry.set_policy(pol)
+    assert engine.sharded_nlcc_route(bucket, P, P, B, n_local, wave, 3,
+                                     backend) == want
+    pol.set_route(NLCC, backend, registry.BUCKET_ANY, registry.ROUTE_FUSED)
+    assert not engine.sharded_fused_eligible(n_local, P, B, wave, 3)
+    assert engine.sharded_nlcc_route(bucket, P, P, B, n_local, wave, 3,
+                                     backend) == registry.ROUTE_PACKED
+    # the capability gate (a wave that packs into no whole word) is not
+    # capped
+    assert engine.sharded_nlcc_route(bucket, P, P, B, n_local, 48, 3,
+                                     backend) == registry.ROUTE_UNPACKED
 
 
 @pytest.mark.parametrize("exact", [True, False], ids=["bucket", "wildcard"])

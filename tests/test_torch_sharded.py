@@ -247,8 +247,18 @@ def test_sharded_rejects_local_only_knobs(graph):
         prune(graph, t, device="cpu", partition=2, edge_elimination=False)
     with pytest.raises(TypeError, match="host Graph"):
         prune(DeviceGraph.from_host(graph, "cpu"), t, partition=2)
-    with pytest.raises(NotImplementedError):
+    # resilience= is ported: it takes a ResilienceConfig, and a resilient
+    # sharded prune equals the plain one
+    with pytest.raises(TypeError, match="ResilienceConfig"):
         prune(graph, t, device="cpu", partition=2, resilience=object())
+    from repro_torch.core.resilience import ResilienceConfig
+
+    plain = prune(graph, t, device="cpu", partition=2)
+    resilient = prune(graph, t, device="cpu", partition=2,
+                      resilience=ResilienceConfig())
+    assert torch.equal(plain.state.omega, resilient.state.omega)
+    assert torch.equal(plain.state.edge_active, resilient.state.edge_active)
+    assert resilient.stats["resilience"]["ladder"] == []
 
 
 def test_sim_edge_prune_parity_and_change_flag():

@@ -21,7 +21,8 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
-mp = pytest.importorskip("torch.multiprocessing")
+
+from torch_spawn import spawn as _spawn  # noqa: E402
 
 CASES = [
     ("cyclic", [8, 7, 7], [(0, 1), (1, 2), (2, 0)], dict(guarantee_precision=False)),
@@ -30,7 +31,6 @@ CASES = [
 ]
 COUNTERS = ("nlcc_waves", "nlcc_overlapped_waves", "nlcc_host_syncs",
             "nlcc_tokens", "tds_gather_bridge")
-DEADLINE_S = 150
 
 
 def _summary(res):
@@ -88,23 +88,6 @@ def _rank_main(rank, P, init, out):
                     if m.split(".")[0] in ("jax", "jaxlib", "repro"))
     assert not loaded, loaded
     dist.destroy_process_group()
-
-
-def _spawn(fn, P, args, deadline_s=DEADLINE_S):
-    """Run fn(rank, *args) on P spawned ranks; terminate them and fail if
-    they are not done within the deadline. A rank's exception re-raises
-    here with its traceback."""
-    ctx = mp.start_processes(fn, args=args, nprocs=P, join=False,
-                             start_method="spawn")
-    end = time.monotonic() + deadline_s
-    while not ctx.join(timeout=1):
-        if time.monotonic() > end:
-            for proc in ctx.processes:
-                if proc.is_alive():
-                    proc.terminate()
-            for proc in ctx.processes:
-                proc.join(5)
-            pytest.fail(f"ranks not done within {deadline_s} s")
 
 
 @pytest.fixture(scope="module")

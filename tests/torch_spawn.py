@@ -1,0 +1,23 @@
+"""Spawned ranks for the port's gloo tests: `spawn(fn, P, args)` runs
+fn(rank, *args) in P processes started with `torch.multiprocessing`
+(spawn), terminates them and fails the test if they are not done within
+the deadline; a rank's exception re-raises in the caller."""
+import time
+
+import pytest
+
+
+def spawn(fn, P, args, deadline_s=150):
+    import torch.multiprocessing as mp
+
+    ctx = mp.start_processes(fn, args=args, nprocs=P, join=False,
+                             start_method="spawn")
+    end = time.monotonic() + deadline_s
+    while not ctx.join(timeout=1):
+        if time.monotonic() > end:
+            for proc in ctx.processes:
+                if proc.is_alive():
+                    proc.terminate()
+            for proc in ctx.processes:
+                proc.join(5)
+            pytest.fail(f"ranks not done within {deadline_s} s")

@@ -208,6 +208,46 @@ From the root of a checkout, on a machine with a CUDA device and `nvcc`:
                against the one-shard engine; `launch/serve.py
                --partition 2` in its own process.
 
+11. train   the training path (`train/step.py`, `train/trainer.py`), the
+            gradients of `segment_agg` and `flash_attention` through their
+            autograd Functions (the kernel forward, the plain backward):
+            a. card against CPU at smoke size, 3 steps from one state: the
+               four GNNs on a full graph, sampled GraphSAGE (segment_agg
+               launched), the pattern-filtered PNA of
+               examples/pattern_gnn.py (5 steps), qwen2 smoke at head dim
+               64 with plain CE, fused_ce, remat True and "dots", 2
+               microbatches and compressed gradients (flash_attention
+               launched), bert4rec smoke with its three objectives; losses
+               and parameters within TRAIN_LOSS_TOL and TRAIN_PARAM_TOL;
+               then `launch/pattern_gnn.py` in its own process;
+            b. each backward against autograd through its plain forward on
+               the card: segment_agg at 5d's three shapes, f32 and bf16,
+               with tied minima and maxima; flash_attention bf16 causal at
+               [1,12/2,4096,128] and [8,12/2,2048,128] against f32
+               autograd of `ref.attention_ref`, its forward held to the
+               plain version as in 6b; the plain backwards' times
+               beside their bounds and SDPA's autograd backward;
+            c. graphsage-reddit training on minibatch_lg over 5d's graph and
+               stream (run inside the GNN path, right after 5d, so the
+               stream leaves the card before phases 6 and 7): 10 AdamW steps, seconds per step by sampling, gather
+               and forward + backward + update, the loss, peak memory, 3
+               segment_agg launches a step, the busy share;
+            d. qwen2-1.5b at full width (28 layers, bf16 parameters, f32
+               AdamW moments) on train_4k cut to 2 sequences as 2
+               microbatches of 1 x 4096 tokens with full remat, 3 steps:
+               seconds, tokens/s, peak memory, the loss, 112
+               flash_attention launches a step (56 of them remat's
+               recomputed forwards, counted by the registry as launches
+               inside the backward), all on the tensor-core kernel, the
+               busy share;
+            e. bert4rec at full width (1,000,002 x 64 bf16), train_batch
+               cut to 8 users x 200 positions, full-catalog softmax, 3
+               steps: seconds and peak memory;
+            f. the trainer with a SimulatedFailure at step 3 of 6 and a
+               checkpoint every 2 steps in a temporary directory, in its
+               own process under torch.use_deterministic_algorithms(True):
+               the losses equal the uninterrupted run's.
+
 Every time is printed beside the card's name and power limit. The line
 before the last is a JSON object listing each kernel with its launches on
 its path's run, its error against the plain version and its times, all
@@ -246,7 +286,8 @@ from repro_torch.core.lcc import TemplateDev, lcc_fixpoint  # noqa: E402
 from repro_torch.core.pipeline import prune  # noqa: E402
 from repro_torch.core.state import init_state, pack_bits, unpack_bits  # noqa: E402
 from repro_torch.core.template import Template, generate_constraints  # noqa: E402
-from repro_torch.data.graphs import PatternFilteredDataset, SampledBatchStream  # noqa: E402
+from repro_torch.data.graphs import (  # noqa: E402
+    PatternFilteredDataset, SampledBatchStream, full_graph_batch)
 from repro_torch.data.recsys import MaskedSequenceStream  # noqa: E402
 from repro_torch.data.tokens import SyntheticTokenStream  # noqa: E402
 from repro_torch.graph import generators as gen  # noqa: E402
@@ -254,11 +295,17 @@ from repro_torch.graph.partition import partition_graph  # noqa: E402
 from repro_torch.graph.stats import collect_graph_stats  # noqa: E402
 from repro_torch.graph.structs import DeviceGraph, Graph  # noqa: E402
 from repro_torch.kernels import build, ops, ref, registry  # noqa: E402
-from repro_torch.launch import interactive_search  # noqa: E402
+from repro_torch.launch import interactive_search, pattern_gnn  # noqa: E402
 from repro_torch.launch import serve as serve_cli  # noqa: E402
 from repro_torch.models.bert4rec import Bert4Rec  # noqa: E402
 from repro_torch.models.gnn import GNN  # noqa: E402
+from repro_torch.models import transformer  # noqa: E402
 from repro_torch.models.transformer import Transformer  # noqa: E402
+from repro_torch.optim.adamw import AdamWConfig  # noqa: E402
+from repro_torch.optim.tree import leaves  # noqa: E402
+from repro_torch.train import trainer  # noqa: E402
+from repro_torch.train.step import TrainConfig, build_train_step  # noqa: E402
+from repro_torch.train.step import init_state as init_train_state  # noqa: E402
 from repro_torch.serve import (  # noqa: E402
     MODE_COUNT, MODE_PRUNE, MODE_STREAM, GraphQueryEngine, example_workload)
 from repro_torch.serve.engine import build_decode_step, build_prefill, greedy_generate  # noqa: E402
@@ -2474,15 +2521,20 @@ def phase_segment_agg_small():
         check(agg_close(ops.segment_agg(xt, mt), ref.segment_agg_ref(xt, mt)),
               f"segment_agg on an unaligned [7,5,{f}] {dtype} view differs")
         n_checks += 1
-    try:
-        ops.segment_agg(torch.ones((2, 3, 4), device=dev, requires_grad=True),
-                        torch.ones((2, 3), dtype=torch.bool, device=dev))
-    except RuntimeError:
-        pass
-    else:
-        check(DEVICE != "cuda", "segment_agg ran on an input that requires grad")
+    # an input that requires grad takes the autograd Function: the kernel
+    # forward, the plain backward (phase 11b holds it at full width)
+    xg = torch.randn((7, 5, 9), device=dev, requires_grad=True)
+    mg = torch.from_numpy(rng.random((7, 5)) < 0.7).to(dev)
+    before = registry.launch_counts()["segment_agg"]
+    (ops.segment_agg(xg, mg) * 0.5).sum().backward()
+    check(DEVICE != "cuda" or registry.launch_counts()["segment_agg"] == before + 1,
+          "segment_agg's forward with a gradient did not launch the kernel")
+    want = ref.segment_agg_backward(xg.detach(), mg,
+                                    torch.full((7, 4, 9), 0.5, device=dev))
+    check(torch.equal(xg.grad, want), "segment_agg's gradient differs from the plain backward")
     log(f"{n_checks} kernel/plain comparisons: min/max bit-exact, sum/sumsq "
-        f"within {AGG_TOL}, NaN/Inf in masked slots did not leak")
+        f"within {AGG_TOL}, NaN/Inf in masked slots did not leak; a gradient "
+        "through the kernel's forward")
 
 
 def segment_agg_cost(nt, d, f, elem_bytes):
@@ -2644,7 +2696,7 @@ def phase_gnn_full(shape=None):
     log(f"batch 0 at full width: logits max |card - CPU| "
         f"{float((first[1] - lp).abs().max()):.3g}")
     profile_batches(stream, model, range(GNN_BATCHES, GNN_BATCHES + 3))
-    return launches
+    return launches, stream
 
 
 # the device functions each kernel's wrapper launches, as torch.profiler
@@ -3393,6 +3445,543 @@ def phase_recsys_full(cfg=None, serve_batch=None, n_cand=None):
     return launches, res
 
 
+# ------------------------------------------------------- phase 11: training
+# 11a: card against CPU at smoke size, TRAIN_STEPS steps from one state on
+# each device (f32; the LM at head dim 64, the least flash_attention takes)
+TRAIN_STEPS = 3
+TRAIN_LOSS_TOL = 1e-4    # losses card vs CPU, relative: f32 in another order
+# parameters card vs CPU after the steps, absolute. A gradient entry within
+# rounding of 0 (or, with compressed gradients, an int8 value at a .5
+# boundary) may take either sign or value on the two devices, and AdamW
+# turns it into a step of up to lr of either sign: at most
+# TRAIN_FLIP_SHARE of a leaf's entries may differ by more, by at most
+# lr a step.
+TRAIN_PARAM_TOL = 1e-4
+TRAIN_FLIP_SHARE = 1e-3
+TRAIN_OPT = dict(lr=1e-3, weight_decay=0.1, clip_norm=1.0)
+# 11b: the plain backwards, held to autograd through the plain forwards on
+# the card. segment_agg f32: sums of at most four terms in another order;
+# bf16: both round an f32 value once (2 ulps + AGG_BWD_TOL). flash_attention
+# bf16: the plain backward and autograd through `ref.attention_ref` on the
+# inputs in f32 compute the same f32 function in another order, each cast
+# to bf16 once: 2 bf16 ulps + ATTN_BWD_FLOOR x the largest |gradient|.
+AGG_BWD_TOL = 1e-5
+ATTN_BWD_FLOOR = 2.0 ** -12
+# (B, Hq, Hkv, S, D, timed calls): one train_4k sequence, and 8 x 2048
+ATTN_BWD_SHAPES = [(1, 12, 2, 4096, 128, 3), (8, 12, 2, 2048, 128, 3)]
+# 11c: graphsage-reddit on minibatch_lg, 10 AdamW steps on 5d's stream
+GNN_TRAIN_STEPS = 10
+# 11d: qwen2-1.5b at full width on train_4k, global_batch 256 cut to 2 = 2
+# microbatches of 1 x 4096 tokens, full remat, bf16 parameters, f32 moments
+LM_TRAIN_SHAPE, LM_TRAIN_BATCH, LM_TRAIN_MICRO, LM_TRAIN_STEPS = "train_4k", 2, 2, 3
+# 11e: bert4rec at full width, train_batch 65,536 cut to 8 users x 200
+RECSYS_TRAIN_USERS, RECSYS_TRAIN_STEPS = 8, 3
+# 11f: the trainer restart, a failure at step 3 of 6, checkpoints every 2
+RESTART_STEPS, RESTART_FAIL_AT, RESTART_INTERVAL = 6, 3, 2
+
+def train_tc(**kw):
+    return TrainConfig(optimizer=AdamWConfig(**TRAIN_OPT), warmup_steps=1,
+                       total_steps=10, **kw)
+
+
+def params_diff(a, b, steps, lr):
+    """(max |a - b| over the entries within TRAIN_PARAM_TOL, entries beyond
+    it, the largest difference); checks TRAIN_FLIP_SHARE and lr a step."""
+    close, flips, top = 0.0, 0, 0.0
+    for x, y in zip(leaves(a), leaves(b)):
+        d = (x.float().cpu() - y.float().cpu()).abs()
+        over = d > TRAIN_PARAM_TOL
+        check(float(over.float().mean()) <= TRAIN_FLIP_SHARE,
+              f"{int(over.sum())} of {d.numel()} entries of a leaf differ by more "
+              f"than {TRAIN_PARAM_TOL}")
+        flips += int(over.sum())
+        top = max(top, float(d.max()))
+        close = max(close, float(d[~over].max()) if (~over).any() else 0.0)
+    check(top <= steps * lr, f"parameters differ by {top:.3g}")
+    return close, flips, top
+
+
+def train_card_vs_cpu(name, model, tc, batch_at, steps=TRAIN_STEPS, kernel=None):
+    """`steps` train steps of `model` (on the CPU) and of a copy on the card
+    from the same state; batch_at(step, device) gives each step's batch.
+    Losses within TRAIN_LOSS_TOL, parameters within TRAIN_PARAM_TOL, and
+    `kernel`, where given, launched on the card."""
+    card = copy.deepcopy(model).to(DEVICE)
+    runs = {}
+    registry.reset_launches()
+    for dev, m in ((DEVICE, card), ("cpu", model)):
+        state, step = init_train_state(m, tc), build_train_step(m, tc)
+        t0 = time.perf_counter()
+        losses = []
+        for i in range(steps):
+            state, met = step(state, batch_at(i, dev))
+            losses.append(float(met["loss"]))
+        runs[dev] = (losses, state, time.perf_counter() - t0)
+        if dev == DEVICE:
+            launches = registry.launch_counts()
+    (lc, sc, tcard), (lp, sp, tcpu) = runs[DEVICE], runs["cpu"]
+    check(np.allclose(lc, lp, rtol=TRAIN_LOSS_TOL, atol=0),
+          f"{name}: losses differ card vs CPU: {lc} vs {lp}")
+    diff, flips, top = params_diff(sc["params"], sp["params"], steps, tc.optimizer.lr)
+    if kernel and DEVICE == "cuda":
+        check(launches[kernel] > 0, f"{name}: {kernel} was not launched on the card")
+    log(f"  {name}: losses {[round(x, 6) for x in lc]} (CPU "
+        f"{[round(x, 6) for x in lp]}), parameters max |card - CPU| {diff:.3g}"
+        f"{f' ({flips} entries by up to {top:.3g})' if flips else ''}, "
+        f"card {tcard:.2f} s, CPU {tcpu:.2f} s"
+        + (f", {kernel} launches {launches[kernel]}" if kernel else ""))
+    return launches
+
+
+def sampled_train_batch(step, dev, b=16, f1=5, f2=3, d=24, n_classes=5):
+    """A sampled GraphSAGE batch with padding masks, from numpy."""
+    rng = np.random.default_rng(SEED + step)
+    batch = {"x_self": rng.standard_normal((b, d), dtype=np.float32),
+             "x_nbr": rng.standard_normal((b, f1, d), dtype=np.float32),
+             "x_nbr2": rng.standard_normal((b, f1, f2, d), dtype=np.float32),
+             "labels": rng.integers(0, n_classes, b),
+             "m_nbr": rng.random((b, f1)) < 0.7,
+             "m_nbr2": rng.random((b, f1, f2)) < 0.7}
+    batch["m_nbr"][0] = False
+    return {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+
+
+def phase_train_parity():
+    """11a: the training path card against CPU at smoke size."""
+    log("== phase 11a: training, card vs CPU at smoke size "
+        f"({TRAIN_STEPS} steps from one state; losses rtol {TRAIN_LOSS_TOL}, "
+        f"parameters atol {TRAIN_PARAM_TOL})")
+    g = gen.erdos_renyi_graph(300, 5.0, seed=SEED, n_labels=4)
+    graph_batch = {dev: full_graph_batch(g, 16, 4, seed=SEED, device=dev)
+                   for dev in (DEVICE, "cpu")}
+    for arch in ("pna", "graphsage-reddit", "gin-tu", "gat-cora"):
+        model = GNN(get_arch(arch).smoke(), 16, 4, device="cpu", seed=SEED)
+        train_card_vs_cpu(f"{arch} smoke, full graph", model, train_tc(),
+                          lambda i, dev: graph_batch[dev])
+    model = GNN(get_arch("graphsage-reddit").smoke(), 24, 5, device="cpu", seed=SEED)
+    agg = train_card_vs_cpu("graphsage-reddit smoke, sampled batches", model,
+                            train_tc(), sampled_train_batch, kernel="segment_agg")
+    check(DEVICE != "cuda" or agg["segment_agg"] == 3 * TRAIN_STEPS,
+          f"sampled training launched segment_agg {agg['segment_agg']} times")
+    gp, template = pattern_gnn.scenario()
+    datasets = {dev: PatternFilteredDataset(gp, template, pattern_gnn.D_FEAT,
+                                            pattern_gnn.N_CLASSES, seed=0, device=dev)
+                for dev in (DEVICE, "cpu")}
+    check(datasets[DEVICE].prune_counts == datasets["cpu"].prune_counts,
+          "pattern-filtered prune differs card vs CPU")
+    model = GNN(get_arch("pna").smoke(), pattern_gnn.D_FEAT + template.n0,
+                pattern_gnn.N_CLASSES, device="cpu", seed=0)
+    train_card_vs_cpu("pattern-filtered PNA (examples/pattern_gnn.py)", model,
+                      TrainConfig(optimizer=AdamWConfig(lr=5e-3, weight_decay=0.0)),
+                      lambda i, dev: datasets[dev](i), steps=5)
+    lm_cfg = serve_cli.serve_config(LM_ARCH)
+    for label, cfg_kw, tc_kw in (
+            ("plain CE", {}, {}), ("fused_ce=48", {"fused_ce": 48}, {}),
+            ("remat=True", {}, {"remat": True}), ('remat="dots"', {}, {"remat": "dots"}),
+            ("2 microbatches", {}, {"microbatches": 2}),
+            ("compressed gradients", {}, {"compress_grads": True})):
+        cfg = dataclasses.replace(lm_cfg, **cfg_kw)
+        streams = {dev: SyntheticTokenStream(cfg.vocab, 4, 64, seed=SEED, device=dev)
+                   for dev in (DEVICE, "cpu")}
+        train_card_vs_cpu(f"{cfg.name} (head dim {cfg.hd}), {label}",
+                          Transformer(cfg, device="cpu", seed=SEED), train_tc(**tc_kw),
+                          lambda i, dev: streams[dev](i), kernel="flash_attention")
+    rec_cfg = get_arch(RECSYS_ARCH).smoke()
+    for label, kw in (("full softmax", {}), ("fused_ce=96", {"fused_ce": 96}),
+                      ("40 sampled negatives", {"n_negatives": 40})):
+        cfg = dataclasses.replace(rec_cfg, **kw)
+        streams = {dev: MaskedSequenceStream(cfg.n_items, 6, cfg.seq_len, seed=SEED,
+                                             device=dev) for dev in (DEVICE, "cpu")}
+        train_card_vs_cpu(f"{cfg.name}, {label}", Bert4Rec(cfg, device="cpu", seed=SEED),
+                          train_tc(), lambda i, dev: streams[dev](i))
+    log("== phase 11a: python -m repro_torch.launch.pattern_gnn")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    cmd = [sys.executable, "-m", "repro_torch.launch.pattern_gnn", "--device", DEVICE]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, env=env,
+                          timeout=300, cwd=ROOT)
+    log(proc.stdout.strip())
+    check(proc.returncode == 0 and proc.stdout.strip().endswith("OK")
+          and f"({DEVICE}" in proc.stdout,
+          f"launch.pattern_gnn failed ({proc.returncode}): {proc.stderr[-2000:]}")
+    log(f"launch.pattern_gnn exited 0 in {time.perf_counter() - t0:.1f} s")
+
+
+def segment_agg_backward_cost(nt, d, f, elem_bytes):
+    """(bytes, operations) of one segment_agg backward: feats, mask and the
+    f32 [NT, 4, F] cotangent read once, the [NT, D, F] gradient written once;
+    per element two compares, two selects, a multiply and three adds."""
+    return (2 * nt * d * f * elem_bytes + nt * d + nt * 4 * f * 4, 8 * nt * d * f)
+
+
+def phase_segment_agg_backward(shapes):
+    """11b: segment_agg's gradient through its autograd Function (the kernel
+    forward, the plain backward) against autograd through the plain forward
+    on the card, with tied minima and maxima; the plain backward's times."""
+    log(f"== phase 11b: segment_agg backward vs autograd of the plain forward ({CARD})")
+    gen_t = torch.Generator(device=DEVICE).manual_seed(SEED)
+    rows = []
+    for nt, d, f in shapes:
+        for dtype in (torch.float32, torch.bfloat16):
+            # quarters: minima and maxima tie within rows
+            x = (torch.randn((nt, d, f), generator=gen_t, device=DEVICE) * 4).round() / 4
+            x = x.to(dtype)
+            m = torch.rand((nt, d), generator=gen_t, device=DEVICE) < 0.8
+            m[0] = False
+            g = torch.randn((nt, 4, f), generator=gen_t, device=DEVICE)
+            xg = x.clone().requires_grad_(True)
+            before = registry.launch_counts()["segment_agg"]
+            ops.segment_agg(xg, m).backward(g)
+            sync()
+            check(DEVICE != "cuda"
+                  or registry.launch_counts()["segment_agg"] == before + 1,
+                  "the forward of the gradient did not launch segment_agg")
+            xr = x.clone().requires_grad_(True)
+            ref.segment_agg_ref(xr, m).backward(g)
+            got, want = xg.grad, xr.grad
+            err = float((got.float() - want.float()).abs().max())
+            ok = (torch.allclose(got, want, rtol=AGG_BWD_TOL, atol=AGG_BWD_TOL)
+                  if dtype == torch.float32 else bf16_close(got, want, AGG_BWD_TOL))
+            check(ok, f"segment_agg backward [{nt},{d},{f}] {dtype} differs by {err:.3g}")
+            del xg, xr, got, want
+            t = {"shape": [nt, d, f], "dtype": str(dtype).split(".")[1],
+                 "max_abs_err": err,
+                 "ms": time_ms(lambda: ref.segment_agg_backward(x, m, g), 10),
+                 "library_ms": None}
+            cost = segment_agg_backward_cost(nt, d, f, x.element_size())
+            t["bound_ms"], t["bound_by"] = bound(cost)
+            log(f"segment_agg backward (plain) [{nt},{d},{f}] {t['dtype']}: "
+                f"{t['ms']:.4f} ms, {t['bound_ms']:.4f} ms bound ({t['bound_by']}, "
+                f"{cost[0] / 1e6:.1f} MB), {t['ms'] / t['bound_ms']:.2f}x bound; "
+                f"max |diff| vs autograd {err:.3g}")
+            rows.append(t)
+            del x, m, g
+    return rows
+
+
+def sdpa_backward_ms(q, k, v, do, reps):
+    """The library row: the backward of one causal scaled_dot_product_attention
+    call (autograd) on the same inputs, k and v repeated to the query heads
+    beforehand. Timed here only; no path of the port runs SDPA."""
+    import torch.nn.functional as F
+
+    group = q.shape[1] // k.shape[1]
+    qs = q.detach().requires_grad_(True)
+    ks = k.repeat_interleave(group, 1).requires_grad_(True)
+    vs = v.repeat_interleave(group, 1).requires_grad_(True)
+    out = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
+    return time_ms(lambda: torch.autograd.grad(out, (qs, ks, vs), do,
+                                               retain_graph=True), reps)
+
+
+def phase_attention_backward(shapes):
+    """11b: flash_attention's gradient through its autograd Function (the
+    bf16 tensor-core forward, the plain backward) against autograd through
+    `ref.attention_ref` on the inputs in f32, on the card, and the forward's
+    output held to the plain version as in 6b (the plain backward recomputes
+    from q, k and v and never reads it); the plain backward's times beside
+    2.5x the forward's operations at the bf16 peak and SDPA's autograd
+    backward."""
+    log(f"== phase 11b: flash_attention backward vs f32 autograd of the plain "
+        f"forward ({CARD})")
+    rows = []
+    for b, hq, hkv, s, d, reps in shapes:
+        g = torch.Generator(device=DEVICE).manual_seed(SEED)
+        q, k, v, do = (torch.randn(shape, generator=g, device=DEVICE).to(torch.bfloat16)
+                       for shape in ((b, hq, s, d), (b, hkv, s, d), (b, hkv, s, d),
+                                     (b, hq, s, d)))
+        leaves_in = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        before = registry.variant_counts("flash_attention")["bf16_tc"]
+        out = ops.attention(*leaves_in, causal=True)
+        sync()
+        check(DEVICE != "cuda"
+              or registry.variant_counts("flash_attention")["bf16_tc"] == before + 1,
+              "the forward of the gradient did not launch the tensor-core kernel")
+        # (i) holds the kernel's kv tiling; on the CPU the plain forward ran
+        ok, diffs = attention_checks(out.detach(), q, k, v)
+        check(DEVICE != "cuda" or ok,
+              f"flash_attention forward [{b},{hq},{s},{d}] of the gradient "
+              f"differs: {diffs}")
+        out.backward(do)
+        del out
+        got = [t.grad for t in leaves_in]
+        del leaves_in
+        f32 = [t.float().requires_grad_(True) for t in (q, k, v)]
+        ref.attention_ref(*f32, causal=True).backward(do.float())
+        want = [t.grad for t in f32]
+        del f32
+        errs = []
+        for name, a, w in zip("qkv", got, want):
+            floor = ATTN_BWD_FLOOR * float(w.abs().max())
+            check(a.dtype == torch.bfloat16 and bf16_close(a, w, floor),
+                  f"flash_attention backward d{name} [{b},{hq},{s},{d}] differs: "
+                  f"{bf16_excess(a, w, floor):.3g} of its allowance")
+            errs.append(float((a.float() - w).abs().max()))
+        del got, want
+        t = {"shape": [b, hq, hkv, s, d], "dtype": "bfloat16", "causal": True,
+             "max_abs_err": max(errs), "forward_max_abs_err": diffs["bf16 (ii)"],
+             "forward_allowance_used": [diffs["bf16 (i) ratio"],
+                                        diffs["bf16 (ii) ratio"]],
+             "ms": time_ms(lambda: ref.attention_backward(q, k, v, do), reps),
+             "library_ms": sdpa_backward_ms(q, k, v, do, reps)}
+        nbytes, fwd_ops = attention_cost(b, hq, hkv, s, d, 2)
+        cost = (nbytes + 2 * b * hq * s * d * 2, 2.5 * fwd_ops)
+        t["bound_ms"], t["bound_by"] = bound(cost, PEAK_BF16_FLOPS_PER_S)
+        log(f"flash_attention backward (plain, f32) [{b},{hq}/{hkv},{s},{d}] bf16 "
+            f"causal: {t['ms']:.4f} ms, {t['library_ms']:.4f} ms SDPA backward, "
+            f"{t['bound_ms']:.4f} ms bound ({t['bound_by']}: {cost[1] / 1e12:.3f} "
+            f"TFLOP), {t['ms'] / t['bound_ms']:.2f}x bound; max |diff| vs f32 "
+            f"autograd {max(errs):.3g}; the forward within its tolerance "
+            f"({diffs['bf16 (i) ratio']:.3g}, {diffs['bf16 (ii) ratio']:.3g} of "
+            f"its allowances)")
+        rows.append(t)
+        del q, k, v, do
+    return rows
+
+
+def gnn_stream(shape):
+    """Phase 5d's background and stream (for a run of phase 11 alone)."""
+    cfg, _, n_classes = gnn_setup()
+    g = gen.erdos_renyi_graph(shape.n_nodes, shape.n_edges / shape.n_nodes, seed=SEED)
+    feats, labels = gnn_features(g.n, shape.d_feat, n_classes, SEED)
+    return SampledBatchStream(g, feats, labels, shape.fanout, shape.batch_nodes,
+                              seed=SEED, device=DEVICE)
+
+
+def phase_gnn_train_full(stream=None, shape=None):
+    """11c: graphsage-reddit training on minibatch_lg over 5d's graph and
+    stream: per step, host sampling, the gather, and forward + backward +
+    AdamW; the loss, peak memory, segment_agg launches per step, and the
+    device's busy share over two more steps."""
+    cfg, full_shape, n_classes = gnn_setup()
+    shape = shape or full_shape
+    log(f"== phase 11c: {cfg.name} training on {shape.name} (B={shape.batch_nodes}, "
+        f"fanouts {shape.fanout}, {GNN_TRAIN_STEPS} AdamW steps)")
+    if stream is None:
+        stream = gnn_stream(shape)
+    model = GNN(cfg, shape.d_feat, n_classes, device=DEVICE, seed=SEED)
+    tc = TrainConfig(optimizer=AdamWConfig(lr=1e-3), warmup_steps=1,
+                     total_steps=GNN_TRAIN_STEPS)
+    state, step = init_train_state(model, tc), build_train_step(model, tc)
+    step(state, stream(GNN_TRAIN_STEPS + 5))   # warm-up, outside the count
+    sync()
+    reset_peak()
+    registry.reset_launches()
+    rows = []
+    for i in range(GNN_TRAIN_STEPS):
+        ta = time.perf_counter()
+        layers = stream.sample_ids(i)
+        tb = time.perf_counter()
+        batch = stream.gather(layers)
+        sync()
+        tc_ = time.perf_counter()
+        state, met = step(state, batch)
+        lv = float(met["loss"])
+        td = time.perf_counter()
+        check(np.isfinite(lv), f"step {i}: loss not finite")
+        rows.append((tb - ta, tc_ - tb, td - tc_, lv))
+        log(f"  step {i}: sample {tb - ta:.6f} s (host), gather {tc_ - tb:.6f} s, "
+            f"forward+backward+update {td - tc_:.6f} s, loss {lv:.6f}")
+    launches = registry.launch_counts()
+    res = {"peak_gib": peak_gib(),
+           "segment_agg_per_step": launches["segment_agg"] / GNN_TRAIN_STEPS,
+           "median_s": [float(np.median([r[j] for r in rows])) for j in range(3)],
+           "loss_first_last": [rows[0][3], rows[-1][3]]}
+    res["step_s"] = float(np.median([sum(r[:3]) for r in rows]))
+    check(DEVICE != "cuda" or launches["segment_agg"] == 3 * GNN_TRAIN_STEPS,
+          f"segment_agg launched {launches['segment_agg']} times in "
+          f"{GNN_TRAIN_STEPS} steps, expected 3 a step")
+    log(f"median per step: {res['step_s']:.6f} s = sample {res['median_s'][0]:.6f} + "
+        f"gather {res['median_s'][1]:.6f} + forward+backward+update "
+        f"{res['median_s'][2]:.6f}; loss {rows[0][3]:.6f} -> {rows[-1][3]:.6f}; "
+        f"max_memory_allocated {res['peak_gib']:.3f} GiB; segment_agg launches "
+        f"{res['segment_agg_per_step']:.0f} per step (forward only; the backward "
+        f"is plain)")
+
+    def two_steps():
+        s = state
+        for i in range(2):
+            s, _ = step(s, stream(GNN_TRAIN_STEPS + 10 + i))
+    res["device_ms_per_step"] = profile_device(two_steps, 2, "train step", "segment_agg")
+    return res
+
+
+def phase_lm_train_full(cfg=None, seq=None, batch=LM_TRAIN_BATCH,
+                        micro=LM_TRAIN_MICRO, steps=LM_TRAIN_STEPS):
+    """11d: qwen2-1.5b training at full width: train_4k cut to `batch`
+    sequences as `micro` microbatches, full remat, bf16 parameters and f32
+    AdamW moments: seconds, tokens/s, peak memory, launches per step (those
+    made inside the backward, remat's recomputed forwards, counted apart by
+    the registry in the same run), and the busy share over one more step."""
+    cfg = cfg or get_arch(LM_ARCH).CONFIG
+    seq = seq or get_arch(LM_ARCH).SHAPES[LM_TRAIN_SHAPE].seq_len
+    log(f"== phase 11d: {cfg.name} training at full width ({cfg.n_layers} layers, "
+        f"d_model {cfg.d_model}, {cfg.dtype} parameters, f32 AdamW moments): "
+        f"{LM_TRAIN_SHAPE} with global_batch 256 cut to {batch} = {micro} "
+        f"microbatches of {batch // micro} x {seq} tokens, remat=True, {steps} steps")
+    model = Transformer(cfg, device=DEVICE, seed=SEED)
+    tc = TrainConfig(optimizer=AdamWConfig(lr=3e-4), microbatches=micro, remat=True,
+                     warmup_steps=1, total_steps=steps)
+    stream = SyntheticTokenStream(cfg.vocab, batch, seq, seed=SEED, device=DEVICE)
+    state, step = init_train_state(model, tc), build_train_step(model, tc)
+    reset_peak()
+    registry.reset_launches()
+    times, losses = [], []
+    for i in range(steps):
+        t0 = time.perf_counter()
+        state, met = step(state, stream(i))
+        losses.append(float(met["loss"]))
+        times.append(time.perf_counter() - t0)
+        log(f"  step {i}: {times[-1]:.3f} s, loss {losses[-1]:.6f}, grad_norm "
+            f"{float(met['grad_norm']):.4f}")
+    launches = registry.launch_counts()["flash_attention"]
+    recomputed = registry.backward_launch_counts()["flash_attention"]
+    res = {"step_s": float(np.median(times)), "peak_gib": peak_gib(),
+           "losses": losses, "launches_per_step": launches / steps,
+           "recomputed_per_step": recomputed / steps,
+           "variants": registry.variant_counts("flash_attention")}
+    res["tokens_per_s"] = batch * seq / res["step_s"]
+    check(all(np.isfinite(losses)), f"losses not finite: {losses}")
+    want = micro * cfg.n_layers
+    check(DEVICE != "cuda" or (launches == steps * 2 * want
+                               and recomputed == steps * want),
+          f"flash_attention launched {launches} times in {steps} steps, "
+          f"{recomputed} of them in the backward; expected {2 * want} a step, "
+          f"{want} of them in the backward")
+    check(DEVICE != "cuda" or cfg.dtype != "bfloat16"
+          or res["variants"]["bf16_tc"] == launches,
+          f"launches by variant {res['variants']}: all must be the tensor-core kernel")
+    log(f"median step {res['step_s']:.3f} s, {res['tokens_per_s']:.0f} tokens/s, "
+        f"max_memory_allocated {res['peak_gib']:.3f} GiB; flash_attention "
+        f"{res['launches_per_step']:.0f} launches a step, "
+        f"{res['recomputed_per_step']:.0f} of them inside the backward (remat's "
+        f"recomputed forwards; {micro} microbatches x {cfg.n_layers} layers), "
+        f"by variant {res['variants']}")
+    batch0 = stream(steps + 2)
+    res["device_ms_per_step"] = profile_device(lambda: step(state, batch0), 1,
+                                               "train step", "flash_attention")
+    return res
+
+
+def phase_recsys_train_full(cfg=None, users=RECSYS_TRAIN_USERS,
+                            steps=RECSYS_TRAIN_STEPS):
+    """11e: bert4rec training at full width with the full-catalog softmax."""
+    cfg = cfg or get_arch(RECSYS_ARCH).CONFIG
+    log(f"== phase 11e: {cfg.name} training at full width ({cfg.n_items + 2} x "
+        f"{cfg.embed_dim} {cfg.dtype} table; train_batch 65,536 cut to {users} "
+        f"users x {cfg.seq_len} positions; full-catalog softmax; {steps} steps)")
+    model = Bert4Rec(cfg, device=DEVICE, seed=SEED)
+    tc = TrainConfig(optimizer=AdamWConfig(lr=1e-3), warmup_steps=1, total_steps=steps)
+    stream = MaskedSequenceStream(cfg.n_items, users, cfg.seq_len, seed=SEED,
+                                  device=DEVICE)
+    state, step = init_train_state(model, tc), build_train_step(model, tc)
+    step(state, stream(steps + 1))     # warm-up, outside the count
+    sync()
+    reset_peak()
+    times, losses = [], []
+    for i in range(steps):
+        t0 = time.perf_counter()
+        state, met = step(state, stream(i))
+        losses.append(float(met["loss"]))
+        times.append(time.perf_counter() - t0)
+    res = {"step_s": float(np.median(times)), "peak_gib": peak_gib(), "losses": losses}
+    check(all(np.isfinite(losses)), f"losses not finite: {losses}")
+    log(f"steps {[round(t, 4) for t in times]} s (median {res['step_s']:.4f} s), "
+        f"losses {[round(x, 6) for x in losses]}, max_memory_allocated "
+        f"{res['peak_gib']:.3f} GiB")
+    return res
+
+
+def phase_trainer_restart_worker():
+    """11f's body, in a process of its own (deterministic algorithms, with
+    cuBLAS's workspace set before the first product): the trainer with a
+    SimulatedFailure at RESTART_FAIL_AT and a checkpoint every
+    RESTART_INTERVAL steps under a temporary directory, against the same run
+    uninterrupted; prints the losses and "OK"."""
+    torch.use_deterministic_algorithms(True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = serve_cli.serve_config(LM_ARCH)
+    model = Transformer(cfg, device=DEVICE, seed=SEED)
+    tc = train_tc()
+    stream = SyntheticTokenStream(cfg.vocab, 4, 64, seed=SEED, device=DEVICE)
+    step = build_train_step(model, tc)
+    registry.reset_launches()
+    clean = trainer.run(init_train_state(model, tc), step, stream, num_steps=RESTART_STEPS)
+    fired = []
+
+    def fail(s):
+        if s == RESTART_FAIL_AT and not fired:
+            fired.append(s)
+            raise trainer.SimulatedFailure("injected")
+
+    with tempfile.TemporaryDirectory() as d:
+        rep = trainer.run(init_train_state(model, tc), step, stream, num_steps=RESTART_STEPS,
+                          ckpt_dir=d, ckpt_interval=RESTART_INTERVAL, fail_hook=fail)
+    # steps 0 .. FAIL_AT-1, then the retry from the last checkpoint
+    back = RESTART_FAIL_AT - RESTART_FAIL_AT % RESTART_INTERVAL
+    replay = rep.losses[:RESTART_FAIL_AT] + rep.losses[RESTART_FAIL_AT + RESTART_FAIL_AT - back:]
+    print(json.dumps({"clean": clean.losses, "restarted": rep.losses,
+                      "restarts": rep.restarts,
+                      "launches": registry.launch_counts()["flash_attention"]}))
+    check(rep.restarts == 1 and rep.final_step == RESTART_STEPS,
+          f"restarts {rep.restarts}, final step {rep.final_step}")
+    check(rep.losses[back:RESTART_FAIL_AT] == rep.losses[RESTART_FAIL_AT:2 * RESTART_FAIL_AT - back]
+          and replay == clean.losses,
+          f"restarted losses {rep.losses} differ from {clean.losses}")
+    check(DEVICE != "cuda" or registry.launch_counts()["flash_attention"] > 0,
+          "the trainer's steps did not launch flash_attention")
+    print("OK")
+
+
+def phase_trainer_restart():
+    """11f: the trainer restart on the card, in its own process."""
+    log(f"== phase 11f: trainer restart ({RESTART_STEPS} steps, SimulatedFailure at "
+        f"step {RESTART_FAIL_AT}, checkpoints every {RESTART_INTERVAL}) under "
+        "torch.use_deterministic_algorithms(True)")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               CUBLAS_WORKSPACE_CONFIG=":4096:8")
+    code = (f"import chip_smoke as cs; cs.DEVICE = {DEVICE!r}; "
+            "cs.phase_trainer_restart_worker()")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, env=env, timeout=300, cwd=ROOT)
+    log(proc.stdout.strip())
+    check(proc.returncode == 0 and proc.stdout.strip().endswith("OK"),
+          f"the trainer restart failed ({proc.returncode}): {proc.stderr[-3000:]}")
+    log(f"restarted losses equal the uninterrupted run's ({time.perf_counter() - t0:.1f} s)")
+
+
+def gnn_train_fields(gnn):
+    """11c's fields of the segment_agg entry of the JSON line."""
+    return {"launches_train_step": gnn["segment_agg_per_step"], "train_gnn": gnn}
+
+
+def run_train(with_gnn=True):
+    """The training path (phase 11) -> extra fields of the segment_agg and
+    flash_attention entries of the JSON line: their launches a train step
+    and their plain backwards' times. `main` runs 11c inside `run_gnn`, on
+    5d's stream, and passes with_gnn=False; alone, phase 11 builds that
+    stream for 11c."""
+    t0 = time.perf_counter()
+    cfg, shape, _ = gnn_setup()
+    phase_train_parity()
+    agg_bwd = phase_segment_agg_backward(agg_shapes(shape, cfg))
+    attn_bwd = phase_attention_backward(ATTN_BWD_SHAPES)
+    gnn = gnn_train_fields(phase_gnn_train_full()) if with_gnn else {}
+    lm = phase_lm_train_full()
+    rec = phase_recsys_train_full()
+    phase_trainer_restart()
+    log(f"phase 11{'' if with_gnn else ' (11c ran in the GNN path)'}: "
+        f"{time.perf_counter() - t0:.1f} s ({CARD})")
+    return {
+        "segment_agg": {"backward_plain": agg_bwd, **gnn},
+        "flash_attention": {"launches_train_step": lm["launches_per_step"],
+                            "launches_train_recomputed": lm["recomputed_per_step"],
+                            "backward_plain": attn_bwd, "train_lm": lm},
+        "embedding_bag": {"train_recsys": rec},
+    }
+
+
 def run_prune():
     """The prune path (phases 2-4), many queries against one graph (phase
     8) and a sharded graph (phase 9) -> their kernels' entries of the JSON
@@ -3484,12 +4073,17 @@ def run_prune():
 
 
 def run_gnn():
-    """The GNN path (phase 5) -> its kernel's entry of the JSON line."""
+    """The GNN path (phase 5), and its training on 5d's stream (11c) -> its
+    kernel's entry of the JSON line."""
     cfg, shape, _ = gnn_setup()
     phase_segment_agg_small()
     agg_rows = phase_segment_agg_timing(agg_shapes(shape, cfg))
     phase_gnn_parity()
-    launches = phase_gnn_full()
+    launches, stream = phase_gnn_full()
+    # 11c trains on 5d's graph and stream while they are on the card; they
+    # go when this returns, before phases 6 and 7 read their peak memory
+    train = gnn_train_fields(phase_gnn_train_full(stream))
+    del stream
     t = agg_rows[0]  # the largest call: second-hop neighbours
     return [{
         "name": "segment_agg", "route": "cuda",
@@ -3503,6 +4097,7 @@ def run_gnn():
         "other_shapes": [{k: r[k] for k in ("shape", "ms", "device_ms",
                                             "plain_ms", "bound_ms")}
                          for r in agg_rows[1:]],
+        **train,
     }]
 
 
@@ -3579,6 +4174,11 @@ def main():
         t0 = time.perf_counter()
         kernels += run()
         seconds[run.__name__] = round(time.perf_counter() - t0, 1)
+    t0 = time.perf_counter()
+    train = run_train(with_gnn=False)
+    seconds["run_train"] = round(time.perf_counter() - t0, 1)
+    for k in kernels:
+        k.update(train.get(k["name"], {}))
     log(f"total {time.perf_counter() - t_start:.1f} s (by path: {seconds})")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -18,10 +18,11 @@ host numpy arrays.
 
 The on-disk layout and the manifest keys are the JAX package's: a tree is
 flattened as `jax.tree_util` flattens it (dict keys sorted, lists and
-tuples in order), its leaves saved as `a0, a1, ...` in that order under
+tuples in order; `optim/tree.py`, the port's one walk), its leaves saved as `a0, a1, ...` in that order under
 keys like `'omega'` or `'z'/1/'a'`, so a directory written by either
 package restores in the other. Trees are nested dicts, lists and tuples of
-arrays (numpy arrays or torch tensors, saved from the host).
+arrays (numpy arrays or torch tensors, saved from the host; numpy has no
+bf16, so a bf16 tensor is saved as f32, which holds it exactly).
 """
 from __future__ import annotations
 
@@ -35,20 +36,7 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 
-
-def _flatten(tree, path: Tuple[str, ...] = ()) -> List[Tuple[str, Any]]:
-    """(key, leaf) pairs in the JAX package's leaf order and key spelling."""
-    if isinstance(tree, dict):
-        out = []
-        for k in sorted(tree):
-            out += _flatten(tree[k], path + (repr(k),))
-        return out
-    if isinstance(tree, (list, tuple)):
-        out = []
-        for i, v in enumerate(tree):
-            out += _flatten(v, path + (str(i),))
-        return out
-    return [("/".join(path), tree)]
+from repro_torch.optim.tree import keyed_leaves, unflatten
 
 
 def _treedef(tree) -> str:
@@ -64,22 +52,12 @@ def _treedef(tree) -> str:
     return "*"
 
 
-def _unflatten(like, leaves: List[Any]):
-    it = iter(leaves)
-
-    def build(t):
-        if isinstance(t, dict):
-            return {k: build(t[k]) for k in sorted(t)}
-        if isinstance(t, (list, tuple)):
-            return type(t)(build(v) for v in t)
-        return next(it)
-
-    return build(like)
-
-
 def _host(leaf) -> np.ndarray:
     if hasattr(leaf, "detach"):  # a torch tensor, on any device
-        leaf = leaf.detach().cpu().numpy()
+        leaf = leaf.detach().cpu()
+        if str(leaf.dtype) == "torch.bfloat16":  # numpy has none: f32 holds it
+            leaf = leaf.float()
+        leaf = leaf.numpy()
     return np.asarray(leaf)
 
 
@@ -91,7 +69,7 @@ def save_checkpoint(
     keep: int = 3,
 ) -> str:
     os.makedirs(directory, exist_ok=True)
-    pairs = _flatten(tree)
+    pairs = keyed_leaves(tree)
     arrays = {f"a{i}": _host(leaf) for i, (_, leaf) in enumerate(pairs)}
     manifest = {
         "step": step,
@@ -205,7 +183,7 @@ def restore_checkpoint(
     with open(os.path.join(path, "manifest.json")) as f:
         manifest = json.load(f)
     data = np.load(os.path.join(path, "arrays.npz"))
-    likes = [leaf for _, leaf in _flatten(like_tree)]
+    likes = [leaf for _, leaf in keyed_leaves(like_tree)]
     keys = manifest["keys"]
     if len(likes) != len(keys):
         raise ValueError(f"checkpoint has {len(keys)} leaves, expected "
@@ -236,9 +214,9 @@ def restore_checkpoint(
     if device is not None:
         import torch
 
-        leaves = [torch.from_numpy(np.ascontiguousarray(a)).to(device)
+        leaves = [torch.from_numpy(np.ascontiguousarray(a).reshape(a.shape)).to(device)
                   for a in leaves]
-    return (_unflatten(like_tree, leaves),
+    return (unflatten(like_tree, leaves),
             manifest["meta"] | {"step": manifest["step"]})
 
 

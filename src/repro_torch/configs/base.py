@@ -6,14 +6,15 @@ One module per architecture lives next to this file; each exposes
   SHAPES  — the arch's own input-shape set
   smoke() — a reduced same-family config for CPU tests
 
-Of `LMConfig` the port keeps the fields the dense GQA path reads and
-those it refuses: `attention`, `moe`, `mtp`, `qk_norm`, `mlp`, `norm`,
-`fused_ce`, `dtype` and a `window` in the decode cache raise
-`NotImplementedError` in the model (`models/transformer.py`). Left out: the
-MLA ranks and head dims, the MoE sizes and routing knobs, and the JAX
-package's training and sharding knobs, which no port code reads.
-`RecsysConfig` is the JAX package's field for field (`fused_ce` and
-`n_negatives` raise in `models/bert4rec.py`). Of `GNNConfig` the port keeps
+Of `LMConfig` the port keeps the fields the dense GQA path reads, its
+training knobs (`fused_ce`, `remat_policy`, `train_microbatches`), and the
+fields it refuses: `attention`, `moe`, `mtp`, `qk_norm`, `mlp`, `norm`,
+`dtype` and a `window` in the decode cache raise `NotImplementedError` in
+the model (`models/transformer.py`). Left out: the MLA ranks and head dims,
+the MoE sizes and routing knobs (`router_aux_coef` with them: the dense
+layers' aux loss is 0), and the JAX package's sharding knobs, which no port
+code reads. `RecsysConfig` is the JAX package's field for field. Of
+`GNNConfig` the port keeps
 the fields it reads. Left out: the knobs of the JAX package's sharded
 message passing (`distributed`, `message_dtype`), which the one-device port
 does not have; `sample_sizes`, since the sampled path takes its fanouts
@@ -48,6 +49,8 @@ class LMConfig:
     moe: bool = False                       # deepseek MoE
     mtp: bool = False                       # deepseek-v3 multi-token prediction
     fused_ce: int = 0            # >0: blockwise cross-entropy (training)
+    remat_policy: str = "full"   # "full" | "dots" (save matmul outputs)
+    train_microbatches: int = 0  # 0 = launcher default
     # numerics
     dtype: str = "bfloat16"
     norm_eps: float = 1e-6

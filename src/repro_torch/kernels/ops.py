@@ -17,6 +17,11 @@ here. The hard limits are the grids (ceil(n / 8) blocks for `bitset_spmm`
 at W > 2, ceil(n / 256) for the wave's worklist pass, below CUDA's
 2^31 - 1) and the wave's int32 item counts (`wave_item_capacity`).
 
+`segment_agg` and `attention` have gradients: on an input that requires
+grad each runs in an autograd Function whose forward is the kernel (or the
+plain version on the CPU) and whose backward is the plain one in
+`ref.py`. `embedding_bag` refuses such inputs.
+
 `attention` has two kernels: bf16 inputs take the tensor-core kernel
 (`csrc/flash_attention_sm90.cu`, variant "bf16_tc"), f32 inputs the
 CUDA-core kernel (`csrc/flash_attention.cu`, variant "f32").
@@ -58,9 +63,13 @@ def _stream(t: torch.Tensor) -> int:
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
+def _needs_grad(*ts: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
+
+
 def _no_grad_input(name: str, *ts: torch.Tensor) -> None:
-    """The float kernels have no backward yet: refuse inputs that need one."""
-    if torch.is_grad_enabled() and any(t.requires_grad for t in ts):
+    """`embedding_bag` has no backward yet: refuse inputs that need one."""
+    if _needs_grad(*ts):
         raise RuntimeError(
             f"{name}'s CUDA kernel has no backward: run it under "
             "torch.no_grad() or on tensors that do not require grad")
@@ -245,7 +254,6 @@ def bitset_wave(
 def _segment_agg_cuda(feats, mask):
     from repro_torch.kernels import build
 
-    _no_grad_input("segment_agg", feats)
     if mask.device != feats.device:
         raise ValueError(f"mask is on {mask.device}, feats on {feats.device}")
     feats = feats.contiguous()
@@ -279,9 +287,32 @@ def segment_agg(
     if mask.dtype != torch.bool or mask.shape != feats.shape[:2]:
         raise ValueError(f"mask must be bool{list(feats.shape[:2])}, got "
                          f"{mask.dtype}{list(mask.shape)}")
+    if _needs_grad(feats):
+        return _SegmentAgg.apply(feats, mask)
+    return _segment_agg_forward(feats, mask)
+
+
+def _segment_agg_forward(feats, mask):
     if registry.use_kernel("segment_agg", feats):
         return _segment_agg_cuda(feats, mask)
     return _ref.segment_agg_ref(feats, mask)
+
+
+class _SegmentAgg(torch.autograd.Function):
+    """`segment_agg` with a gradient: the forward is the kernel (on the card)
+    or its plain version (on the CPU), the backward the plain
+    `ref.segment_agg_backward` on either, as the JAX package differentiates
+    its plain reference."""
+
+    @staticmethod
+    def forward(ctx, feats, mask):
+        ctx.save_for_backward(feats, mask)
+        return _segment_agg_forward(feats, mask)
+
+    @staticmethod
+    def backward(ctx, grad):
+        feats, mask = ctx.saved_tensors
+        return _ref.segment_agg_backward(feats, mask, grad), None
 
 
 def neighborhood_agg(
@@ -296,7 +327,10 @@ def neighborhood_agg(
     deg = degrees.clamp_min(1.0)[:, None]
     empty = (degrees <= 0)[:, None]
     mean = s / deg
-    var = (sq / deg - mean * mean).clamp_min(0.0)
+    # a maximum that splits its gradient at a tie, as jnp.maximum does
+    # (clamp_min passes all of it): the variance of a degree-1 row is 0
+    var = sq / deg - mean * mean
+    var = torch.maximum(var, torch.zeros_like(var))
     zero = torch.zeros_like(s)
     return {
         "sum": s,
@@ -359,7 +393,6 @@ def tma_strides(name: str, t: torch.Tensor):
 def _attention_cuda(q, k, v, causal, window):
     from repro_torch.kernels import build
 
-    _no_grad_input("flash_attention", q, k, v)
     b, hq, s, d = q.shape
     variant = attention_variant(q.dtype, d)
     if variant == "f32" and (b > 65535 or hq > 65535):
@@ -416,9 +449,37 @@ def attention(
                          f"{q.dtype}, {k.dtype}, {v.dtype}")
     if window is not None and window < 1:
         raise ValueError(f"window must be None or >= 1, got {window}")
+    if _needs_grad(q, k, v):
+        return _Attention.apply(q, k, v, causal, window)
+    return _attention_forward(q, k, v, causal, window)
+
+
+def _attention_forward(q, k, v, causal, window):
     if registry.use_kernel("flash_attention", q):
         return _attention_cuda(q, k, v, causal, window)
     return _ref.attention_plain(q, k, v, causal=causal, window=window)
+
+
+class _Attention(torch.autograd.Function):
+    """`attention` with a gradient: the forward is the kernel (on the card)
+    or its plain version (on the CPU), the backward the plain
+    `ref.attention_backward` on either, recomputed from the saved q, k and v
+    in f32, as the JAX package differentiates its plain reference. A bf16
+    forward on the card rounds the softmax weights to bf16 before p v; the
+    backward does not."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window):
+        ctx.save_for_backward(q, k, v)
+        ctx.causal, ctx.window = causal, window
+        return _attention_forward(q, k, v, causal, window)
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v = ctx.saved_tensors
+        dq, dk, dv = _ref.attention_backward(q, k, v, do, causal=ctx.causal,
+                                             window=ctx.window)
+        return dq, dk, dv, None, None
 
 
 # ----------------------------------------------------------- embedding_bag

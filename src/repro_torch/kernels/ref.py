@@ -4,7 +4,10 @@ They compute what the CUDA kernels in `csrc/` compute, with plain
 tensor operations, on any device. The CPU path of every wrapper in `ops.py`
 runs them, the tests hold them against the JAX package's oracles, and
 `chip_smoke.py` holds each CUDA kernel against them on the card. Nothing on
-the CUDA path calls them.
+the CUDA path calls the plain forwards. The two backwards
+(`segment_agg_backward`, `attention_backward`) are the gradients of their
+kernels on both devices: the JAX package differentiates its plain oracles
+and has no backward kernel.
 
 Packed words are int32 (see `core/state.py`).
 """
@@ -107,6 +110,35 @@ def segment_agg_ref(feats: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     return torch.stack([s, mn, mx, sq], dim=1)
 
 
+def segment_agg_backward(feats: torch.Tensor, mask: torch.Tensor,
+                         grad: torch.Tensor) -> torch.Tensor:
+    """The vector-Jacobian product of `segment_agg_ref` (what JAX's autodiff
+    of the reference's `segment_agg_ref` computes; the JAX package has no
+    backward kernel): grad f32[NT, 4, F], the cotangent of (sum, min, max,
+    sum of squares) -> the cotangent of feats, in feats' dtype.
+
+    The sum's cotangent goes to every valid slot, the sum of squares' as
+    2 x g. The min's and the max's go to the slots that hold the extremum,
+    split equally among tied slots (`jnp.min`/`jnp.max`'s rule: a masked
+    slot holding the +-BIG identity counts in the tie, as it does there). A
+    masked slot gets 0 whatever it holds: the product 2 x g is replaced, not
+    multiplied by the mask, so a NaN or Inf there cannot leak (JAX's
+    autodiff gives 2 x 0 = NaN in a masked NaN slot)."""
+    x = feats.float()
+    valid = mask[:, :, None]
+    g = grad.float()
+    gs, gmn, gmx, gsq = (g[:, i, None, :] for i in range(4))
+    xmn = torch.where(valid, x, SEGMENT_AGG_BIG)
+    xmx = torch.where(valid, x, -SEGMENT_AGG_BIG)
+    at_mn = xmn == xmn.amin(1, keepdim=True)
+    at_mx = xmx == xmx.amax(1, keepdim=True)
+    dx = (gs
+          + torch.where(at_mn, gmn / at_mn.sum(1, keepdim=True), 0.0)
+          + torch.where(at_mx, gmx / at_mx.sum(1, keepdim=True), 0.0)
+          + 2.0 * x * gsq)
+    return torch.where(valid, dx, 0.0).to(feats.dtype)
+
+
 # The masked logit of the attention kernels and of their plain versions.
 ATTENTION_NEG_INF = -1e30
 
@@ -150,6 +182,52 @@ def attention_ref(
     logits = torch.where(live, logits, ATTENTION_NEG_INF)
     probs = torch.softmax(logits, dim=-1)
     return torch.einsum("bhqk,bhkd->bhqd", probs, v.float()).to(q.dtype)
+
+
+def attention_backward(
+    q: torch.Tensor,   # [B, Hq, S, D]
+    k: torch.Tensor,   # [B, Hkv, S, D]
+    v: torch.Tensor,   # [B, Hkv, S, D]
+    do: torch.Tensor,  # [B, Hq, S, D], the output's cotangent
+    *,
+    causal: bool = True,
+    window=None,
+):
+    """The vector-Jacobian product of `attention_ref` (JAX's autodiff of the
+    reference's oracle; the JAX package has no backward kernel) -> (dq, dk,
+    dv) in the inputs' dtype.
+
+    Recomputed from q, k and v in f32, one (batch, kv head) chunk at a time:
+    the chunk's group of Hq / Hkv query heads against its kv head, so at
+    most one [Hq / Hkv, S, S] plane of logits is live, never [B, Hq, S, S].
+    Masked pairs get no gradient; dk and dv sum over the query heads of the
+    group (the transpose of `_repeat_kv`). With bf16 inputs the forward
+    kernel rounds the softmax weights p to bf16 before p v; this backward
+    does not (it differentiates the f32 oracle)."""
+    b, hq, s, d = q.shape
+    hkv = k.shape[1]
+    group = hq // hkv
+    scale = 1.0 / d ** 0.5
+    pos = torch.arange(s, device=q.device)
+    live = _attention_live(pos, pos, causal, window)
+    dq = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    dk = torch.empty(k.shape, dtype=torch.float32, device=q.device)
+    dv = torch.empty(v.shape, dtype=torch.float32, device=q.device)
+    for bi in range(b):
+        for j in range(hkv):
+            heads = slice(j * group, (j + 1) * group)
+            qc = q[bi, heads].float()                 # [G, S, D]
+            kc, vc = k[bi, j].float(), v[bi, j].float()  # [S, D]
+            doc = do[bi, heads].float()
+            logits = torch.where(live, (qc @ kc.T) * scale, ATTENTION_NEG_INF)
+            p = torch.softmax(logits, dim=-1)          # [G, S, S]
+            dp = doc @ vc.T
+            dv[bi, j] = (p.transpose(1, 2) @ doc).sum(0)
+            dl = p * (dp - (p * dp).sum(-1, keepdim=True))
+            dl = torch.where(live, dl, 0.0) * scale
+            dq[bi, heads] = dl @ kc
+            dk[bi, j] = (dl.transpose(1, 2) @ qc).sum(0)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def attention_blockwise(

@@ -13,7 +13,9 @@ Each kernel has a plain-integer launch count that its wrapper raises by one
 for every kernel launch, and nowhere else, so a run can show that it went
 through the kernels. A kernel with more than one variant (`flash_attention`:
 "bf16_tc" on the tensor cores, "f32" on the CUDA cores) also counts each
-variant's launches.
+variant's launches. Launches made while the autograd engine runs a backward
+(the forwards that `remat` recomputes there) are also counted apart
+(`backward_launch_counts`).
 
 Route names are the JAX package's. Without a pin or a tuned policy, the LCC
 sweep takes the packed route (`bitset_spmm`), NLCC waves take the fused
@@ -74,6 +76,7 @@ VARIANTS = {"flash_attention": ("bf16_tc", "f32")}
 _launches: Dict[str, int] = {name: 0 for name in KERNELS}
 _variant_launches: Dict[str, Dict[str, int]] = {
     name: {v: 0 for v in variants} for name, variants in VARIANTS.items()}
+_backward_launches: Dict[str, int] = {name: 0 for name in KERNELS}
 
 
 def uses_kernel(t: torch.Tensor) -> bool:
@@ -163,6 +166,9 @@ def count_launch(name: str, k: int = 1, variant: Optional[str] = None) -> None:
     _launches[name] += k
     if variant is not None:
         _variant_launches[name][variant] += k
+    # -1 outside a backward; the engine's threads carry the id of its task
+    if torch._C._current_graph_task_id() != -1:
+        _backward_launches[name] += k
 
 
 def reset_launches() -> None:
@@ -170,6 +176,7 @@ def reset_launches() -> None:
     for name in _launches:
         _launches[name] = 0
         _plain_calls[name] = 0
+        _backward_launches[name] = 0
     for counts in _variant_launches.values():
         for variant in counts:
             counts[variant] = 0
@@ -177,6 +184,13 @@ def reset_launches() -> None:
 
 def launch_counts() -> Dict[str, int]:
     return dict(_launches)
+
+
+def backward_launch_counts() -> Dict[str, int]:
+    """Launches made inside a backward since the last reset, by kernel: the
+    forwards that activation checkpointing recomputes. They are part of
+    `launch_counts` too."""
+    return dict(_backward_launches)
 
 
 def variant_counts(name: str) -> Dict[str, int]:

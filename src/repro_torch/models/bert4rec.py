@@ -16,17 +16,26 @@ FFN, and the tied output projection:
                     (bags of one id, `kernels/ops.py`), then one [B, D] x
                     [D, C] product in f32
 
+  loss              the Cloze training loss, with the JAX package's three
+                    objectives: the full-catalog softmax, the same streamed
+                    over item blocks (`fused_ce`), and a sampled softmax
+                    over shared negatives (`n_negatives`) drawn as the
+                    reference draws them (`models/prng.py`)
+
 Parameters keep the JAX layout and are keyed by the flattened JAX paths
 ("items", "blocks_0_wq", ...), so `load_jax_params` copies a JAX parameter
-tree as it is. Inference only: parameters do not require grad, and the
-training loss (`loss_fn`, with its `fused_ce` and `n_negatives` variants,
-which raise here) waits for the training slice.
+tree as it is (`param_paths` gives each name's path). The parameters do not
+require grad, so serving runs without autograd; training (`train/step.py`)
+differentiates `loss_fn` with respect to its own tensors, substituted for
+them. No training loss reaches `embedding_bag`: the loss gathers rows by
+indexing, as the reference's `take` does.
 """
 from __future__ import annotations
 
 import math
 from typing import Dict
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -34,11 +43,22 @@ from repro_torch.configs.base import RecsysConfig
 from repro_torch.graph.structs import resolve_device
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.ref import ATTENTION_NEG_INF
-from repro_torch.models import common
+from repro_torch.models import common, prng
 from repro_torch.models.transformer import DTYPES
 
 _BLOCK_KEYS = ("wq", "wk", "wv", "wo", "ln1_g", "ln1_b", "w_in", "b_in",
                "w_out", "b_out", "ln2_g", "ln2_b")
+
+
+def negatives(items: torch.Tensor, n_negatives: int, n_items: int) -> torch.Tensor:
+    """The shared negatives of a batch, as the reference draws them:
+    `randint(fold_in(key(0), seed), (n_negatives,), 1, n_items + 1)` with
+    seed = the uint32 sum of the item ids (wrapping at 2^32) mod 2^31 - 1;
+    drawn on the host -> int64[n_negatives] on items' device."""
+    total = items.detach().cpu().numpy().astype(np.uint32).sum(dtype=np.uint32)
+    seed = int(total % np.uint32(2**31 - 1))
+    negs = prng.randint(prng.fold_in(prng.key(0), seed), n_negatives, 1, n_items + 1)
+    return torch.from_numpy(negs.astype(np.int64)).to(items.device)
 
 
 class Bert4Rec(nn.Module):
@@ -49,10 +69,6 @@ class Bert4Rec(nn.Module):
 
     def __init__(self, cfg: RecsysConfig, device=None, seed: int = 0):
         super().__init__()
-        for name in ("fused_ce", "n_negatives"):
-            if getattr(cfg, name):
-                raise NotImplementedError(
-                    f"{cfg.name}: {name} (a training loss) is not ported")
         if cfg.dtype not in DTYPES:
             raise NotImplementedError(f"{cfg.name}: dtype {cfg.dtype!r}")
         dev = resolve_device(device)
@@ -99,6 +115,18 @@ class Bert4Rec(nn.Module):
         common.load_flat(self.params, tree)
         return self
 
+    def param_paths(self) -> Dict[str, tuple]:
+        """Each parameter's name -> its path in the JAX parameter tree
+        ("blocks_0_wq" -> ("blocks", 0, "wq"))."""
+        paths = {}
+        for name in self.params:
+            if name.startswith("blocks_"):
+                i, k = name[len("blocks_"):].split("_", 1)
+                paths[name] = ("blocks", int(i), k)
+            else:
+                paths[name] = (name,)
+        return paths
+
     def _block(self, i: int, x: torch.Tensor, pad_mask: torch.Tensor) -> torch.Tensor:
         p = {k: self.params[f"blocks_{i}_{k}"] for k in _BLOCK_KEYS}
         b, s, d = x.shape
@@ -129,6 +157,37 @@ class Bert4Rec(nn.Module):
     def logits_all_items(self, h: torch.Tensor) -> torch.Tensor:
         return h @ self.params["items"].T + self.params["out_bias"]
 
+    def loss(self, batch) -> tuple:
+        """The Cloze objective over {"items", "labels", "mlm_mask"} [B, S]
+        -> (loss, {"ce": loss}), the JAX package's `loss_fn`: the mean NLL
+        of the masked positions under the full-catalog softmax; with
+        `cfg.fused_ce` > 0 the same streamed over item blocks of that size
+        (the bias as one more row of the head, h with a column of ones);
+        with `cfg.n_negatives` > 0 a softmax over the gold item and the
+        batch's shared negatives."""
+        cfg, p = self.cfg, self.params
+        h = self.encode(batch["items"])
+        labels, mask = batch["labels"], batch["mlm_mask"]
+        if cfg.n_negatives:
+            negs = negatives(batch["items"], cfg.n_negatives, cfg.n_items)
+            lab = labels.reshape(-1).long()
+            hf = h.reshape(lab.shape[0], -1).float()
+            pos = ((hf * p["items"][lab].float()).sum(-1)
+                   + p["out_bias"][lab].float())
+            neg = hf @ p["items"][negs].T.float() + p["out_bias"][negs].float()
+            logz = torch.logsumexp(torch.cat([pos[:, None], neg], dim=1), dim=-1)
+            mk = mask.reshape(-1).float()
+            loss = ((logz - pos) * mk).sum() / mk.sum().clamp_min(1.0)
+        elif cfg.fused_ce:
+            head = torch.cat([p["items"].T, p["out_bias"][None, :].to(p["items"].dtype)],
+                             dim=0)
+            ones = torch.ones(h.shape[:-1] + (1,), dtype=h.dtype, device=h.device)
+            loss = common.blockwise_cross_entropy(
+                torch.cat([h, ones], dim=-1), head, labels, mask, block=cfg.fused_ce)
+        else:
+            loss = common.cross_entropy(self.logits_all_items(h), labels, mask)
+        return loss, {"ce": loss}
+
     def serve_scores(self, item_ids: torch.Tensor) -> torch.Tensor:
         """Next-item logits over the full catalog from the last position."""
         return self.logits_all_items(self.encode(item_ids)[:, -1])
@@ -145,3 +204,9 @@ class Bert4Rec(nn.Module):
             torch.ones((c, 1), dtype=torch.float32, device=candidate_ids.device))
         return (h.float() @ cand.T.float()
                 + self.params["out_bias"][candidate_ids.long()].float())
+
+
+def loss_fn(model: Bert4Rec, batch):
+    """The training loss (the JAX package's `loss_fn(params, cfg, batch)`,
+    with the model in place of params and cfg) -> (loss, metrics)."""
+    return model.loss(batch)

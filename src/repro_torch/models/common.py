@@ -8,12 +8,16 @@ same seed, so a comparison carries the JAX weights across (each model's
 from __future__ import annotations
 
 import math
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+# the running maximum's start and a padded column's logit in the reference's
+# blockwise loss
+CE_NEG_INF = -1e30
 
 
 def dense_init(gen: torch.Generator, d_in: int, d_out: int) -> torch.Tensor:
@@ -64,6 +68,130 @@ def load_flat(params: Mapping[str, torch.Tensor], tree) -> None:
     with torch.no_grad():
         for k, v in flat.items():
             params[k].copy_(torch.from_numpy(np.array(v, dtype=np.float32)))
+
+
+def nest(flat: Mapping[str, torch.Tensor],
+         paths: Mapping[str, Tuple]) -> Dict:
+    """A nested tree (dicts, and lists where a path holds an int) of the
+    tensors of `flat`, each at `paths[name]`: a model's parameters in the
+    JAX package's tree ("dense_layers_attn_wq" -> ["dense_layers"]["attn"]
+    ["wq"], "layers.0.w" -> ["layers"][0]["w"])."""
+    root: Dict = {}
+    for name, path in paths.items():
+        node = root
+        for key, nxt in zip(path[:-1], path[1:]):
+            if key not in node:
+                node[key] = {}
+            node = node[key]
+        node[path[-1]] = flat[name]
+
+    def lists(t):
+        if not isinstance(t, dict):
+            return t
+        if t and all(isinstance(k, int) for k in t):
+            return [lists(t[i]) for i in range(len(t))]
+        return {k: lists(v) for k, v in t.items()}
+
+    return lists(root)
+
+
+def unnest(tree, paths: Mapping[str, Tuple]) -> Dict[str, torch.Tensor]:
+    """The inverse of `nest`: {name: the leaf at paths[name]}."""
+    out = {}
+    for name, path in paths.items():
+        node = tree
+        for key in path:
+            node = node[key]
+        out[name] = node
+    return out
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean token-level CE in f32. logits [..., V], labels int[...]; with a
+    mask, the mean over its true entries (at least 1)."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, labels.long()[..., None])[..., 0]
+    nll = logz - gold
+    if mask is not None:
+        m = mask.float()
+        return (nll * m).sum() / m.sum().clamp_min(1.0)
+    return nll.mean()
+
+
+class _BlockwiseCE(torch.autograd.Function):
+    """Mean token NLL streamed over vocabulary blocks; the backward
+    recomputes each block's logits instead of keeping them."""
+
+    @staticmethod
+    def forward(ctx, h, head, labels, mk, denom, block):
+        lse = torch.full(labels.shape, CE_NEG_INF, device=h.device)
+        l = torch.zeros(labels.shape, device=h.device)
+        gold = torch.zeros(labels.shape, device=h.device)
+        h32 = h.float()
+        for off in range(0, head.shape[1], block):
+            # bf16 products summed in f32 (preferred_element_type=f32)
+            logits = h32 @ head[:, off:off + block].float()
+            m_new = torch.maximum(lse, logits.amax(1))
+            l = l * torch.exp(lse - m_new) + torch.exp(
+                logits - m_new[:, None]).sum(1)
+            lse = m_new
+            idx = labels - off
+            in_blk = (idx >= 0) & (idx < logits.shape[1])
+            gold = gold + torch.where(
+                in_blk, logits.gather(1, idx.clamp(0, logits.shape[1] - 1)[:, None])[:, 0],
+                0.0)
+        lse = lse + torch.log(l.clamp_min(1e-30))
+        ctx.save_for_backward(h, head, labels, mk, denom, lse)
+        ctx.block = block
+        return ((lse - gold) * mk).sum() / denom
+
+    @staticmethod
+    def backward(ctx, g):
+        h, head, labels, mk, denom, lse = ctx.saved_tensors
+        h32 = h.float()
+        w = g * mk / denom
+        dh = torch.zeros(h32.shape, device=h.device)
+        dhead = torch.empty(head.shape, dtype=torch.float32, device=h.device)
+        for off in range(0, head.shape[1], ctx.block):
+            hb = head[:, off:off + ctx.block].float()
+            dl = torch.exp(h32 @ hb - lse[:, None])      # softmax over the vocab
+            idx = labels - off
+            in_blk = (idx >= 0) & (idx < hb.shape[1])
+            rows = torch.nonzero(in_blk).squeeze(1)
+            dl[rows, idx[rows]] -= 1.0
+            dl = dl * w[:, None]
+            dh += dl @ hb.T
+            dhead[:, off:off + ctx.block] = h32.T @ dl
+        return dh.to(h.dtype), dhead.to(head.dtype), None, None, None, None
+
+
+def blockwise_cross_entropy(h: torch.Tensor, head: torch.Tensor,
+                            labels: torch.Tensor,
+                            mask: Optional[torch.Tensor] = None,
+                            block: int = 8192) -> torch.Tensor:
+    """Fused softmax-CE streamed over vocabulary blocks (the JAX package's
+    `blockwise_cross_entropy`): the [T, V] logits are never materialised.
+    A loop over V / block blocks carries a running (max, denominator, gold
+    logit) per token, the online-softmax recurrence of flash attention
+    applied to the loss; each block's product sums h's dtype in f32. The
+    backward recomputes each block's logits from h and head, so it keeps
+    one [T, block] plane, not V / block of them. The last block is shorter
+    where the reference pads it with masked columns, which add nothing.
+
+    h [..., D], head [D, V], labels int[...]. Returns the mean token NLL
+    (over mask's true entries, at least 1, with a mask)."""
+    d = head.shape[0]
+    ht = h.reshape(-1, d)
+    lab = labels.reshape(-1).long()
+    if mask is not None:
+        mk = mask.reshape(-1).float()
+        denom = mk.sum().clamp_min(1.0)
+    else:
+        mk = torch.ones(lab.shape, device=h.device)
+        denom = torch.tensor(float(lab.shape[0]), device=h.device)
+    return _BlockwiseCE.apply(ht, head, lab, mk, denom, block)
 
 
 def rms_norm(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:

@@ -15,9 +15,11 @@ Batched small graphs (molecule) are block-diagonal: the same full-graph code
 runs unchanged on the concatenated node and arc arrays.
 
 Weights keep the JAX layout, [d_in, d_out], so `load_jax_params` copies a
-JAX parameter tree as it is. This slice is inference only: the parameters do
-not require grad, and the `segment_agg` kernel raises on inputs that do (it
-has no backward yet).
+JAX parameter tree as it is, and `param_paths` names each parameter's place
+in that tree. The parameters do not require grad, so serving runs without
+autograd; training (`train/step.py`) differentiates `loss_fn` with respect
+to its own tensors, substituted for them, and gradients flow through the
+`segment_agg` kernel (its backward is the plain one, `kernels/ref.py`).
 """
 from __future__ import annotations
 
@@ -65,7 +67,10 @@ def _agg_stats(x, src, dst, n):
     degc = deg.clamp_min(1.0)[:, None]
     mean = s / degc
     # +eps inside sqrt: d/dx sqrt(x) -> inf at 0 would NaN a backward pass
-    std = torch.sqrt((sq / degc - mean * mean).clamp_min(0.0) + 1e-12)
+    # jnp.maximum splits its gradient at a tie (a degree-1 vertex, a column
+    # that ReLU zeroed); clamp_min would pass all of it
+    var = sq / degc - mean * mean
+    std = torch.sqrt(torch.maximum(var, torch.zeros_like(var)) + 1e-12)
     empty = (deg <= 0)[:, None]
     big = float(np.finfo(np.float32).max)
     mn = torch.where(empty | (mn >= big), 0.0, mn)
@@ -166,6 +171,14 @@ class GNN(nn.Module):
     def device(self) -> torch.device:
         return self.head["w"].device
 
+    def param_paths(self) -> Dict[str, tuple]:
+        """Each parameter's name -> its path in the JAX parameter tree
+        ("layers.0.mlp_w1" -> ("layers", 0, "mlp", "w1"))."""
+        groups = [(f"layers.{i}", ("layers", i), p) for i, p in enumerate(self.layers)]
+        groups.append(("head", ("head",), self.head))
+        return {f"{prefix}.{k}": base + (("mlp", k[4:]) if k.startswith("mlp_") else (k,))
+                for prefix, base, p in groups for k in p.keys()}
+
     def load_jax_params(self, tree: Mapping) -> "GNN":
         """Copy a JAX parameter tree ({"layers": [...], "head": {...}}, leaves
         as numpy arrays) into this module; names and shapes must match."""
@@ -261,3 +274,11 @@ class GNN(nn.Module):
             m = mask.float()
             return (nll * m).sum() / m.sum().clamp_min(1.0)
         return nll.mean()
+
+
+def loss_fn(model: GNN, batch: Mapping):
+    """The training loss (the JAX package's `loss_fn(params, cfg, batch)`,
+    with the model in place of params and cfg) -> (loss, metrics): node
+    classification CE over `train_mask`, through the sampled forward for a
+    sampled batch."""
+    return model.loss(batch), {}

@@ -12,25 +12,34 @@
                    the whole cache, positions past `pos` masked with -1e30,
                    as in the JAX package (no kernel there either)
 
+  loss_fn          the training loss: next-token CE, plain or blockwise
+                   (`fused_ce`), with `remat` around each layer
+
 Parameters keep the JAX layout and names: the layers are stacked with a
 leading [n_layers] axis, and `params` is keyed by the flattened JAX paths
 ("dense_layers_attn_wq", "final_norm_g", ...), so `load_jax_params` copies a
-JAX parameter tree as it is. The module is inference only: parameters do
-not require grad. There is no MoE, so `forward` returns the logits without
-the JAX function's router aux loss (always 0 on this path).
+JAX parameter tree as it is (`param_paths` gives each name's path). The
+parameters do not require grad, so serving runs without autograd; training
+(`train/step.py`) differentiates `loss_fn` with respect to its own tensors,
+substituted for them, and gradients flow through the `flash_attention`
+kernel (its backward is the plain one, `kernels/ref.py`). There is no MoE,
+so `forward` returns the logits without the JAX function's router aux loss
+(always 0 on this path).
 
 Config fields whose code paths the port does not have raise
 `NotImplementedError`: MLA attention, MoE, MTP, qk-norm, the GELU MLP and
-LayerNorm, `fused_ce` (a training loss), and a sliding window in the decode
-cache (the ring buffer); a window in `forward` runs through the kernel.
+LayerNorm, and a sliding window in the decode cache (the ring buffer); a
+window in `forward` runs through the kernel.
 """
 from __future__ import annotations
 
+import functools
 import math
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 import torch
 from torch import nn
+from torch.utils import checkpoint as _ckpt
 
 from repro_torch.configs.base import LMConfig
 from repro_torch.graph.structs import resolve_device
@@ -51,12 +60,20 @@ def check_supported(cfg: LMConfig) -> None:
         ("qk_norm", cfg.qk_norm),
         (f"mlp={cfg.mlp!r}", cfg.mlp != "swiglu"),
         (f"norm={cfg.norm!r}", cfg.norm != "rmsnorm"),
-        ("fused_ce", bool(cfg.fused_ce)),
         (f"dtype={cfg.dtype!r}", cfg.dtype not in DTYPES),
     ) if unsupported]
     if missing:
         raise NotImplementedError(
             f"{cfg.name}: {', '.join(missing)} not ported (the dense GQA path only)")
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    """The selective-checkpoint policy of remat="dots": keep the outputs of
+    matrix products without batch dimensions (`jax.checkpoint_policies.
+    dots_with_no_batch_dims_saveable`), recompute everything else."""
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return _ckpt.CheckpointPolicy.MUST_SAVE
+    return _ckpt.CheckpointPolicy.PREFER_RECOMPUTE
 
 
 def _split_heads(x: torch.Tensor, n_heads: int, hd: int) -> torch.Tensor:
@@ -127,10 +144,30 @@ class Transformer(nn.Module):
         common.load_flat(self.params, tree)
         return self
 
-    def _layer(self, i: int) -> Dict[str, torch.Tensor]:
-        """Layer i's parameters, by their names inside the layer."""
-        return {k[len(_STACK):]: v[i] for k, v in self.params.items()
-                if k.startswith(_STACK)}
+    def param_paths(self) -> Dict[str, tuple]:
+        """Each parameter's name -> its path in the JAX parameter tree
+        ("dense_layers_attn_wq" -> ("dense_layers", "attn", "wq"),
+        "final_norm_g" -> ("final_norm", "g"))."""
+        paths = {}
+        for name in self.params:
+            if name.startswith(_STACK):
+                paths[name] = ("dense_layers",) + tuple(
+                    name[len(_STACK):].split("_", 1))
+            elif name == "final_norm_g":
+                paths[name] = ("final_norm", "g")
+            else:
+                paths[name] = (name,)
+        return paths
+
+    def _layers(self) -> List[Dict[str, torch.Tensor]]:
+        """Each layer's parameters, by their names inside the layer: views
+        of the stacked tensors by `unbind`, whose backward stacks the L
+        layers' gradients once (indexing layer by layer would make each
+        layer's gradient a zero-filled [L, ...] tensor, summed L times)."""
+        stacked = {k[len(_STACK):]: v.unbind(0) for k, v in self.params.items()
+                   if k.startswith(_STACK)}
+        return [{k: v[i] for k, v in stacked.items()}
+                for i in range(self.cfg.n_layers)]
 
     # ---------------------------------------------------------------- forward
     def _attention(self, p, x, positions, kv_out=None):
@@ -153,26 +190,45 @@ class Transformer(nn.Module):
 
     def forward_hidden(self, tokens: torch.Tensor,
                        positions: Optional[torch.Tensor] = None,
-                       cache: Optional[dict] = None) -> torch.Tensor:
+                       cache: Optional[dict] = None,
+                       remat=False) -> torch.Tensor:
         """Token ids [B, S] -> final hidden states [B, S, D]. With `cache`
         (from `init_cache`), each layer's roped K and V are written into its
-        first S positions."""
+        first S positions. `remat` (the JAX package's): True recomputes each
+        layer in the backward from its input (`torch.utils.checkpoint`),
+        "dots" / "dots_with_no_batch_dims" save the layer's matrix products
+        without batch dimensions and recompute the rest; False keeps every
+        activation. The values are the same."""
         cfg = self.cfg
         b, s = tokens.shape
         if positions is None:
             positions = torch.arange(s, dtype=torch.int32,
                                      device=tokens.device).expand(b, s)
         x = self.params["embed"][tokens.long()]
-        for i in range(cfg.n_layers):
-            p = self._layer(i)
+        block = self._block
+        if remat in ("dots", "dots_with_no_batch_dims"):
+            block = functools.partial(
+                _ckpt.checkpoint, self._block, use_reentrant=False,
+                context_fn=functools.partial(
+                    _ckpt.create_selective_checkpoint_contexts, _save_dots))
+        elif remat:  # full remat: keep only the layer boundaries
+            block = functools.partial(_ckpt.checkpoint, self._block,
+                                      use_reentrant=False)
+        # the layers' tensors are taken here, so that a recompute in the
+        # backward reads the ones this forward read
+        for i, p in enumerate(self._layers()):
             kv_out = None
             if cache is not None:
                 kv_out = (cache["layers"]["k"][i], cache["layers"]["v"][i])
-            h = x + self._attention(
-                p, common.rms_norm(x, p["ln1_g"], cfg.norm_eps), positions, kv_out)
-            hn = common.rms_norm(h, p["ln2_g"], cfg.norm_eps)
-            x = h + common.swiglu(hn, p["mlp_w_gate"], p["mlp_w_up"], p["mlp_w_down"])
+            x = block(p, x, positions, kv_out)
         return common.rms_norm(x, self.params["final_norm_g"], cfg.norm_eps)
+
+    def _block(self, p, x, positions, kv_out=None):
+        cfg = self.cfg
+        h = x + self._attention(
+            p, common.rms_norm(x, p["ln1_g"], cfg.norm_eps), positions, kv_out)
+        hn = common.rms_norm(h, p["ln2_g"], cfg.norm_eps)
+        return h + common.swiglu(hn, p["mlp_w_gate"], p["mlp_w_up"], p["mlp_w_down"])
 
     def logits_from_hidden(self, h: torch.Tensor) -> torch.Tensor:
         """[..., D] -> logits [..., V] in the model's dtype."""
@@ -183,6 +239,24 @@ class Transformer(nn.Module):
     def forward(self, tokens: torch.Tensor,
                 positions: Optional[torch.Tensor] = None) -> torch.Tensor:
         return self.logits_from_hidden(self.forward_hidden(tokens, positions))
+
+    # ------------------------------------------------------------------- loss
+    def loss(self, batch, remat=False):
+        """Next-token CE over {"tokens", "labels"[, "mask"]} -> (loss,
+        metrics); `cfg.fused_ce` > 0 streams it over vocabulary blocks of
+        that size (`common.blockwise_cross_entropy`). The JAX function adds
+        the router's aux loss, 0 for dense layers, and so does this."""
+        cfg = self.cfg
+        h = self.forward_hidden(batch["tokens"], remat=remat)
+        if cfg.fused_ce:
+            head = self.params["embed"].T if cfg.tie_embeddings else self.params["lm_head"]
+            loss = common.blockwise_cross_entropy(
+                h, head, batch["labels"], batch.get("mask"), block=cfg.fused_ce)
+        else:
+            loss = common.cross_entropy(self.logits_from_hidden(h), batch["labels"],
+                                        batch.get("mask"))
+        aux = torch.zeros((), device=loss.device)
+        return loss + aux, {"ce": loss, "aux": aux}
 
     # ----------------------------------------------------------------- decode
     def init_cache(self, batch: int, max_seq: int) -> dict:
@@ -235,8 +309,7 @@ class Transformer(nn.Module):
                 f"{cfg.name}: the sliding-window ring cache is not ported")
         pos = int(cache["pos"])
         x = self.params["embed"][token.long()][:, None, :]   # [B, 1, D]
-        for i in range(cfg.n_layers):
-            p = self._layer(i)
+        for i, p in enumerate(self._layers()):
             hn = common.rms_norm(x, p["ln1_g"], cfg.norm_eps)
             h = x + self._decode_attention(p, hn, cache["layers"]["k"][i],
                                            cache["layers"]["v"][i], pos)
@@ -245,3 +318,9 @@ class Transformer(nn.Module):
         h = common.rms_norm(x, self.params["final_norm_g"], cfg.norm_eps)
         cache["pos"] = pos + 1
         return self.logits_from_hidden(h)[:, 0], cache
+
+
+def loss_fn(model: Transformer, batch, remat=False):
+    """The training loss (the JAX package's `loss_fn(params, cfg, batch,
+    remat)`, with the model in place of params and cfg) -> (loss, metrics)."""
+    return model.loss(batch, remat=remat)

@@ -20,7 +20,9 @@ IMPORT_RE = re.compile(r"^\s*(import|from)\s+(jax|repro)\b")
 # CLI), a resilient prune (a checkpoint, an elastic restart onto one shard,
 # a triggered rebalance), a sharded batch and sharded serving (engine and
 # CLI), an incremental and an exploratory search and their launcher, a tiny
-# sampled GNN forward, a tiny greedy generation and a retrieval, then
+# sampled GNN forward, a tiny greedy generation and a retrieval, a few
+# train steps through the training launchers and the train step (optim,
+# train, the negatives' generator), then
 # checks that nothing of JAX or the JAX package was loaded, and that the
 # default device is CUDA (which raises where there is none).
 SCRIPT = textwrap.dedent("""
@@ -131,6 +133,23 @@ SCRIPT = textwrap.dedent("""
                                  device="cpu")(0)["items"]
     cands = torch.arange(1, 40, dtype=torch.int32)
     assert rec.retrieval_scores(items, cands).shape == (2, 39)
+
+    from repro_torch.launch import pattern_gnn, train as train_cli, train_lm
+    from repro_torch.models import prng
+    from repro_torch.optim import adamw, compression, schedules
+    from repro_torch.train import trainer
+    from repro_torch.train.step import TrainConfig, build_train_step, init_state
+    assert train_cli.main(["--arch", "pna", "--steps", "2", "--device", "cpu",
+                           "--log-every", "0"]).steps_run == 2
+    assert len(pattern_gnn.main(["--device", "cpu", "--steps", "4"])) == 4
+    assert train_lm.CONFIG.n_layers == 12
+    tc = TrainConfig(compress_grads=True, microbatches=2)
+    st, step = init_state(lm, tc), build_train_step(lm, tc)
+    st, m = step(st, {"tokens": torch.zeros((2, 6), dtype=torch.int32),
+                      "labels": torch.ones((2, 6), dtype=torch.int32)})
+    assert int(st["step"]) == 1 and float(m["loss"]) > 0
+    assert prng.randint(prng.key(0), 3, 1, 10).shape == (3,)
+    assert float(schedules.constant(0)) == 1.0
     loaded = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "repro"))
     assert not loaded, loaded
@@ -160,7 +179,11 @@ SCRIPT = textwrap.dedent("""
                             lambda: interactive_search.main([])),
                            ("GNN()", lambda: GNN(cfg, 6, 3)),
                            ("Transformer()", lambda: Transformer(lm_cfg)),
-                           ("Bert4Rec()", lambda: Bert4Rec(rec_cfg))):
+                           ("Bert4Rec()", lambda: Bert4Rec(rec_cfg)),
+                           ("launch.train", lambda: train_cli.main(
+                               ["--arch", "pna", "--steps", "1"])),
+                           ("launch.pattern_gnn",
+                            lambda: pattern_gnn.main(["--steps", "1"]))):
             try:
                 call()
             except RuntimeError as e:

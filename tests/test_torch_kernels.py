@@ -325,6 +325,28 @@ def test_cpu_tensors_take_the_plain_versions():
         registry.uses_kernel(torch.zeros(1, device="meta"))
 
 
+def test_launches_inside_a_backward_are_counted_apart():
+    """A launch counted while the autograd engine runs a backward (a forward
+    that activation checkpointing recomputes there) also counts in
+    `backward_launch_counts`; one outside a backward does not."""
+    from torch.utils.checkpoint import checkpoint
+
+    def layer(x):
+        registry.count_launch("flash_attention", variant="bf16_tc")
+        return x.sin()
+
+    registry.reset_launches()
+    x = torch.ones(3, requires_grad=True)
+    y = checkpoint(layer, x, use_reentrant=False).sum()
+    assert registry.backward_launch_counts()["flash_attention"] == 0
+    torch.autograd.grad(y, x)
+    assert registry.launch_counts()["flash_attention"] == 2
+    assert registry.backward_launch_counts()["flash_attention"] == 1
+    assert registry.variant_counts("flash_attention")["bf16_tc"] == 2
+    registry.reset_launches()
+    assert registry.backward_launch_counts()["flash_attention"] == 0
+
+
 # ----------------------------------------------------------- segment ops
 def test_segment_reductions_give_zero_on_empty_segments():
     ids = torch.tensor([0, 0, 2, 2, 2, 5])

@@ -345,7 +345,7 @@ def test_load_jax_params_rejects_a_mismatched_tree(smoke_pair):
 
 @pytest.mark.parametrize("field", [
     dict(attention="mla"), dict(moe=True), dict(mtp=True), dict(qk_norm=True),
-    dict(mlp="gelu"), dict(norm="layernorm"), dict(fused_ce=512),
+    dict(mlp="gelu"), dict(norm="layernorm"),
 ])
 def test_unported_config_fields_raise(field):
     cfg = dataclasses.replace(configs.get_arch("qwen2-1.5b").smoke(), **field)
@@ -379,8 +379,7 @@ def test_token_stream_matches_the_reference():
 LM_FIELDS_LEFT_OUT = {
     "q_lora_rank", "kv_lora_rank", "qk_nope_dim", "qk_rope_dim", "v_head_dim",
     "n_routed", "n_shared", "top_k", "first_dense_layers", "dense_d_ff",
-    "capacity_factor", "router_aux_coef", "moe_groups", "moe_gather_weights",
-    "remat_policy", "train_microbatches"}
+    "capacity_factor", "router_aux_coef", "moe_groups", "moe_gather_weights"}
 
 
 def test_lm_config_matches_the_reference():

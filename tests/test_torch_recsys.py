@@ -173,13 +173,6 @@ def test_load_jax_params_rejects_a_mismatched_tree(smoke_pair):
         model.load_jax_params(dict(params, pos=params["pos"][:, :-1]))
 
 
-@pytest.mark.parametrize("field", [dict(fused_ce=512), dict(n_negatives=64)])
-def test_unported_config_fields_raise(field):
-    cfg = dataclasses.replace(configs.get_arch("bert4rec").smoke(), **field)
-    with pytest.raises(NotImplementedError):
-        Bert4Rec(cfg, device="cpu")
-
-
 # ------------------------------------------------------------ data, configs
 def test_masked_sequence_stream_matches_the_reference():
     mine = MaskedSequenceStream(500, 4, 30, mask_prob=0.3, seed=9, device="cpu")

@@ -247,6 +247,35 @@ From the root of a checkout, on a machine with a CUDA device and `nvcc`:
                checkpoint every 2 steps in a temporary directory, in its
                own process under torch.use_deterministic_algorithms(True):
                the losses equal the uninterrupted run's.
+12. LM archs the four other LM architectures (run last, `run_lm_archs`):
+            a. `flash_attention` at MLA's (Dqk, Dv) = (192, 128) against its
+               plain version, f32 and bf16, causal, [1, H, S, 192/128] at H
+               in {16, 128} x S in {1, 77, 1000, 4096} and with v a view of
+               the kv projection (tolerances of 6a); ptxas's registers and
+               spills of the new instantiations; its times at one
+               deepseek-v2-lite prefill_32k sequence [1,16,32768,192/128]
+               bf16 causal beside the bound, the plain version and SDPA
+               (memory-efficient: Ev != E);
+            b. card against CPU, each arch at full width cut to 2 layers in
+               f32 (deepseek: 1 dense + 1 MoE layer; deepseek-v3's routed
+               experts cut from 256 to 16 for the host's memory, top-8;
+               starcoder2's window cut to 64, a 56-token prompt and 24 new
+               tokens, so decode wraps the ring): last logits within
+               LM_PARITY_TOL and greedy tokens equal, the card's prefills
+               all on the f32 kernel;
+            c. full width in bf16 (deepseek-v3 cut to 4 layers, 3 dense + 1
+               MoE of 256 experts, and its MTP block), one arch at a time:
+               the prefill_32k program on one sequence and greedy serving
+               (qwen3-8b and deepseek-v2-lite 8 x 2,048 + 32 tokens,
+               starcoder2 4 x 4,064 + 64 so that decode crosses position
+               4096, deepseek-v3 4 x 1,024 + 16): seconds, tokens/s, decode
+               ms per token, peak memory, exactly n_layers `flash_attention`
+               launches each, all bf16_tc, no plain-version call on the
+               card; the profiler over one more prefill_32k; starcoder2 in
+               f32 at 2 layers: 4 decode steps past 4096 equal to the
+               kernel's windowed forward of the same prefix; deepseek-v3's
+               loss (MTP and the aux loss) on 1 x 4,096 tokens without
+               gradients, finite, n_layers + 1 launches.
 
 Every time is printed beside the card's name and power limit. The line
 before the last is a JSON object listing each kernel with its launches on
@@ -2848,12 +2877,14 @@ def attention_pairs(s, causal, window):
     return int(np.maximum(0, hi - lo + 1).sum())
 
 
-def attention_cost(b, hq, hkv, s, d, elem_bytes, causal=True, window=None):
-    """(bytes, operations) of one attention call: q, k, v read once and the
-    output written once; two multiply-adds per live (query, key) pair and
-    head dimension (q k^T and p v)."""
-    nbytes = (2 * b * hq * s * d + 2 * b * hkv * s * d) * elem_bytes
-    return nbytes, 4 * b * hq * d * attention_pairs(s, causal, window)
+def attention_cost(b, hq, hkv, s, d, elem_bytes, causal=True, window=None, dv=None):
+    """(bytes, operations) of one attention call: q, k [.., d] and v
+    [.., dv] (dv = d unless given) read once and the output [.., dv]
+    written once; a multiply-add per live (query, key) pair and head
+    dimension of q k^T (d) and of p v (dv)."""
+    dv = d if dv is None else dv
+    nbytes = (b * hq * s * (d + dv) + b * hkv * s * (d + dv)) * elem_bytes
+    return nbytes, 2 * b * hq * (d + dv) * attention_pairs(s, causal, window)
 
 
 def bf16_close(got, want, floor):
@@ -2884,7 +2915,7 @@ def attention_want(q, k, v, causal=True, window=None):
 
 
 def attention_weights(q, k, v, block_k, causal=True, window=None):
-    """Two sums of the softmax weights p / l with |v|, [B, Hq, S, D] in f32,
+    """Two sums of the softmax weights p / l with |v|, [B, Hq, S, Dv] in f32,
     with p (unrounded) and l as the blockwise version at `block_k` computes
     them: A over every key, and F over the keys whose p lies within
     ATTN_P_EPS (relative) of a bf16 rounding midpoint, so that a p that
@@ -2897,7 +2928,7 @@ def attention_weights(q, k, v, block_k, causal=True, window=None):
     q_pos = torch.arange(s, device=q.device)
     m = torch.full((b, hq, s), ref.ATTENTION_NEG_INF, device=q.device)
     l = torch.zeros((b, hq, s), device=q.device)
-    a_all = torch.zeros((b, hq, s, d), device=q.device)
+    a_all = torch.zeros((b, hq, s, v.shape[3]), device=q.device)
     a_near = torch.zeros_like(a_all)
     for k0 in range(0, s, block_k):
         k_pos = q_pos[k0:k0 + block_k]
@@ -2945,7 +2976,7 @@ def attention_checks(got, q, k, v, causal=True, window=None):
         want = attention_want(q, k, v, causal, window)
         return (torch.allclose(got, want, rtol=ATTN_F32_TOL, atol=ATTN_F32_TOL),
                 {"f32": diff(want)})
-    tile = ops.ATTENTION_KV_TILE[q.shape[3]]
+    tile = ops.ATTENTION_KV_TILE[q.shape[3], v.shape[3]]
     a_all, a_near = attention_weights(q, k, v, tile, causal, window)
     ok, diffs = True, {}
     for key, want, floor in (
@@ -3030,14 +3061,25 @@ def phase_attention_small():
 
 def sdpa_ms(q, k, v, reps):
     """The library row: one causal scaled_dot_product_attention call on the
-    same inputs, k and v repeated to the query heads beforehand (not timed).
-    Timed here only; the port never calls it."""
+    same inputs, k and v repeated to the query heads beforehand (not timed),
+    on the fused backend (cuDNN, flash or memory-efficient) that SDPA picks
+    by its default order; its math backend, which would materialise the
+    [S, S] logits, is left out. None where no fused backend takes the
+    inputs. Timed here only; the port never calls it."""
     import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
 
     group = q.shape[1] // k.shape[1]
     ke, ve = k.repeat_interleave(group, 1), v.repeat_interleave(group, 1)
-    return time_ms(lambda: F.scaled_dot_product_attention(q, ke, ve, is_causal=True),
-                   reps)
+    try:
+        with sdpa_kernel([SDPBackend.CUDNN_ATTENTION, SDPBackend.FLASH_ATTENTION,
+                          SDPBackend.EFFICIENT_ATTENTION]):
+            return time_ms(lambda: F.scaled_dot_product_attention(
+                q, ke, ve, is_causal=True), reps)
+    except RuntimeError as e:
+        log(f"  (SDPA takes no fused backend for {list(q.shape)} / {list(v.shape)}: "
+            f"{str(e).splitlines()[0][:200]})")
+        return None
 
 
 def ptxas_report(kernel):
@@ -3146,12 +3188,12 @@ def phase_lm_full(cfg=None, prefill_len=None, serve=None):
     # (i) prefill_32k: forward_hidden + last-position logits, one sequence
     toks = SyntheticTokenStream(cfg.vocab, 1, prefill_len, seed=SEED,
                                 device=DEVICE)(0)["tokens"]
-    model.forward_hidden(toks[:, :256])   # warm-up, outside the count
+    model.forward_hidden(toks[:, :256])   # warm-up, outside the count (-> h, aux)
     sync()
     reset_peak()
     registry.reset_launches()
     t0 = time.perf_counter()
-    h = model.forward_hidden(toks)
+    h, _ = model.forward_hidden(toks)
     logits = model.logits_from_hidden(h[:, -1:])[:, 0]
     sync()
     res["prefill_32k_s"] = time.perf_counter() - t0
@@ -4158,6 +4200,374 @@ def run_recsys():
     }]
 
 
+# ---------------------------------------------------- phase 12: the LM archs
+# Phase 12: the four other LM archs of the JAX package. 12a holds
+# flash_attention at MLA's (Dqk, Dv) = (192, 128) (DeepSeek's qk_nope +
+# qk_rope, and v_head_dim; the heads are the kv heads) and times it at one
+# deepseek-v2-lite prefill_32k sequence. 12b: card against CPU at full width
+# cut to 2 layers in f32 (deepseek: 1 dense + 1 MoE layer; deepseek-v3's
+# routed experts cut from 256 to 16 so that its CPU copy fits the host's
+# memory, top-8 kept; starcoder2's window cut to 64, so that a 56-token
+# prompt and 24 new tokens wrap its ring). 12c: full width in bf16, random
+# weights, one arch at a time, each freed before the next: the prefill_32k
+# program on one sequence (global batch 32 cut to 1), then greedy serving
+# (decode_32k's batch of 128 cut to LM_ARCH_SERVE's); deepseek-v3 cut to 4
+# layers (its 3 dense + 1 MoE layer of 256 experts) and the MTP block.
+LM_ARCHS = ("qwen3-8b", "starcoder2-15b", "deepseek-v2-lite-16b", "deepseek-v3-671b")
+MLA_PAIR = (192, 128)
+MLA_SMALL_HEADS, MLA_SMALL_LENGTHS = (16, 128), (1, 77, 1000, 4096)
+# (B, H, S, reps): one deepseek-v2-lite prefill_32k sequence, 16 heads
+MLA_TIMING_SHAPE = (1, 16, 32768, 3)
+LM_ARCH_PARITY_LAYERS, LM_ARCH_PARITY_BATCH = 2, 2
+LM_ARCH_PARITY_V3_ROUTED = 16
+LM_ARCH_PARITY_WINDOW = 64
+# (prompt, new tokens) card vs CPU; starcoder2 crosses its cut window of 64
+LM_ARCH_PARITY_LEN = {"starcoder2-15b": (56, 24)}
+LM_ARCH_PARITY_DEFAULT_LEN = (64, 8)
+# (requests, prompt, new tokens) of 12c's serving
+LM_ARCH_SERVE = {"qwen3-8b": (8, 2048, 32), "starcoder2-15b": (4, 4064, 64),
+                 "deepseek-v2-lite-16b": (8, 2048, 32), "deepseek-v3-671b": (4, 1024, 16)}
+LM_ARCH_V3_LAYERS = 4
+LM_ARCH_V3_LOSS_TOKENS = 4096
+# decode steps past starcoder2's window of 4096 held to the windowed forward
+RING_PAST_WINDOW = 4
+
+
+def plain_calls_on_card():
+    """The plain-version calls on CUDA tensors since the last reset (none
+    may run on the card's main path)."""
+    return {k: v for k, v in registry.plain_counts().items() if v}
+
+
+def mla_qkv(shape, dtype, gen, kv_view=False):
+    """q, k [B, H, S, 192] and v [B, H, S, 128] drawn from `gen`; kv_view:
+    v as the model passes it, a view of the [B, S, H, 128 + 128] kv
+    projection."""
+    b, h, s = shape
+    dqk, dv = MLA_PAIR
+    q = (torch.randn((b, h, s, dqk), generator=gen, device=DEVICE) * 0.3).to(dtype)
+    k = (torch.randn((b, h, s, dqk), generator=gen, device=DEVICE) * 0.3).to(dtype)
+    if kv_view:
+        kv = (torch.randn((b, s, h, 128 + dv), generator=gen, device=DEVICE) * 0.3).to(dtype)
+        return q, k, kv.transpose(1, 2)[..., 128:]
+    return q, k, (torch.randn((b, h, s, dv), generator=gen, device=DEVICE) * 0.3).to(dtype)
+
+
+def phase_attention_mla():
+    """12a: flash_attention at MLA's (192, 128) against its plain version,
+    both variants, causal, S in MLA_SMALL_LENGTHS x H in MLA_SMALL_HEADS and
+    v as a view of the kv projection; ptxas's registers and spills of the
+    new instantiations; times at one deepseek-v2-lite prefill_32k sequence
+    beside the bound, the plain version and SDPA (Ev != E)."""
+    log(f"== phase 12a: flash_attention at MLA's (Dqk, Dv) = {MLA_PAIR} ({CARD})")
+    for fn, line in ptxas_report("flash_attention") if DEVICE == "cuda" else ():
+        if "Li192ELi128E" in fn:   # the new instantiations
+            log(f"  ptxas {fn}: {line}")
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    worst = dict.fromkeys(("f32", "bf16 (i)", "bf16 (i) ratio", "bf16 (ii)",
+                           "bf16 (ii) ratio"), 0.0)
+    cases = [((1, h, s), False) for h in MLA_SMALL_HEADS for s in MLA_SMALL_LENGTHS]
+    cases.append(((2, 16, 300), True))
+    for shape, kv_view in cases:
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = mla_qkv(shape, dtype, gen, kv_view)
+            got = attention_variant_launches(lambda: ops.attention(q, k, v),
+                                             ops.attention_variant(dtype, *MLA_PAIR))
+            sync()
+            ok, diffs = attention_checks(got, q, k, v)
+            check(got.shape == (*shape, MLA_PAIR[1]) and got.dtype == dtype and ok,
+                  f"flash_attention MLA {list(shape)} {dtype} view={kv_view} "
+                  f"differs: {diffs}")
+            for key, val in diffs.items():
+                worst[key] = max(worst[key], val)
+            del q, k, v, got
+    log(f"{2 * len(cases)} MLA kernel/plain comparisons within tolerance: max |diff| "
+        f"f32 {worst['f32']:.3g}, bf16 (i) {worst['bf16 (i)']:.3g} "
+        f"({worst['bf16 (i) ratio']:.3g} of its allowance), (ii) "
+        f"{worst['bf16 (ii)']:.3g} ({worst['bf16 (ii) ratio']:.3g})")
+
+    b, h, s, reps = MLA_TIMING_SHAPE
+    q, k, v = mla_qkv((b, h, s), torch.bfloat16, gen)
+    got = attention_variant_launches(lambda: ops.attention(q, k, v), "bf16_tc")
+    ok, diffs = attention_checks(got, q, k, v)
+    check(ok, f"flash_attention MLA [{b},{h},{s},{MLA_PAIR}] differs: {diffs}")
+    del got
+    t = {"shape": [b, h, h, s, *MLA_PAIR], "dtype": "bfloat16", "variant": "bf16_tc",
+         "max_abs_err": diffs["bf16 (ii)"], "max_abs_err_tile": diffs["bf16 (i)"],
+         "allowance_used": [diffs["bf16 (i) ratio"], diffs["bf16 (ii) ratio"]]}
+    t["ms"] = time_ms(lambda: ops.attention(q, k, v), reps)
+    t["device_ms"] = kernel_device_ms(lambda: ops.attention(q, k, v), reps,
+                                      "flash_attention")
+    t["plain_ms"] = time_ms(lambda: ref.attention_plain(q, k, v), 1)
+    t["library_ms"] = sdpa_ms(q, k, v, reps)
+    cost = attention_cost(b, h, h, s, MLA_PAIR[0], 2, dv=MLA_PAIR[1])
+    t["bound_ms"], t["bound_by"] = bound(cost, PEAK_BF16_FLOPS_PER_S)
+    lib = t["library_ms"]
+    log(f"flash_attention [{b},{h}/{h},{s},{MLA_PAIR[0]}/{MLA_PAIR[1]}] bf16 causal "
+        f"({CARD}): {t['ms']:.4f} ms kernel ({t['device_ms']:.4f} ms on the device, "
+        f"{cost[1] / t['device_ms'] / 1e9:.1f} TFLOP/s, "
+        f"{t['device_ms'] / t['bound_ms']:.2f}x bound), {t['plain_ms']:.4f} ms plain, "
+        f"{'not taken' if lib is None else f'{lib:.4f} ms'} SDPA, "
+        f"{t['bound_ms']:.4f} ms bound ({t['bound_by']}: {cost[1] / 1e12:.3f} TFLOP, "
+        f"{cost[0] / 1e6:.1f} MB); max |diff| (i) {diffs['bf16 (i)']:.3g} "
+        f"({diffs['bf16 (i) ratio']:.3g} of its allowance), (ii) "
+        f"{diffs['bf16 (ii)']:.3g} ({diffs['bf16 (ii) ratio']:.3g})")
+    del q, k, v
+    return t
+
+
+def lm_parity_config(arch):
+    """12b's config: `arch` at full width, cut to LM_ARCH_PARITY_LAYERS
+    layers in f32 (deepseek: 1 dense + 1 MoE layer; v3's routed experts to
+    LM_ARCH_PARITY_V3_ROUTED; starcoder2's window to LM_ARCH_PARITY_WINDOW)."""
+    cfg = get_arch(arch).CONFIG
+    kw = {"n_layers": LM_ARCH_PARITY_LAYERS, "dtype": "float32"}
+    if cfg.moe:
+        kw["first_dense_layers"] = 1
+    if arch == "deepseek-v3-671b":
+        kw["n_routed"] = LM_ARCH_PARITY_V3_ROUTED
+    if cfg.window:
+        kw["window"] = LM_ARCH_PARITY_WINDOW
+    return dataclasses.replace(cfg, **kw)
+
+
+def phase_lm_arch_parity(arch, cfg=None, sizes=None):
+    """12b: card against CPU, the same weights on both (made on the card,
+    copied to the host): prefill logits and greedy tokens, as 6c."""
+    cfg = cfg or lm_parity_config(arch)
+    batch = LM_ARCH_PARITY_BATCH
+    prompt_len, new = sizes or LM_ARCH_PARITY_LEN.get(arch, LM_ARCH_PARITY_DEFAULT_LEN)
+    log(f"== phase 12b: {cfg.name} card vs CPU ({cfg.n_layers} layers"
+        f"{f', {cfg.first_dense_layers} dense + {cfg.n_layers - cfg.first_dense_layers} MoE, {cfg.n_routed} routed experts top-{cfg.top_k}' if cfg.moe else ''}"
+        f"{', window ' + str(cfg.window) if cfg.window else ''}, f32, B={batch}, "
+        f"S={prompt_len}, {new} greedy tokens; {CARD})")
+    t0 = time.perf_counter()
+    cpu = Transformer(cfg, device=DEVICE, seed=SEED).to("cpu")
+    card = copy.deepcopy(cpu).to(DEVICE)
+    log(f"weights made on the card and copied to the host in "
+        f"{time.perf_counter() - t0:.1f} s")
+    prompt = SyntheticTokenStream(cfg.vocab, batch, prompt_len, seed=SEED,
+                                  device="cpu")(0)["tokens"]
+    out = {}
+    registry.reset_launches()
+    for dev, model in ((DEVICE, card), ("cpu", cpu)):
+        t0 = time.perf_counter()
+        _, logits = build_prefill(model)(prompt.to(dev), prompt_len + new)
+        toks = greedy_generate(model, prompt.to(dev), new, prompt_len + new)
+        sync()
+        out[dev] = (logits.cpu(), toks.cpu(), time.perf_counter() - t0)
+    (lc, tc, sc), (lp, tp, sp) = out[DEVICE], out["cpu"]
+    if DEVICE == "cuda":
+        variants = registry.variant_counts("flash_attention")
+        check(variants["f32"] == 2 * cfg.n_layers and sum(variants.values()) == variants["f32"],
+              f"the card's prefills launched flash_attention {variants}, expected "
+              f"{2 * cfg.n_layers} of the f32 kernel")
+        check(not plain_calls_on_card(), f"plain calls on the card: {plain_calls_on_card()}")
+    diff = float((lc - lp).abs().max())
+    check(torch.allclose(lc, lp, rtol=LM_PARITY_TOL, atol=LM_PARITY_TOL),
+          f"{arch}: prefill logits differ card vs CPU by {diff:.3g}")
+    check(torch.equal(tc, tp), f"{arch}: greedy tokens differ: {tc.tolist()} vs {tp.tolist()}")
+    log(f"last logits [{batch}, {cfg.vocab}] max |card - CPU| {diff:.3g} "
+        f"(tolerance {LM_PARITY_TOL}); {new} greedy tokens equal: {tc[0].tolist()}; "
+        f"card {sc:.2f} s, CPU {sp:.2f} s")
+    del cpu, card
+    return {"max_abs_err": diff, "tokens": new}
+
+
+def phase_ring_past_window(n_past=RING_PAST_WINDOW, cfg=None):
+    """12c, starcoder2: at full width in f32 cut to 2 layers, on the card,
+    each of n_past decode steps past the window (4096) against the logits
+    of the same prefix from one forward through the kernel's window: the
+    ring (its first wrap at position 4096) against the kernel."""
+    cfg = cfg or dataclasses.replace(get_arch("starcoder2-15b").CONFIG, n_layers=2,
+                                     dtype="float32")
+    w = cfg.window
+    log(f"== phase 12c: {cfg.name}'s ring cache past its window of {w} (2 layers, "
+        f"f32, on the card): {n_past} decode steps against the windowed forward "
+        f"({CARD})")
+    model = Transformer(cfg, device=DEVICE, seed=SEED)
+    toks = SyntheticTokenStream(cfg.vocab, 1, w + n_past, seed=SEED + 2,
+                                device=DEVICE)(0)["tokens"]
+    h, _ = model.forward_hidden(toks)
+    want = model.logits_from_hidden(h[:, w:]).cpu()
+    del h
+    cache, _ = build_prefill(model)(toks[:, :w], w + n_past)
+    check(cache["layers"]["k"].shape[3] == w, "the ring is not the window's size")
+    worst = 0.0
+    for i in range(n_past):
+        logits, cache = model.decode_step(toks[:, w + i], cache)
+        diff = float((logits.cpu() - want[:, i]).abs().max())
+        worst = max(worst, diff)
+        check(torch.allclose(logits.cpu(), want[:, i], rtol=LM_PARITY_TOL,
+                             atol=LM_PARITY_TOL),
+              f"decode at position {w + i} differs from the windowed forward by {diff:.3g}")
+    log(f"decode at positions {w}..{w + n_past - 1} (the ring wraps at {w}) equals "
+        f"the kernel's windowed forward: max |diff| {worst:.3g} (tolerance {LM_PARITY_TOL})")
+    del model, cache
+    return worst
+
+
+def lm_full_config(arch):
+    cfg = get_arch(arch).CONFIG
+    if arch == "deepseek-v3-671b":
+        cfg = dataclasses.replace(cfg, n_layers=LM_ARCH_V3_LAYERS)
+    return cfg
+
+
+def free_card():
+    import gc
+
+    gc.collect()
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+
+
+def phase_lm_arch_full(arch, cfg=None, prefill_len=None, serve=None):
+    """12c: `arch` at full width in bf16 (deepseek-v3 cut in depth): the
+    prefill_32k program on one sequence, greedy serving, and for
+    deepseek-v3 its loss (MTP and the aux loss) once without gradients;
+    launch counts, variants and plain calls read around each."""
+    cfg = cfg or lm_full_config(arch)
+    prefill_len = prefill_len or get_arch(arch).SHAPES[LM_PREFILL_SHAPE].seq_len
+    b, p, new = serve or LM_ARCH_SERVE[arch]
+    n = cfg.n_layers
+    log(f"== phase 12c: {cfg.name} at full width ({n} layers"
+        f"{f' ({cfg.first_dense_layers} dense + {n - cfg.first_dense_layers} MoE of {cfg.n_routed} experts top-{cfg.top_k}, {cfg.n_shared} shared)' if cfg.moe else ''}"
+        f"{', MTP' if cfg.mtp else ''}, d_model {cfg.d_model}, {cfg.attention}, "
+        f"{cfg.dtype}; {CARD})")
+    t0 = time.perf_counter()
+    model = Transformer(cfg, device=DEVICE, seed=SEED)
+    sync()
+    n_bytes = sum(t.numel() * t.element_size() for t in model.params.values())
+    res = {"n_layers": n, "weights_gb": n_bytes / 1e9,
+           "init_s": time.perf_counter() - t0}
+    log(f"random weights made on the device in {res['init_s']:.2f} s: "
+        f"{cfg.n_params()} parameters by n_params, {n_bytes / 1e9:.3f} GB in all")
+
+    def launches_ok(what, want):
+        variants = registry.variant_counts("flash_attention")
+        got = registry.launch_counts()["flash_attention"]
+        plain = plain_calls_on_card()
+        if DEVICE == "cuda":
+            check(got == want and variants["bf16_tc"] == want,
+                  f"{what}: flash_attention {got} launches ({variants}), expected "
+                  f"{want}, all bf16_tc")
+            check(not plain, f"{what}: plain calls on the card: {plain}")
+        return {"launches": got, "variants": variants, "plain_calls": plain}
+
+    # (i) prefill_32k: forward_hidden + last-position logits, one sequence
+    toks = SyntheticTokenStream(cfg.vocab, 1, prefill_len, seed=SEED,
+                                device=DEVICE)(0)["tokens"]
+    model.forward_hidden(toks[:, :256])   # warm-up, outside the count
+    sync()
+    reset_peak()
+    registry.reset_launches()
+    t0 = time.perf_counter()
+    h, aux = model.forward_hidden(toks)
+    logits = model.logits_from_hidden(h[:, -1:])[:, 0]
+    sync()
+    res["prefill_32k_s"] = time.perf_counter() - t0
+    res["prefill_32k_peak_gib"] = peak_gib()
+    res["prefill_32k"] = launches_ok("prefill_32k", n)
+    check(logits.shape == (1, cfg.vocab) and bool(torch.isfinite(logits).all())
+          and bool(torch.isfinite(aux)), "prefill_32k logits not finite or misshapen")
+    log(f"(i) prefill_32k, 1 x {prefill_len} tokens: {res['prefill_32k_s']:.3f} s, "
+        f"{prefill_len / res['prefill_32k_s']:.0f} tokens/s, flash_attention "
+        f"{res['prefill_32k']['launches']} launches ({res['prefill_32k']['variants']}), "
+        f"plain calls {res['prefill_32k']['plain_calls']}, router aux {float(aux):.4f}, "
+        f"max_memory_allocated {res['prefill_32k_peak_gib']:.3f} GiB")
+    del h, logits, aux
+    # device time by kernel and the busy share over one more prefill_32k
+    res["prefill_32k_device_ms"] = profile_device(
+        lambda: model.forward_hidden(toks), 1, "prefill_32k", "flash_attention")
+    del toks
+
+    # (ii) greedy serving, the prefill and each decode step timed apart
+    prompts = SyntheticTokenStream(cfg.vocab, b, p, seed=SEED + 1,
+                                   device=DEVICE)(0)["tokens"]
+    greedy_generate(model, prompts[:, :64], 2, 66)   # warm-up, outside the count
+    sync()
+    reset_peak()
+    registry.reset_launches()
+    step = build_decode_step(model)
+    t0 = time.perf_counter()
+    cache, logits = build_prefill(model)(prompts, p + new)
+    sync()
+    res["serve_prefill_s"] = time.perf_counter() - t0
+    tok = logits.argmax(-1).to(torch.int32)
+    toks, step_s = [tok], []
+    for _ in range(new - 1):
+        t1 = time.perf_counter()
+        tok, _, cache = step(cache, tok)
+        sync()
+        step_s.append(time.perf_counter() - t1)
+        toks.append(tok)
+    res["serve_s"] = time.perf_counter() - t0
+    out = torch.stack(toks, 1)
+    res["serve_peak_gib"] = peak_gib()
+    res["serve"] = launches_ok("serving", n)
+    check(out.shape == (b, new) and bool(((out >= 0) & (out < cfg.vocab)).all()),
+          "generated tokens of the wrong shape or out of the vocabulary")
+    res["decode_ms_median"] = float(np.median(step_s)) * 1e3
+    res["serve_tokens_per_s"] = b * new / res["serve_s"]
+    if cfg.window:
+        res["ring_slots"] = int(cache["layers"]["k"].shape[3])
+    log(f"(ii) serving {b} requests x {p}-token prompts, {new} new tokens"
+        f"{f' (positions to {p + new - 1}: the ring of {cfg.window} wraps)' if cfg.window and p + new > cfg.window else ''}: "
+        f"{res['serve_s']:.3f} s end to end, {res['serve_tokens_per_s']:.1f} generated "
+        f"tokens/s; prefill {res['serve_prefill_s']:.3f} s, decode "
+        f"{res['decode_ms_median']:.3f} ms per token (median of {len(step_s)}); "
+        f"flash_attention {res['serve']['launches']} launches, plain calls "
+        f"{res['serve']['plain_calls']}; max_memory_allocated "
+        f"{res['serve_peak_gib']:.3f} GiB; first tokens {out[0, :8].tolist()}")
+    del cache, logits, prompts
+
+    # (iii) deepseek-v3: the loss with MTP and the aux loss, no gradients
+    if cfg.mtp:
+        batch = SyntheticTokenStream(cfg.vocab, 1, LM_ARCH_V3_LOSS_TOKENS, seed=SEED + 3,
+                                     device=DEVICE)(0)
+        reset_peak()
+        registry.reset_launches()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            loss, met = model.loss(batch)
+        sync()
+        res["loss_s"] = time.perf_counter() - t0
+        res["loss"] = {"loss": float(loss), "ce": float(met["ce"]), "aux": float(met["aux"])}
+        res["loss_launches"] = launches_ok("loss", n + 1)
+        res["loss_peak_gib"] = peak_gib()
+        check(all(np.isfinite(list(res["loss"].values()))), f"loss not finite: {res['loss']}")
+        log(f"(iii) loss on 1 x {LM_ARCH_V3_LOSS_TOKENS} tokens without gradients "
+            f"(CE + 0.3 MTP CE + {cfg.router_aux_coef} aux): {res['loss']}, "
+            f"{res['loss_s']:.3f} s, flash_attention {res['loss_launches']['launches']} "
+            f"launches ({n} layers + the MTP block), max_memory_allocated "
+            f"{res['loss_peak_gib']:.3f} GiB")
+    del model
+    free_card()
+    return res
+
+
+def run_lm_archs():
+    """Phase 12 -> its fields of the flash_attention entry of the JSON line:
+    the MLA pair's checks and times, and each arch's runs."""
+    t0 = time.perf_counter()
+    mla = phase_attention_mla()
+    parity = {arch: phase_lm_arch_parity(arch) for arch in LM_ARCHS}
+    free_card()
+    full = {}
+    for arch in LM_ARCHS:
+        full[arch] = phase_lm_arch_full(arch)
+        if arch == "starcoder2-15b":
+            full[arch]["ring_past_window_max_abs_err"] = phase_ring_past_window()
+            free_card()
+    log(f"phase 12: {time.perf_counter() - t0:.1f} s ({CARD})")
+    return {"mla": {"tolerance": ATTN_TOLERANCE, **mla},
+            "launches_lm_archs": {a: {"prefill_32k": r["prefill_32k"]["launches"],
+                                      "serve": r["serve"]["launches"]}
+                                  for a, r in full.items()},
+            "lm_archs": {"parity": parity, "full": full}}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -4177,8 +4587,13 @@ def main():
     t0 = time.perf_counter()
     train = run_train(with_gnn=False)
     seconds["run_train"] = round(time.perf_counter() - t0, 1)
+    t0 = time.perf_counter()
+    archs = run_lm_archs()
+    seconds["run_lm_archs"] = round(time.perf_counter() - t0, 1)
     for k in kernels:
         k.update(train.get(k["name"], {}))
+        if k["name"] == "flash_attention":
+            k.update(archs)
     log(f"total {time.perf_counter() - t_start:.1f} s (by path: {seconds})")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -21,8 +21,23 @@ flattened as `jax.tree_util` flattens it (dict keys sorted, lists and
 tuples in order; `optim/tree.py`, the port's one walk), its leaves saved as `a0, a1, ...` in that order under
 keys like `'omega'` or `'z'/1/'a'`, so a directory written by either
 package restores in the other. Trees are nested dicts, lists and tuples of
-arrays (numpy arrays or torch tensors, saved from the host; numpy has no
-bf16, so a bf16 tensor is saved as f32, which holds it exactly).
+arrays (numpy arrays or torch tensors, saved from the host).
+
+bf16 leaves. numpy has no bf16 of its own, so the two packages write one
+differently, and what crosses depends on the direction:
+  - port to reference: the port writes a bf16 tensor as f32, which holds it
+    exactly, with "float32" in the manifest; the reference restores it as
+    f32 (it casts nothing);
+  - reference to port: the reference writes `ml_dtypes`' bf16, which npz
+    stores as the 2-byte void dtype `V2`, with "bfloat16" in the manifest.
+    The port reads such a leaf as bf16 bits (a uint16 view, then
+    `torch.bfloat16`) and restores it as a bf16 tensor (on the CPU when no
+    device is given), bit for bit;
+  - the reference cannot restore its own bf16 checkpoint: its manifest check
+    compares "bfloat16" with the `V2` it reads back and skips the directory
+    as corrupt. That side belongs to the JAX package.
+A `V2` leaf whose manifest says anything but "bfloat16", or any other
+mismatch of shape or dtype, is still corrupt.
 """
 from __future__ import annotations
 
@@ -116,6 +131,28 @@ def latest_step(directory: str) -> Optional[int]:
     return steps[-1] if steps else None
 
 
+# the manifest's name of a bf16 leaf, which npz holds as 2-byte void (`V2`)
+BF16 = "bfloat16"
+
+
+def _is_bf16_bits(arr: np.ndarray, recorded: str) -> bool:
+    """A leaf the reference wrote as ml_dtypes' bf16: npz's `V2` with the
+    manifest's "bfloat16"."""
+    return recorded == BF16 and arr.dtype.kind == "V" and arr.dtype.itemsize == 2
+
+
+def _dtype_matches(arr: np.ndarray, recorded: str) -> bool:
+    return str(arr.dtype) == recorded or _is_bf16_bits(arr, recorded)
+
+
+def _bf16_tensor(arr: np.ndarray):
+    """bf16 bits held as `V2` -> a CPU torch.bfloat16 tensor of those bits."""
+    import torch
+
+    bits = np.ascontiguousarray(arr).view(np.uint16).view(np.int16)
+    return torch.from_numpy(bits.reshape(arr.shape)).view(torch.bfloat16)
+
+
 # every way a torn or truncated checkpoint can fail to read: unparseable
 # JSON, a truncated or missing npz, manifest keys absent, or shape and dtype
 # records that contradict the arrays
@@ -139,7 +176,7 @@ def checkpoint_valid(path: str) -> bool:
                 arr = data[f"a{i}"]
                 if list(arr.shape) != list(shapes[i]):
                     return False
-                if str(arr.dtype) != dtypes[i]:
+                if not _dtype_matches(arr, dtypes[i]):
                     return False
         return True
     except _CORRUPT_ERRORS:
@@ -169,7 +206,8 @@ def restore_checkpoint(
     """Restore into the structure of `like_tree` -> (tree, meta with
     "step"). Leaves come back as host numpy arrays, or as torch tensors on
     `device` when one is given: the caller re-shards them for its own shard
-    count. Each restored global shape is checked against `like_tree`, so a
+    count. A bf16 leaf of the reference's comes back as a torch.bfloat16
+    tensor of its bits, on the CPU without a device. Each restored global shape is checked against `like_tree`, so a
     configuration or topology mismatch fails here with the leaf's name.
 
     With step=None the newest valid checkpoint is used, skipping corrupt or
@@ -198,7 +236,7 @@ def restore_checkpoint(
                 f"checkpoint leaf {keys[i]!r}: arrays.npz has shape "
                 f"{tuple(arr.shape)} but the manifest recorded "
                 f"{tuple(shapes[i])}: corrupt checkpoint")
-        if dtypes is not None and str(arr.dtype) != dtypes[i]:
+        if dtypes is not None and not _dtype_matches(arr, dtypes[i]):
             raise ValueError(
                 f"checkpoint leaf {keys[i]!r}: arrays.npz has dtype "
                 f"{arr.dtype} but the manifest recorded {dtypes[i]}: corrupt "
@@ -210,12 +248,13 @@ def restore_checkpoint(
                 f"checkpoint leaf {keys[i]!r} has global shape "
                 f"{tuple(arr.shape)}, expected {tuple(want)}: the restore "
                 "target was built from a different config")
-        leaves.append(arr)
+        leaves.append(_bf16_tensor(arr) if dtypes is not None
+                      and _is_bf16_bits(arr, dtypes[i]) else arr)
     if device is not None:
         import torch
 
-        leaves = [torch.from_numpy(np.ascontiguousarray(a).reshape(a.shape)).to(device)
-                  for a in leaves]
+        leaves = [(a if isinstance(a, torch.Tensor) else torch.from_numpy(
+            np.ascontiguousarray(a).reshape(a.shape))).to(device) for a in leaves]
     return (unflatten(like_tree, leaves),
             manifest["meta"] | {"step": manifest["step"]})
 

@@ -1,8 +1,9 @@
 """Architecture registry: arch id -> (CONFIG, SHAPES, smoke()).
 
-The ids of the architectures the port runs: the four GNNs, qwen2-1.5b (LM)
-and bert4rec (recsys). The JAX package's other LM ids (starcoder2, qwen3,
-the deepseek MLA/MoE models) need code paths the port does not have yet.
+The ids of the JAX package's registry, all of which the port runs: the four
+GNNs, the five LMs (qwen2-1.5b and qwen3-8b with GQA, starcoder2-15b with a
+sliding window, LayerNorm and the GELU MLP, and the deepseek MLA + MoE
+models, v3 with MTP) and bert4rec (recsys).
 """
 from __future__ import annotations
 
@@ -14,7 +15,11 @@ _MODULES: Dict[str, str] = {
     "graphsage-reddit": "repro_torch.configs.graphsage_reddit",
     "gin-tu": "repro_torch.configs.gin_tu",
     "gat-cora": "repro_torch.configs.gat_cora",
+    "starcoder2-15b": "repro_torch.configs.starcoder2_15b",
     "qwen2-1.5b": "repro_torch.configs.qwen2_1_5b",
+    "qwen3-8b": "repro_torch.configs.qwen3_8b",
+    "deepseek-v3-671b": "repro_torch.configs.deepseek_v3_671b",
+    "deepseek-v2-lite-16b": "repro_torch.configs.deepseek_v2_lite_16b",
     "bert4rec": "repro_torch.configs.bert4rec",
 }
 

@@ -6,14 +6,11 @@ One module per architecture lives next to this file; each exposes
   SHAPES  — the arch's own input-shape set
   smoke() — a reduced same-family config for CPU tests
 
-Of `LMConfig` the port keeps the fields the dense GQA path reads, its
-training knobs (`fused_ce`, `remat_policy`, `train_microbatches`), and the
-fields it refuses: `attention`, `moe`, `mtp`, `qk_norm`, `mlp`, `norm`,
-`dtype` and a `window` in the decode cache raise `NotImplementedError` in
-the model (`models/transformer.py`). Left out: the MLA ranks and head dims,
-the MoE sizes and routing knobs (`router_aux_coef` with them: the dense
-layers' aux loss is 0), and the JAX package's sharding knobs, which no port
-code reads. `RecsysConfig` is the JAX package's field for field. Of
+`LMConfig` is the JAX package's field for field: GQA (qk-norm, biases, a
+sliding window), MLA, MoE and MTP, and the training knobs. Of the MoE perf
+knobs, `moe_groups` selects the per-group dispatch (`models/transformer.py`);
+`moe_gather_weights` is a sharding constraint in the JAX package and does
+nothing on one card. `RecsysConfig` is the JAX package's field for field. Of
 `GNNConfig` the port keeps
 the fields it reads. Left out: the knobs of the JAX package's sharded
 message passing (`distributed`, `message_dtype`), which the one-device port
@@ -46,11 +43,28 @@ class LMConfig:
     norm: str = "rmsnorm"                   # "rmsnorm" | "layernorm"
     rope_theta: float = 10000.0
     tie_embeddings: bool = False
-    moe: bool = False                       # deepseek MoE
-    mtp: bool = False                       # deepseek-v3 multi-token prediction
+    # MLA (deepseek)
+    q_lora_rank: Optional[int] = None
+    kv_lora_rank: Optional[int] = None
+    qk_nope_dim: int = 128
+    qk_rope_dim: int = 64
+    v_head_dim: int = 128
+    # MoE (deepseek)
+    moe: bool = False
+    n_routed: int = 0
+    n_shared: int = 0
+    top_k: int = 0
+    first_dense_layers: int = 0
+    dense_d_ff: Optional[int] = None        # d_ff of the leading dense layers
+    capacity_factor: float = 1.25
+    router_aux_coef: float = 0.001
+    moe_groups: int = 0          # >1: dispatch within groups of T / G tokens
+    moe_gather_weights: bool = False  # a sharding constraint; none on one card
     fused_ce: int = 0            # >0: blockwise cross-entropy (training)
     remat_policy: str = "full"   # "full" | "dots" (save matmul outputs)
     train_microbatches: int = 0  # 0 = launcher default
+    # MTP (deepseek-v3)
+    mtp: bool = False
     # numerics
     dtype: str = "bfloat16"
     norm_eps: float = 1e-6
@@ -60,14 +74,36 @@ class LMConfig:
         return self.head_dim if self.head_dim is not None else self.d_model // self.n_heads
 
     def n_params(self) -> int:
-        """Total parameter count of the dense GQA model (biases left out)."""
-        if self.attention != "gqa" or self.moe:
-            raise NotImplementedError(f"{self.name}: MLA and MoE are not ported")
+        """Total parameter count, as the JAX package counts it: projections,
+        experts and routers; biases, norms and the MTP block left out."""
         d, hd = self.d_model, self.hd
         emb = self.vocab * d * (1 if self.tie_embeddings else 2)
-        attn = 2 * d * self.n_heads * hd + 2 * d * self.n_kv_heads * hd
-        mlp = (3 if self.mlp == "swiglu" else 2) * d * self.d_ff
-        return emb + self.n_layers * (attn + mlp)
+        per_layer = 0
+        if self.attention == "mla":
+            qk = self.qk_nope_dim + self.qk_rope_dim
+            if self.q_lora_rank:
+                per_layer += d * self.q_lora_rank
+                per_layer += self.q_lora_rank * self.n_heads * qk
+            else:
+                per_layer += d * self.n_heads * qk
+            per_layer += d * (self.kv_lora_rank + self.qk_rope_dim)
+            per_layer += self.kv_lora_rank * self.n_heads * (
+                self.qk_nope_dim + self.v_head_dim)
+            per_layer += self.n_heads * self.v_head_dim * d
+        else:
+            per_layer += d * self.n_heads * hd + 2 * d * self.n_kv_heads * hd
+            per_layer += self.n_heads * hd * d
+        mlp_mult = 3 if self.mlp == "swiglu" else 2
+        total = emb + self.n_layers * per_layer
+        if self.moe:
+            n_dense = self.first_dense_layers
+            n_moe = self.n_layers - n_dense
+            total += n_dense * mlp_mult * d * (self.dense_d_ff or self.d_ff)
+            total += n_moe * (self.n_routed + self.n_shared) * mlp_mult * d * self.d_ff
+            total += n_moe * d * self.n_routed  # router
+        else:
+            total += self.n_layers * mlp_mult * d * self.d_ff
+        return total
 
 
 @dataclasses.dataclass(frozen=True)

@@ -107,11 +107,11 @@ def library() -> ctypes.CDLL:
     lib.bitset_wave_launch.restype = i
     lib.segment_agg_launch.argtypes = [p, p, p, ll, i, i, i, i, p]
     lib.segment_agg_launch.restype = i
-    lib.flash_attention_launch.argtypes = [
-        p, p, p, p, ll, i, i, i, i, ctypes.POINTER(ll), i, i, i, p]
-    lib.flash_attention_launch.restype = i
-    lib.flash_attention_bf16_launch.argtypes = [  # + the kv tile after d
+    lib.flash_attention_launch.argtypes = [  # d, then dv
         p, p, p, p, ll, i, i, i, i, i, ctypes.POINTER(ll), i, i, i, p]
+    lib.flash_attention_launch.restype = i
+    lib.flash_attention_bf16_launch.argtypes = [  # d, dv, then the kv tile
+        p, p, p, p, ll, i, i, i, i, i, i, ctypes.POINTER(ll), i, i, i, p]
     lib.flash_attention_bf16_launch.restype = i
     lib.embedding_bag_launch.argtypes = [p, p, p, p, ll, i, i, ll, i, i, i, p]
     lib.embedding_bag_launch.restype = i

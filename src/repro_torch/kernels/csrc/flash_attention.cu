@@ -3,16 +3,17 @@
 // kernels/ops.py).
 //
 // flash_attention replaces the TPU kernel src/repro/kernels/flash_attention.py
-// (`flash_attention`) for f32 inputs: for q [B, Hq, S, D] and k, v
-// [B, Hkv, S, D] (Hq a multiple of Hkv, query head h reading kv head
-// h / (Hq / Hkv)), o = softmax(q k^T / sqrt(D) + mask) v in f32, with a causal
-// mask and/or a sliding window (key > query - window). As in the TPU kernel,
+// (`flash_attention`) for f32 inputs: for q [B, Hq, S, Dqk], k
+// [B, Hkv, S, Dqk] and v [B, Hkv, S, Dv] (Hq a multiple of Hkv, query head h
+// reading kv head h / (Hq / Hkv)), o [B, Hq, S, Dv] = softmax(q k^T /
+// sqrt(Dqk) + mask) v in f32, with a causal mask and/or a sliding window
+// (key > query - window). As in the TPU kernel,
 // q is scaled before the product, the running max, the running denominator
 // and the accumulator are f32, a masked logit is -1e30, the output is divided
 // by max(l, 1e-30), and a kv tile that the mask rules out for the whole q
 // tile is never visited. The TPU kernel needs S % 128 == 0 and D >= 128; this
-// one takes any S (the last q and kv tiles are masked at S) and D in
-// {64, 128, 256}. bf16 inputs go to the tensor-core kernel of
+// one takes any S (the last q and kv tiles are masked at S) and (Dqk, Dv) in
+// {(64, 64), (128, 128), (256, 256), (192, 128)} (MLA's pair). bf16 inputs go to the tensor-core kernel of
 // flash_attention_sm90.cu; this kernel no longer has a bf16 instantiation.
 //
 // One block of 256 threads per (q tile of 64 rows, query head, batch row),
@@ -23,7 +24,7 @@
 // keys tx + 16 j, i, j < 4, reading float4s of padded rows, so no bank
 // conflicts), reduces the row max and sum across the 16 threads of a row
 // with shuffles, writes p to shared memory and adds p v into its 4 rows x
-// D / 16 output columns (4 tx + 64 c + e) held in registers. The output is
+// Dv / 16 output columns (4 tx + 64 c + e) held in registers. The output is
 // written once, at the end.
 //
 // What bounds it on this card: operations. Causal attention at S = 32768,
@@ -52,28 +53,28 @@ struct Strides {
   long long b, h, s;
 };
 
-template <int D>
+template <int Dqk, int Dv>
 constexpr size_t smem_bytes() {
   return sizeof(float) *
-         (static_cast<size_t>(kBq) * (D + 4) + static_cast<size_t>(kBk) * (D + 4) +
-          static_cast<size_t>(kBk) * D + static_cast<size_t>(kBq) * (kBk + 4));
+         (static_cast<size_t>(kBq) * (Dqk + 4) + static_cast<size_t>(kBk) * (Dqk + 4) +
+          static_cast<size_t>(kBk) * Dv + static_cast<size_t>(kBq) * (kBk + 4));
 }
 
-template <int D>
+template <int Dqk, int Dv>
 __global__ void __launch_bounds__(kThreads)
 flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
                        const float* __restrict__ v, float* __restrict__ o,
                        Strides qs, Strides ks, Strides vs, Strides os,
                        int s_len, int group, float scale, int causal,
                        int window) {
-  constexpr int kRow = D + 4;     // padded row of the q and k tiles
+  constexpr int kRow = Dqk + 4;   // padded row of the q and k tiles
   constexpr int kProw = kBk + 4;  // padded row of the p tile
-  constexpr int kCols = D / 64;   // float4 column groups of o per thread
+  constexpr int kCols = Dv / 64;  // float4 column groups of o per thread
   extern __shared__ __align__(16) float smem[];
   float* qt = smem;               // [kBq][kRow], scaled
   float* kt = qt + kBq * kRow;    // [kBk][kRow]
-  float* vt = kt + kBk * kRow;    // [kBk][D]
-  float* pt = vt + kBk * D;       // [kBq][kProw]
+  float* vt = kt + kBk * kRow;    // [kBk][Dv]
+  float* pt = vt + kBk * Dv;      // [kBq][kProw]
 
   const int tid = threadIdx.x;
   const int tx = tid & 15;
@@ -86,8 +87,8 @@ flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const float* kb = k + b * ks.b + (h / group) * ks.h;
   const float* vb = v + b * vs.b + (h / group) * vs.h;
 
-  for (int idx = tid; idx < kBq * D; idx += kThreads) {
-    const int r = idx / D, d = idx % D;
+  for (int idx = tid; idx < kBq * Dqk; idx += kThreads) {
+    const int r = idx / Dqk, d = idx % Dqk;
     const int row = q0 + r;
     qt[r * kRow + d] =
         row < s_len ? qb[row * qs.s + d] * scale : 0.f;
@@ -117,12 +118,15 @@ flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
   for (int kti = kv_begin; kti < kv_end; ++kti) {
     const int k0 = kti * kBk;
     __syncthreads();  // the previous tile's k, v and p are consumed
-    for (int idx = tid; idx < kBk * D; idx += kThreads) {
-      const int r = idx / D, d = idx % D;
+    for (int idx = tid; idx < kBk * Dqk; idx += kThreads) {
+      const int r = idx / Dqk, d = idx % Dqk;
       const int key = k0 + r;
-      const bool in = key < s_len;
-      kt[r * kRow + d] = in ? kb[key * ks.s + d] : 0.f;
-      vt[r * D + d] = in ? vb[key * vs.s + d] : 0.f;
+      kt[r * kRow + d] = key < s_len ? kb[key * ks.s + d] : 0.f;
+    }
+    for (int idx = tid; idx < kBk * Dv; idx += kThreads) {
+      const int r = idx / Dv, d = idx % Dv;
+      const int key = k0 + r;
+      vt[r * Dv + d] = key < s_len ? vb[key * vs.s + d] : 0.f;
     }
     __syncthreads();
 
@@ -132,7 +136,7 @@ flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
 #pragma unroll 4
-    for (int d = 0; d < D; d += 4) {
+    for (int d = 0; d < Dqk; d += 4) {
       float4 a[4], c[4];
 #pragma unroll
       for (int i = 0; i < 4; ++i)
@@ -201,7 +205,7 @@ flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
         for (int c = 0; c < kCols; ++c) {
           const float4 vv = *reinterpret_cast<const float4*>(
-              &vt[(kk + e) * D + 64 * c + 4 * tx]);
+              &vt[(kk + e) * Dv + 64 * c + 4 * tx]);
 #pragma unroll
           for (int i = 0; i < 4; ++i) {
             const float p = component(p4[i], e);
@@ -230,13 +234,13 @@ flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-template <int D>
+template <int Dqk, int Dv>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    long long batch, int hq, int hkv, int s_len,
                    const long long* st, int causal, int window,
                    cudaStream_t stream) {
-  auto kernel = flash_attention_kernel<D>;
-  constexpr size_t smem = smem_bytes<D>();
+  auto kernel = flash_attention_kernel<Dqk, Dv>;
+  constexpr size_t smem = smem_bytes<Dqk, Dv>();
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
@@ -246,7 +250,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
       static_cast<const float*>(v), static_cast<float*>(o),
       Strides{st[0], st[1], st[2]}, Strides{st[3], st[4], st[5]},
       Strides{st[6], st[7], st[8]}, Strides{st[9], st[10], st[11]}, s_len,
-      hq / hkv, static_cast<float>(1.0 / sqrt(static_cast<double>(D))), causal,
+      hq / hkv, static_cast<float>(1.0 / sqrt(static_cast<double>(Dqk))), causal,
       window);
   return cudaGetLastError();
 }
@@ -255,15 +259,16 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
 
 extern "C" {
 
-// o = attention(q, k, v) for f32 q [B, Hq, S, D], k and v [B, Hkv, S, D],
-// o [B, Hq, S, D]. `strides` holds the element strides (batch, head,
-// position) of q, k, v and o in that order; the last axis of each is
-// contiguous. causal: 0 or 1; window <= 0 means none. Returns the
-// cudaError_t of the launch (0 = launched); an unknown D or a grid out of
-// range returns cudaErrorInvalidValue.
+// o = attention(q, k, v) for f32 q [B, Hq, S, d], k [B, Hkv, S, d],
+// v [B, Hkv, S, dv], o [B, Hq, S, dv], the logits scaled by 1 / sqrt(d).
+// `strides` holds the element strides (batch, head, position) of q, k, v
+// and o in that order; the last axis of each is contiguous. causal: 0 or 1;
+// window <= 0 means none. Returns the cudaError_t of the launch (0 =
+// launched); a (d, dv) pair not built here or a grid out of range returns
+// cudaErrorInvalidValue.
 int flash_attention_launch(const void* q, const void* k, const void* v,
                            void* o, long long batch, int hq, int hkv,
-                           int s_len, int d, const long long* strides,
+                           int s_len, int d, int dv, const long long* strides,
                            int causal, int window, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -271,19 +276,19 @@ int flash_attention_launch(const void* q, const void* k, const void* v,
   if (hkv <= 0 || hq % hkv != 0 || hq > 65535 || batch > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (d) {
-    case 64:
-      return static_cast<int>(
-          launch<64>(q, k, v, o, batch, hq, hkv, s_len, strides, causal, window, s));
-    case 128:
-      return static_cast<int>(
-          launch<128>(q, k, v, o, batch, hq, hkv, s_len, strides, causal, window, s));
-    case 256:
-      return static_cast<int>(
-          launch<256>(q, k, v, o, batch, hq, hkv, s_len, strides, causal, window, s));
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  if (d == 64 && dv == 64)
+    return static_cast<int>(
+        launch<64, 64>(q, k, v, o, batch, hq, hkv, s_len, strides, causal, window, s));
+  if (d == 128 && dv == 128)
+    return static_cast<int>(
+        launch<128, 128>(q, k, v, o, batch, hq, hkv, s_len, strides, causal, window, s));
+  if (d == 256 && dv == 256)
+    return static_cast<int>(
+        launch<256, 256>(q, k, v, o, batch, hq, hkv, s_len, strides, causal, window, s));
+  if (d == 192 && dv == 128)
+    return static_cast<int>(
+        launch<192, 128>(q, k, v, o, batch, hq, hkv, s_len, strides, causal, window, s));
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // extern "C"

@@ -3,16 +3,19 @@
 //
 // flash_attention_bf16 replaces the TPU kernel
 // src/repro/kernels/flash_attention.py (`flash_attention`) for bf16 inputs:
-// for q [B, Hq, S, D] and k, v [B, Hkv, S, D], Hq a multiple of Hkv and
-// query head h reading kv head h / (Hq / Hkv), o = softmax(q k^T / sqrt(D) +
-// mask) v in bf16, with a causal mask and/or a sliding window (key > query
-// - window). The numerics are the JAX package's blockwise oracle
+// for q [B, Hq, S, Dqk], k [B, Hkv, S, Dqk] and v [B, Hkv, S, Dv], Hq a
+// multiple of Hkv and query head h reading kv head h / (Hq / Hkv),
+// o [B, Hq, S, Dv] = softmax(q k^T / sqrt(Dqk) + mask) v in bf16, with a
+// causal mask and/or a sliding window (key > query - window). Dqk = Dv for
+// GQA; MLA (DeepSeek) attends with Dqk = qk_nope + qk_rope = 192 and
+// Dv = 128, which the JAX package leaves to its plain oracle. The numerics are the JAX package's blockwise oracle
 // (src/repro/kernels/ref.py, `attention_blockwise`) at the kernel's kv tile:
 // products of bf16 values accumulated in f32, the logits scaled after the
 // product, running max and denominator in f32, l summed from the unrounded
 // p, p rounded to bf16 before p v, a masked logit -1e30, the output divided
-// by max(l, 1e-30). Any S (the last q and kv tiles are masked at S), D in
-// {64, 128, 256}. f32 inputs take the CUDA-core kernel of
+// by max(l, 1e-30). Any S (the last q and kv tiles are masked at S),
+// (Dqk, Dv) in {(64, 64), (128, 128), (256, 256), (192, 128)}. f32 inputs
+// take the CUDA-core kernel of
 // flash_attention.cu, which keeps them exact to f32 rounding.
 //
 // What bounds it on this card: operations. Causal attention at S = 32768,
@@ -24,15 +27,16 @@
 //     tiles launched longest-first across every head; two consumer
 //     warpgroups of 64 rows each and one producer warp;
 //   - the producer loads the q tile once and the kv tiles (128 keys at
-//     D <= 128, 64 at D = 256, so that two stages fit the 227 KB of shared
-//     memory) by TMA into a ring of two stages, each with a full barrier
+//     D <= 128 and at (192, 128), 64 at D = 256, so that two stages fit
+//     the 227 KB of shared memory: at (192, 128) 48 KB of q, 2 x 48 KB of
+//     K and 2 x 32 KB of V) by TMA into a ring of two stages, each with a full barrier
 //     for K, one for V and an empty barrier the consumers release; the
 //     tensor maps are 4-D over [B, H, S, D] with the caller's strides (the
 //     model's transposed view of v costs no copy), 128-byte swizzled in
 //     64-column panels, zero-filled past S;
 //   - S = Q K^T is wgmma with both operands in shared memory (K K-major);
 //     the online softmax runs on the accumulator fragment in registers,
-//     in log2 units (exp2f of logits scaled by log2(e) / sqrt(D)); p is
+//     in log2 units (exp2f of logits scaled by log2(e) / sqrt(Dqk)); p is
 //     converted in registers into the A operand of O += P V, whose B is V
 //     MN-major in shared memory, so p never touches shared memory;
 //   - kv tiles that the mask rules out for the whole q tile are never
@@ -42,7 +46,9 @@
 //     warpgroups (a build capped at 224 registers a thread failed to
 //     launch), so ptxas holds each thread to 168. The first k-step of
 //     Q K^T writes the logits without reading them, so their registers are
-//     free during O += P V: no spills at D <= 128 (some at D = 256).
+//     free during O += P V: no spills at D <= 128 (some at D = 256). At
+//     (192, 128) the registers are those of D = 128: the accumulator is
+//     Dv wide, and Q K^T only takes 12 k-steps in place of 8.
 // Not here: FA3's ping-pong of the two warpgroups, setmaxnreg, fp8.
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -58,19 +64,22 @@ constexpr int kThreads = 128 * kConsumers + 32;  // + the producer warp
 constexpr int kStages = 2;        // kv tiles in flight
 constexpr float kMasked = -1e30f;
 
-// Shared memory of one block: the q tile, kStages K and V tiles, each as
-// D / 64 panels of [rows][64] bf16 (128-byte rows, swizzled), then the
-// barriers; 1024 bytes of slack to align the tiles to the swizzle period.
-// Bk keys per kv tile, as the caller asks (kernels/ops.py,
-// ATTENTION_KV_TILE); the instantiated pairs are in
+// Shared memory of one block: the q tile and kStages K tiles, each as
+// Dqk / 64 panels of [rows][64] bf16 (128-byte rows, swizzled), kStages V
+// tiles of Dv / 64 such panels, then the barriers; 1024 bytes of slack to
+// align the tiles to the swizzle period (every tile is a multiple of 1024
+// bytes). Bk keys per kv tile, as the caller asks (kernels/ops.py,
+// ATTENTION_KV_TILE); the instantiated triples are in
 // flash_attention_bf16_launch.
-template <int D, int Bk>
+template <int Dqk, int Dv, int Bk>
 struct Tiles {
   static constexpr int kBk = Bk;
-  static constexpr int kPanels = D / 64;
-  static constexpr int kQBytes = kBq * D * 2;
-  static constexpr int kKVBytes = kBk * D * 2;
-  static constexpr int kBarriers = kQBytes + 2 * kStages * kKVBytes;
+  static constexpr int kQkPanels = Dqk / 64;
+  static constexpr int kVPanels = Dv / 64;
+  static constexpr int kQBytes = kBq * Dqk * 2;
+  static constexpr int kKBytes = kBk * Dqk * 2;
+  static constexpr int kVBytes = kBk * Dv * 2;
+  static constexpr int kBarriers = kQBytes + kStages * (kKBytes + kVBytes);
   static constexpr int kSmem = kBarriers + 64 + 1024;
 };
 
@@ -324,7 +333,7 @@ __device__ __forceinline__ void wgmma_rs_n256(float* d, const uint32_t* a, uint6
 }
 
 
-template <int D, int Bk>
+template <int Dqk, int Dv, int Bk>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_attention_bf16_kernel(const __grid_constant__ CUtensorMap tq,
                             const __grid_constant__ CUtensorMap tk,
@@ -333,13 +342,13 @@ flash_attention_bf16_kernel(const __grid_constant__ CUtensorMap tq,
                             long long os_h, long long os_s, int s_len, int hq,
                             int heads, int group, int n_qtiles,
                             float scale_log2, int causal, int window) {
-  using T = Tiles<D, Bk>;
+  using T = Tiles<Dqk, Dv, Bk>;
   constexpr int kBk = T::kBk;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
   const uint32_t q_tile = base;
-  const uint32_t k_tiles = base + T::kQBytes;             // + stage * kKVBytes
-  const uint32_t v_tiles = k_tiles + kStages * T::kKVBytes;
+  const uint32_t k_tiles = base + T::kQBytes;             // + stage * kKBytes
+  const uint32_t v_tiles = k_tiles + kStages * T::kKBytes;  // + stage * kVBytes
   const uint32_t bars = base + T::kBarriers;              // 8 bytes per barrier
 
   // blocks in order of q tile, last (longest causal rows) first, then heads
@@ -370,19 +379,19 @@ flash_attention_bf16_kernel(const __grid_constant__ CUtensorMap tq,
     // the producer warp: one thread issues every load
     if (threadIdx.x == 128 * kConsumers) {
       mbar_expect_tx(bars + 8 * q_full(), T::kQBytes);
-      for (int p = 0; p < T::kPanels; ++p)
+      for (int p = 0; p < T::kQkPanels; ++p)
         tma_load(q_tile + p * kBq * 128, &tq, bars + 8 * q_full(), 64 * p, q0, h, b);
       for (int t = 0; t < n_tiles; ++t) {
         const int s = t % kStages;
         if (t >= kStages) mbar_wait(bars + 8 * kv_empty(s), (t / kStages - 1) & 1);
         const int k0 = (kv_begin + t) * kBk;
-        mbar_expect_tx(bars + 8 * k_full(s), T::kKVBytes);
-        for (int p = 0; p < T::kPanels; ++p)
-          tma_load(k_tiles + s * T::kKVBytes + p * kBk * 128, &tk,
+        mbar_expect_tx(bars + 8 * k_full(s), T::kKBytes);
+        for (int p = 0; p < T::kQkPanels; ++p)
+          tma_load(k_tiles + s * T::kKBytes + p * kBk * 128, &tk,
                    bars + 8 * k_full(s), 64 * p, k0, hk, b);
-        mbar_expect_tx(bars + 8 * v_full(s), T::kKVBytes);
-        for (int p = 0; p < T::kPanels; ++p)
-          tma_load(v_tiles + s * T::kKVBytes + p * kBk * 128, &tv,
+        mbar_expect_tx(bars + 8 * v_full(s), T::kVBytes);
+        for (int p = 0; p < T::kVPanels; ++p)
+          tma_load(v_tiles + s * T::kVBytes + p * kBk * 128, &tv,
                    bars + 8 * v_full(s), 64 * p, k0, hk, b);
       }
     }
@@ -398,11 +407,11 @@ flash_attention_bf16_kernel(const __grid_constant__ CUtensorMap tq,
   const int wg_first = q0 + 64 * wg;
   const int wg_last = wg_first + 63;
 
-  float acc[D / 2];   // O, m64nD
+  float acc[Dv / 2];  // O, m64nDv
   float s[kBk / 2];   // logits, then p, m64nBk; dead during O += P V
   uint32_t pa[kBk / 16][4];  // p in bf16 as the A operand of P V
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  for (int i = 0; i < Dv / 2; ++i) acc[i] = 0.f;
   float m[2] = {kMasked, kMasked};  // running max, log2 units
   float l[2] = {0.f, 0.f};          // this thread's share of the denominator
 
@@ -411,15 +420,15 @@ flash_attention_bf16_kernel(const __grid_constant__ CUtensorMap tq,
     const int st = t % kStages;
     const uint32_t parity = (t / kStages) & 1;
     const int k0 = (kv_begin + t) * kBk;
-    const uint32_t kt = k_tiles + st * T::kKVBytes;
-    const uint32_t vt = v_tiles + st * T::kKVBytes;
+    const uint32_t kt = k_tiles + st * T::kKBytes;
+    const uint32_t vt = v_tiles + st * T::kVBytes;
 
-    // S = Q K^T: D / 16 steps of k16; a step's 32 bytes sit inside one
+    // S = Q K^T: Dqk / 16 steps of k16; a step's 32 bytes sit inside one
     // 128-byte panel row, so the descriptor moves by 32 bytes within a panel
     mbar_wait(bars + 8 * k_full(st), parity);
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
+    for (int kk = 0; kk < Dqk / 16; ++kk) {
       const uint64_t da = smem_desc(
           q_tile + (kk / 4) * (kBq * 128) + wg * (64 * 128) + (kk % 4) * 32, 16, 1024);
       const uint64_t db = smem_desc(kt + (kk / 4) * (kBk * 128) + (kk % 4) * 32, 16, 1024);
@@ -478,7 +487,7 @@ flash_attention_bf16_kernel(const __grid_constant__ CUtensorMap tq,
           s[4 * j + 2 * i + c] = p;
         }
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j)
+    for (int j = 0; j < Dv / 8; ++j)
 #pragma unroll
       for (int i = 0; i < 2; ++i) {
         acc[4 * j + 2 * i] *= alpha[i];
@@ -498,15 +507,15 @@ flash_attention_bf16_kernel(const __grid_constant__ CUtensorMap tq,
     // 1024 bytes apart (stride offset), 64-column panels kBk * 128 bytes
     // apart (leading offset)
     mbar_wait(bars + 8 * v_full(st), parity);
-    fence_regs<D / 2>(acc);
+    fence_regs<Dv / 2>(acc);
     fence_regs<kBk / 4>(&pa[0][0]);
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < kBk / 16; ++kk) {
       const uint64_t db = smem_desc(vt + kk * 2048, kBk * 128, 1024);
-      if constexpr (D == 64) {
+      if constexpr (Dv == 64) {
         wgmma_rs_n64(acc, pa[kk], db);
-      } else if constexpr (D == 128) {
+      } else if constexpr (Dv == 128) {
         wgmma_rs_n128(acc, pa[kk], db);
       } else {
         wgmma_rs_n256(acc, pa[kk], db);
@@ -514,7 +523,7 @@ flash_attention_bf16_kernel(const __grid_constant__ CUtensorMap tq,
     }
     wgmma_commit();
     wgmma_wait_all();
-    fence_regs<D / 2>(acc);
+    fence_regs<Dv / 2>(acc);
     fence_regs<kBk / 4>(&pa[0][0]);
     __syncwarp();
     if (lane == 0) mbar_arrive(bars + 8 * kv_empty(st));
@@ -530,7 +539,7 @@ flash_attention_bf16_kernel(const __grid_constant__ CUtensorMap tq,
     const float denom = fmaxf(l[i], 1e-30f);
     __nv_bfloat16* orow = ob + row * os_s + col;
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j)
+    for (int j = 0; j < Dv / 8; ++j)
       *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j) = __floats2bfloat162_rn(
           acc[4 * j + 2 * i] / denom, acc[4 * j + 2 * i + 1] / denom);
   }
@@ -584,18 +593,18 @@ bool encode_map(CUtensorMap* map, const void* ptr, int d, int s_len, int heads,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int D, int Bk>
+template <int Dqk, int Dv, int Bk>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    long long batch, int hq, int hkv, int s_len,
                    const long long* st, int causal, int window,
                    cudaStream_t stream) {
-  using T = Tiles<D, Bk>;
+  using T = Tiles<Dqk, Dv, Bk>;
   CUtensorMap mq, mk, mv;
-  if (!encode_map(&mq, q, D, s_len, hq, batch, st[0], st[1], st[2], kBq) ||
-      !encode_map(&mk, k, D, s_len, hkv, batch, st[3], st[4], st[5], T::kBk) ||
-      !encode_map(&mv, v, D, s_len, hkv, batch, st[6], st[7], st[8], T::kBk))
+  if (!encode_map(&mq, q, Dqk, s_len, hq, batch, st[0], st[1], st[2], kBq) ||
+      !encode_map(&mk, k, Dqk, s_len, hkv, batch, st[3], st[4], st[5], T::kBk) ||
+      !encode_map(&mv, v, Dv, s_len, hkv, batch, st[6], st[7], st[8], T::kBk))
     return cudaErrorInvalidValue;
-  auto kernel = flash_attention_bf16_kernel<D, Bk>;
+  auto kernel = flash_attention_bf16_kernel<Dqk, Dv, Bk>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, T::kSmem);
   if (err != cudaSuccess) return err;
@@ -605,7 +614,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   kernel<<<static_cast<unsigned>(blocks), kThreads, T::kSmem, stream>>>(
       mq, mk, mv, static_cast<__nv_bfloat16*>(o), st[9], st[10], st[11], s_len,
       hq, static_cast<int>(batch * hq), hq / hkv, static_cast<int>(n_qtiles),
-      static_cast<float>(1.4426950408889634 / sqrt(static_cast<double>(D))),
+      static_cast<float>(1.4426950408889634 / sqrt(static_cast<double>(Dqk))),
       causal, window);
   return cudaGetLastError();
 }
@@ -614,18 +623,20 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
 
 extern "C" {
 
-// o = attention(q, k, v) for bf16 q [B, Hq, S, D], k and v [B, Hkv, S, D],
-// o [B, Hq, S, D], read in kv tiles of `kv_tile` keys. `strides` holds the
+// o = attention(q, k, v) for bf16 q [B, Hq, S, d], k [B, Hkv, S, d],
+// v [B, Hkv, S, dv], o [B, Hq, S, dv], read in kv tiles of `kv_tile` keys,
+// the logits scaled by 1 / sqrt(d). `strides` holds the
 // element strides (batch, head, position) of q, k, v and o in that order;
 // the last axis of each is contiguous, q, k and v start 16-byte aligned and
 // their strides are multiples of 8 elements (TMA's rule; kernels/ops.py
 // checks it). causal: 0 or 1; window <= 0 means none. Returns the
-// cudaError_t of the launch (0 = launched); a (D, kv_tile) pair not built
-// here (64, 128; 128, 128; 256, 64), a tensor map cuTensorMapEncodeTiled
-// refuses, or a grid out of range returns cudaErrorInvalidValue.
+// cudaError_t of the launch (0 = launched); a (d, dv, kv_tile) triple not
+// built here (64, 64, 128; 128, 128, 128; 256, 256, 64; 192, 128, 128), a
+// tensor map cuTensorMapEncodeTiled refuses, or a grid out of range returns
+// cudaErrorInvalidValue.
 int flash_attention_bf16_launch(const void* q, const void* k, const void* v,
                                 void* o, long long batch, int hq, int hkv,
-                                int s_len, int d, int kv_tile,
+                                int s_len, int d, int dv, int kv_tile,
                                 const long long* strides, int causal,
                                 int window, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
@@ -634,15 +645,18 @@ int flash_attention_bf16_launch(const void* q, const void* k, const void* v,
   if (hkv <= 0 || hq % hkv != 0 || batch * hq > 0x7fffffffLL)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (d == 64 && kv_tile == 128)
-    return static_cast<int>(launch<64, 128>(q, k, v, o, batch, hq, hkv, s_len,
-                                            strides, causal, window, s));
-  if (d == 128 && kv_tile == 128)
-    return static_cast<int>(launch<128, 128>(q, k, v, o, batch, hq, hkv, s_len,
-                                             strides, causal, window, s));
-  if (d == 256 && kv_tile == 64)
-    return static_cast<int>(launch<256, 64>(q, k, v, o, batch, hq, hkv, s_len,
-                                            strides, causal, window, s));
+  if (d == 64 && dv == 64 && kv_tile == 128)
+    return static_cast<int>(launch<64, 64, 128>(q, k, v, o, batch, hq, hkv, s_len,
+                                                strides, causal, window, s));
+  if (d == 128 && dv == 128 && kv_tile == 128)
+    return static_cast<int>(launch<128, 128, 128>(q, k, v, o, batch, hq, hkv, s_len,
+                                                  strides, causal, window, s));
+  if (d == 256 && dv == 256 && kv_tile == 64)
+    return static_cast<int>(launch<256, 256, 64>(q, k, v, o, batch, hq, hkv, s_len,
+                                                 strides, causal, window, s));
+  if (d == 192 && dv == 128 && kv_tile == 128)
+    return static_cast<int>(launch<192, 128, 128>(q, k, v, o, batch, hq, hkv, s_len,
+                                                  strides, causal, window, s));
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

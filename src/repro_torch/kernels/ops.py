@@ -24,7 +24,9 @@ plain version on the CPU) and whose backward is the plain one in
 
 `attention` has two kernels: bf16 inputs take the tensor-core kernel
 (`csrc/flash_attention_sm90.cu`, variant "bf16_tc"), f32 inputs the
-CUDA-core kernel (`csrc/flash_attention.cu`, variant "f32").
+CUDA-core kernel (`csrc/flash_attention.cu`, variant "f32"). Both take q and
+k of one head dim Dqk and v of its own, Dv: the GQA pairs (64, 64),
+(128, 128), (256, 256), and MLA's (192, 128).
 """
 from __future__ import annotations
 
@@ -343,79 +345,103 @@ def neighborhood_agg(
 
 
 # --------------------------------------------------------- flash_attention
+# the head dims of GQA (q, k and v alike)
 ATTENTION_HEAD_DIMS = (64, 128, 256)
+# the (Dqk, Dv) pairs both kernels take: GQA's, and MLA's (DeepSeek: q and k
+# of qk_nope + qk_rope = 192, v of 128)
+ATTENTION_HEAD_DIM_PAIRS = tuple((d, d) for d in ATTENTION_HEAD_DIMS) + ((192, 128),)
 # the kernel each dtype takes: bf16 the tensor-core kernel, f32 the
 # CUDA-core kernel, which keeps f32 inputs exact to f32 rounding
 ATTENTION_VARIANTS = {torch.bfloat16: "bf16_tc", torch.float32: "f32"}
-# keys per kv tile of the tensor-core kernel, passed to it with each launch
-# (csrc/flash_attention_sm90.cu builds these pairs): two stages of K and V
-# tiles beside the 128-row q tile fit the 227 KB of shared memory a block
-# may use; its numerics are attention_blockwise's at this block size
-ATTENTION_KV_TILE = {64: 128, 128: 128, 256: 64}
+# keys per kv tile of the tensor-core kernel for each (Dqk, Dv), passed to
+# it with each launch (csrc/flash_attention_sm90.cu builds these triples):
+# two stages of K and V tiles beside the 128-row q tile fit the 227 KB of
+# shared memory a block may use (209 KB at (192, 128)); its numerics are
+# attention_blockwise's at this block size
+ATTENTION_KV_TILE = {(64, 64): 128, (128, 128): 128, (256, 256): 64,
+                     (192, 128): 128}
 # TMA reads bf16 q, k, v from a 16-byte-aligned base, with batch, head and
 # position strides that are multiples of 16 bytes
 TMA_ALIGN_BYTES = 16
 
 
-def attention_variant(dtype: torch.dtype, d: int) -> str:
-    """The kernel that takes [.., D] inputs of this dtype on the card:
-    "bf16_tc" or "f32". Raises for another dtype or D."""
-    if d not in ATTENTION_HEAD_DIMS:
-        raise ValueError(f"flash_attention takes D in {ATTENTION_HEAD_DIMS}, got {d}")
+def attention_variant(dtype: torch.dtype, d: int, dv: Optional[int] = None) -> str:
+    """The kernel that takes q, k [.., d] and v [.., dv] (dv = d unless
+    given) of this dtype on the card: "bf16_tc" or "f32". Raises for another
+    dtype or (d, dv) pair."""
+    dv = d if dv is None else dv
+    if (d, dv) not in ATTENTION_HEAD_DIM_PAIRS:
+        raise ValueError(f"flash_attention takes (Dqk, Dv) in "
+                         f"{ATTENTION_HEAD_DIM_PAIRS}, got ({d}, {dv})")
     if dtype not in ATTENTION_VARIANTS:
         raise ValueError(f"flash_attention takes f32 or bf16, got {dtype}")
     return ATTENTION_VARIANTS[dtype]
 
 
-def tma_strides(name: str, t: torch.Tensor):
+def tma_strides(name: str, t: torch.Tensor, pair=None):
     """The element strides (batch, head, position) of t [B, H, S, D], whose
     last axis is contiguous, as the tensor-core kernel's TMA maps take them.
-    Raises ValueError unless t's base address is 16-byte aligned and the
-    stride of each of those axes longer than 1 is a multiple of 16 bytes; an
-    axis of length 1 is given its contiguous stride, which TMA never steps."""
+    Raises ValueError (naming the (Dqk, Dv) `pair` where one is given)
+    unless t's base address is 16-byte aligned and the stride of each of
+    those axes longer than 1 is a multiple of 16 bytes; an axis of length 1
+    is given its contiguous stride, which TMA never steps."""
     elem = t.element_size()
+    at = f" at (Dqk, Dv) = {pair}" if pair else ""
     if t.data_ptr() % TMA_ALIGN_BYTES:
-        raise ValueError(f"{name} starts at an address that is not "
+        raise ValueError(f"{name}{at} starts at an address that is not "
                          f"{TMA_ALIGN_BYTES}-byte aligned: pass a contiguous copy")
     out = []
     for axis in range(3):
         if t.shape[axis] == 1:
             out.append(math.prod(t.shape[axis + 1:]))
         elif (t.stride(axis) * elem) % TMA_ALIGN_BYTES:
-            raise ValueError(f"{name}'s stride {t.stride(axis)} along axis {axis} "
-                             f"is not a multiple of {TMA_ALIGN_BYTES} bytes: pass a "
-                             "contiguous copy")
+            raise ValueError(f"{name}{at}: stride {t.stride(axis)} along axis "
+                             f"{axis} is not a multiple of {TMA_ALIGN_BYTES} bytes: "
+                             "pass a contiguous copy")
         else:
             out.append(t.stride(axis))
     return tuple(out)
+
+
+def tma_operand(name: str, t: torch.Tensor, pair):
+    """(t, its TMA strides): t as it is where TMA can read it in place (a
+    view such as MLA's v, a slice of the kv projection, usually can), else a
+    contiguous copy, which always can."""
+    try:
+        return t, tma_strides(name, t, pair)
+    except ValueError:
+        t = t.contiguous()
+        return t, tma_strides(name, t, pair)
 
 
 def _attention_cuda(q, k, v, causal, window):
     from repro_torch.kernels import build
 
     b, hq, s, d = q.shape
-    variant = attention_variant(q.dtype, d)
+    dv = v.shape[3]
+    variant = attention_variant(q.dtype, d, dv)
     if variant == "f32" and (b > 65535 or hq > 65535):
         raise ValueError(f"batch {b} or heads {hq} exceed the grid's 65535")
     for name, t in (("k", k), ("v", v)):
         if t.device != q.device:
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
     q, k, v = (t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v))
-    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    out = torch.empty((b, hq, s, dv), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out
-    head = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, hq,
-            k.shape[1], s, d)
     if variant == "bf16_tc":
-        st = [x for name, t in (("q", q), ("k", k), ("v", v))
-              for x in tma_strides(name, t)] + list(out.stride()[:3])
+        (q, sq), (k, sk), (v, sv) = (tma_operand(name, t, (d, dv)) for name, t in
+                                     (("q", q), ("k", k), ("v", v)))
+        st = [*sq, *sk, *sv, *out.stride()[:3]]
     else:
         st = [x for t in (q, k, v, out) for x in t.stride()[:3]]
+    head = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, hq,
+            k.shape[1], s, d, dv)
     rest = ((ctypes.c_longlong * 12)(*st), int(causal),
             0 if window is None else int(window), q.device.index or 0, _stream(q))
     lib = build.library()
     if variant == "bf16_tc":
-        code = lib.flash_attention_bf16_launch(*head, ATTENTION_KV_TILE[d], *rest)
+        code = lib.flash_attention_bf16_launch(*head, ATTENTION_KV_TILE[d, dv], *rest)
     else:
         code = lib.flash_attention_launch(*head, *rest)
     build.check(code, f"flash_attention ({variant})")
@@ -424,26 +450,31 @@ def _attention_cuda(q, k, v, causal, window):
 
 
 def attention(
-    q: torch.Tensor,  # [B, Hq, S, D]
-    k: torch.Tensor,  # [B, Hkv, S, D]
-    v: torch.Tensor,  # [B, Hkv, S, D]
+    q: torch.Tensor,  # [B, Hq, S, Dqk]
+    k: torch.Tensor,  # [B, Hkv, S, Dqk]
+    v: torch.Tensor,  # [B, Hkv, S, Dv]
     *,
     causal: bool = True,
     window: Optional[int] = None,
 ) -> torch.Tensor:
-    """softmax(q k^T / sqrt(D) + mask) v -> [B, Hq, S, D] in q's dtype; query
-    head h reads kv head h // (Hq / Hkv); `window` keeps the keys after
-    query - window. f32 or bf16, all three of one dtype.
+    """softmax(q k^T / sqrt(Dqk) + mask) v -> [B, Hq, S, Dv] in q's dtype;
+    query head h reads kv head h // (Hq / Hkv); `window` keeps the keys
+    after query - window. f32 or bf16, all three of one dtype. Dv = Dqk for
+    GQA; MLA's v has its own head dim.
 
     Any S: the TPU kernel's S % 128 and D >= 128 gate has no counterpart;
-    the CUDA kernels take D in 64, 128, 256 (`attention_variant` names the
-    one a dtype takes)."""
-    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
-        raise ValueError(f"q must be [B, Hq, S, D] and k, v [B, Hkv, S, D], got "
-                         f"{list(q.shape)}, {list(k.shape)}, {list(v.shape)}")
+    the CUDA kernels take the (Dqk, Dv) pairs of ATTENTION_HEAD_DIM_PAIRS
+    (`attention_variant` names the one a dtype takes)."""
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
+        raise ValueError(f"q must be [B, Hq, S, Dqk], k [B, Hkv, S, Dqk] and v "
+                         f"[B, Hkv, S, Dv], got {list(q.shape)}, {list(k.shape)}, "
+                         f"{list(v.shape)}")
     b, hq, s, d = q.shape
     if (k.shape[0], k.shape[2], k.shape[3]) != (b, s, d) or hq % k.shape[1]:
-        raise ValueError(f"k, v {list(k.shape)} do not fit q {list(q.shape)}")
+        raise ValueError(f"k {list(k.shape)} does not fit q {list(q.shape)}")
+    if v.shape[:3] != k.shape[:3]:
+        raise ValueError(f"v {list(v.shape)} does not fit k {list(k.shape)}: "
+                         "(B, Hkv, S) must agree")
     if q.dtype not in _KERNEL_DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"q, k, v must share f32 or bf16, got "
                          f"{q.dtype}, {k.dtype}, {v.dtype}")

@@ -165,15 +165,16 @@ def _repeat_kv(q, k, v):
 
 
 def attention_ref(
-    q: torch.Tensor,  # [B, Hq, S, D]
-    k: torch.Tensor,  # [B, Hkv, S, D]
-    v: torch.Tensor,
+    q: torch.Tensor,  # [B, Hq, S, Dqk]
+    k: torch.Tensor,  # [B, Hkv, S, Dqk]
+    v: torch.Tensor,  # [B, Hkv, S, Dv]
     *,
     causal: bool = True,
     window=None,
 ) -> torch.Tensor:
-    """softmax(q k^T / sqrt(D) + mask) v, materialising the [S, S] logits in
-    f32 (scaled after the product) -> q's dtype."""
+    """softmax(q k^T / sqrt(Dqk) + mask) v -> [B, Hq, S, Dv], materialising
+    the [S, S] logits in f32 (scaled after the product) -> q's dtype. Dv may
+    differ from Dqk (MLA); the scale is q's head dim."""
     s, d = q.shape[2], q.shape[3]
     k, v = _repeat_kv(q, k, v)
     logits = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * (1.0 / d ** 0.5)
@@ -185,10 +186,10 @@ def attention_ref(
 
 
 def attention_backward(
-    q: torch.Tensor,   # [B, Hq, S, D]
-    k: torch.Tensor,   # [B, Hkv, S, D]
-    v: torch.Tensor,   # [B, Hkv, S, D]
-    do: torch.Tensor,  # [B, Hq, S, D], the output's cotangent
+    q: torch.Tensor,   # [B, Hq, S, Dqk]
+    k: torch.Tensor,   # [B, Hkv, S, Dqk]
+    v: torch.Tensor,   # [B, Hkv, S, Dv]
+    do: torch.Tensor,  # [B, Hq, S, Dv], the output's cotangent
     *,
     causal: bool = True,
     window=None,
@@ -216,8 +217,8 @@ def attention_backward(
     for bi in range(b):
         for j in range(hkv):
             heads = slice(j * group, (j + 1) * group)
-            qc = q[bi, heads].float()                 # [G, S, D]
-            kc, vc = k[bi, j].float(), v[bi, j].float()  # [S, D]
+            qc = q[bi, heads].float()                 # [G, S, Dqk]
+            kc, vc = k[bi, j].float(), v[bi, j].float()  # [S, Dqk], [S, Dv]
             doc = do[bi, heads].float()
             logits = torch.where(live, (qc @ kc.T) * scale, ATTENTION_NEG_INF)
             p = torch.softmax(logits, dim=-1)          # [G, S, S]
@@ -231,8 +232,8 @@ def attention_backward(
 
 
 def attention_blockwise(
-    q: torch.Tensor,  # [B, Hq, S, D]
-    k: torch.Tensor,  # [B, Hkv, S, D]
+    q: torch.Tensor,  # [B, Hq, S, Dqk]
+    k: torch.Tensor,  # [B, Hkv, S, Dqk]
     v: torch.Tensor,  # [B, Hkv, S, Dv]
     *,
     causal: bool = True,

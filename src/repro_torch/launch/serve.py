@@ -1,15 +1,16 @@
 """Serving entry point of the port, as the JAX package's `launch/serve.py`,
 on the card unless `--device cpu`: graph-query serving (the paper's
 multi-tenant pattern-matching scenario), batched greedy generation (LM) or
-catalog scoring (recsys) on an arch's smoke config. The LM smoke config's
-head dim (16) is raised to 64, the least that `flash_attention` takes
-(`serve_config`).
+catalog scoring (recsys) on an arch's smoke config. An LM smoke config's
+head dims are raised to a pair that `flash_attention` takes
+(`serve_config`): GQA's 16 to 64, MLA's (16 + 8, 16) to (128 + 64, 128).
 
   PYTHONPATH=src python -m repro_torch.launch.serve --graph-queries 32 \\
       --graph-scale 9 --max-batch 8 [--max-wait S] [--timeout S] \\
       [--policy PATH] [--partition P]
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-1.5b \\
       --batch 4 --prompt-len 16 --max-new 32
+      (or qwen3-8b, starcoder2-15b, deepseek-v2-lite-16b, deepseek-v3-671b)
   PYTHONPATH=src python -m repro_torch.launch.serve --arch bert4rec --device cpu
 
 `--graph-queries N` serves N templates of `example_workload` in count mode
@@ -32,21 +33,33 @@ from repro_torch.configs import get_arch
 from repro_torch.configs.base import LMConfig, RecsysConfig
 from repro_torch.data.recsys import MaskedSequenceStream
 from repro_torch.kernels import registry
-from repro_torch.kernels.ops import ATTENTION_HEAD_DIMS
+from repro_torch.kernels.ops import ATTENTION_HEAD_DIMS, ATTENTION_HEAD_DIM_PAIRS
 from repro_torch.models.bert4rec import Bert4Rec
 from repro_torch.models.transformer import Transformer
 from repro_torch.serve.engine import greedy_generate
 
-SERVED_ARCHS = ("qwen2-1.5b", "bert4rec")
+SERVED_ARCHS = ("qwen2-1.5b", "qwen3-8b", "starcoder2-15b", "deepseek-v2-lite-16b",
+                "deepseek-v3-671b", "bert4rec")
+# MLA's head dims at full width (qk_nope, qk_rope, v), the one MLA pair of
+# the kernel: (128 + 64, 128)
+MLA_HEAD_DIMS = (128, 64, 128)
 
 
 def serve_config(arch: str):
-    """The config served for `arch`: its smoke config, with an LM's head dim
-    raised to the least one the `flash_attention` kernel takes (the qwen2
-    smoke config's is 16), on the CPU too, so that both devices serve one
-    model."""
+    """The config served for `arch`: its smoke config, with an LM's head
+    dims raised to a pair the `flash_attention` kernel takes, on the CPU
+    too, so that both devices serve one model: GQA's head dim to the least
+    of ATTENTION_HEAD_DIMS above it (the smoke configs' is 16), MLA's
+    (qk_nope, qk_rope, v) to MLA_HEAD_DIMS (the smoke configs' are 16, 8,
+    16)."""
     cfg = get_arch(arch).smoke()
-    if isinstance(cfg, LMConfig) and cfg.hd not in ATTENTION_HEAD_DIMS:
+    if not isinstance(cfg, LMConfig):
+        return cfg
+    if cfg.attention == "mla":
+        dn, dr, dv = MLA_HEAD_DIMS
+        if (cfg.qk_nope_dim + cfg.qk_rope_dim, cfg.v_head_dim) not in ATTENTION_HEAD_DIM_PAIRS:
+            cfg = dataclasses.replace(cfg, qk_nope_dim=dn, qk_rope_dim=dr, v_head_dim=dv)
+    elif cfg.hd not in ATTENTION_HEAD_DIMS:
         cfg = dataclasses.replace(
             cfg, head_dim=min(d for d in ATTENTION_HEAD_DIMS if d >= cfg.hd))
     return cfg

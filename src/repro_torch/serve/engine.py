@@ -4,10 +4,14 @@
 
 `build_prefill` runs one full-sequence forward (`Transformer.forward_hidden`,
 one `flash_attention` launch per layer) that also writes each layer's roped
-K and V into the cache, and returns the last position's logits. The JAX
-package's `build_prefill` fills the cache with a teacher-forced scan of
-decode steps instead; both give the same cache and logits for the same
-weights and tokens (`tests/test_torch_lm.py`).
+K and V (MLA: its latent) into the cache, and returns the last position's
+logits. The JAX package's `build_prefill` fills the cache with a
+teacher-forced scan of decode steps instead; both give the same cache and
+logits for the same weights and tokens (`tests/test_torch_lm.py`,
+`tests/test_torch_lm_archs.py`): a sliding-window ring keeps the prompt's
+last s_cache positions at slot p % s_cache, as the scan leaves them, and
+MoE layers dispatch dropless, as each decode step of the scan does (a
+capacity-bound forward would drop tokens where an expert overflows).
 """
 from __future__ import annotations
 
@@ -38,7 +42,7 @@ def build_prefill(model: Transformer) -> Callable:
     def prefill(tokens: torch.Tensor, max_seq: int):
         b, s = tokens.shape
         cache = model.init_cache(b, max_seq)
-        h = model.forward_hidden(tokens, cache=cache)
+        h, _ = model.forward_hidden(tokens, cache=cache)
         cache["pos"] = s
         return cache, model.logits_from_hidden(h[:, -1:])[:, 0]
 

@@ -181,7 +181,8 @@ def test_segment_reductions_match_jax_on_empty_segments():
 
 # ---------------------------------------------------------- configs, graphs
 def test_gnn_configs_match_the_reference():
-    assert set(configs.ARCH_IDS) == set(GNN_ARCHS) | {"qwen2-1.5b", "bert4rec"}
+    # the port registers every arch id of the JAX package's registry
+    assert set(configs.ARCH_IDS) == set(rconfigs.ARCH_IDS) >= set(GNN_ARCHS)
     for arch in GNN_ARCHS:
         mine, theirs = configs.get_arch(arch), rconfigs.get_arch(arch)
         for a, b in ((mine.CONFIG, theirs.CONFIG), (mine.smoke(), theirs.smoke())):

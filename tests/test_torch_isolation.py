@@ -20,7 +20,10 @@ IMPORT_RE = re.compile(r"^\s*(import|from)\s+(jax|repro)\b")
 # CLI), a resilient prune (a checkpoint, an elastic restart onto one shard,
 # a triggered rebalance), a sharded batch and sharded serving (engine and
 # CLI), an incremental and an exploratory search and their launcher, a tiny
-# sampled GNN forward, a tiny greedy generation and a retrieval, a few
+# sampled GNN forward, a tiny greedy generation by each of the five LM
+# archs (MLA, MoE and the sliding-window ring among them), a deepseek-v3
+# loss with MTP and the router aux loss, the serving CLI on an MLA arch, a
+# bf16 checkpoint round trip, a retrieval, a few
 # train steps through the training launchers and the train step (optim,
 # train, the negatives' generator), then
 # checks that nothing of JAX or the JAX package was loaded, and that the
@@ -127,6 +130,21 @@ SCRIPT = textwrap.dedent("""
     lm = Transformer(lm_cfg, device="cpu")
     prompt = torch.zeros((2, 5), dtype=torch.int32)
     assert greedy_generate(lm, prompt, 3, 8).shape == (2, 3)
+    for arch in ("qwen3-8b", "starcoder2-15b", "deepseek-v2-lite-16b",
+                 "deepseek-v3-671b"):
+        m = Transformer(get_arch(arch).smoke(), device="cpu")
+        assert greedy_generate(m, prompt, 3, 24).shape == (2, 3)
+    loss, metrics = m.loss({"tokens": torch.zeros((2, 6), dtype=torch.int32),
+                            "labels": torch.ones((2, 6), dtype=torch.int32)})
+    assert float(loss) > 0 and float(metrics["aux"]) > 0
+    assert serve_cli.main(["--arch", "deepseek-v2-lite-16b", "--device", "cpu",
+                           "--batch", "2", "--prompt-len", "5",
+                           "--max-new", "3"]).shape == (2, 3)
+    with tempfile.TemporaryDirectory() as d:
+        w = torch.full((2, 3), 0.1, dtype=torch.bfloat16)
+        ckpt.save_checkpoint(d, 1, {"w": w})
+        back, _ = ckpt.restore_checkpoint(d, {"w": w})
+        assert np.array_equal(back["w"], w.float().numpy())
     rec_cfg = get_arch("bert4rec").smoke()
     rec = Bert4Rec(rec_cfg, device="cpu")
     items = MaskedSequenceStream(rec_cfg.n_items, 2, rec_cfg.seq_len,
@@ -179,6 +197,8 @@ SCRIPT = textwrap.dedent("""
                             lambda: interactive_search.main([])),
                            ("GNN()", lambda: GNN(cfg, 6, 3)),
                            ("Transformer()", lambda: Transformer(lm_cfg)),
+                           ("Transformer(deepseek)", lambda: Transformer(
+                               get_arch("deepseek-v2-lite-16b").smoke())),
                            ("Bert4Rec()", lambda: Bert4Rec(rec_cfg)),
                            ("launch.train", lambda: train_cli.main(
                                ["--arch", "pna", "--steps", "1"])),

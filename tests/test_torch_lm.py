@@ -1,9 +1,11 @@
 """The port's LM slice against the JAX package, on the CPU: the attention
-plain versions against the JAX oracles and the interpret-mode Pallas kernel,
-the norms and RoPE, the qwen2 smoke model's forward, decode steps, prefill
-(cache and last logits) and greedy tokens with the JAX weights carried
-across, the token stream and the configs. Inputs are made with numpy from a
-seed and handed to both packages."""
+plain versions against the JAX oracles and the interpret-mode Pallas kernel
+(also at MLA's head dims, where v's differs from q's and k's), the norms
+and RoPE, the qwen2 smoke model's forward, decode steps, prefill (cache and
+last logits) and greedy tokens with the JAX weights carried across, the
+token stream and the configs of the five LM archs. Inputs are made with
+numpy from a seed and handed to both packages (the other four archs' models:
+tests/test_torch_lm_archs.py)."""
 import dataclasses
 import re
 from pathlib import Path
@@ -55,6 +57,10 @@ _r_init = jax.jit(lambda key, cfg: rtransformer.init(key, cfg)[0], static_argnum
 _r_forward = jax.jit(lambda p, cfg, t: rtransformer.forward(p, cfg, t)[0],
                      static_argnums=1)
 _r_decode = jax.jit(rtransformer.decode_step, static_argnums=1)
+# the JAX oracles at MLA's head dims, compiled once per shape
+_r_attention_ref = jax.jit(rref.attention_ref, static_argnames=("causal", "window"))
+_r_attention_blockwise = jax.jit(rref.attention_blockwise,
+                                 static_argnames=("causal", "window", "block_k"))
 
 
 def _qkv(b, hq, hkv, s, d, seed, scale=0.3):
@@ -154,20 +160,44 @@ def test_bf16_blockwise_within_bound_of_f32_rounded_once(b, hq, hkv, s, d,
 
 def test_attention_routing_by_dtype_and_head_dim():
     """The pure-Python half of the CUDA wrapper: bf16 takes the tensor-core
-    kernel, f32 the CUDA-core kernel; the kv tile per D; the checks of the
-    TMA maps' alignment raise."""
-    for d in ops.ATTENTION_HEAD_DIMS:
+    kernel, f32 the CUDA-core kernel, at each (Dqk, Dv) pair, MLA's
+    (192, 128) among them; the kv tile per pair; the checks of the TMA maps'
+    alignment raise, naming the pair."""
+    assert ops.ATTENTION_HEAD_DIM_PAIRS == ((64, 64), (128, 128), (256, 256), (192, 128))
+    for d, dv in ops.ATTENTION_HEAD_DIM_PAIRS:
+        assert ops.attention_variant(torch.bfloat16, d, dv) == "bf16_tc"
+        assert ops.attention_variant(torch.float32, d, dv) == "f32"
+    for d in ops.ATTENTION_HEAD_DIMS:   # dv defaults to d
         assert ops.attention_variant(torch.bfloat16, d) == "bf16_tc"
-        assert ops.attention_variant(torch.float32, d) == "f32"
-    assert ops.ATTENTION_KV_TILE == {64: 128, 128: 128, 256: 64}
+    assert ops.ATTENTION_KV_TILE == {(64, 64): 128, (128, 128): 128,
+                                     (256, 256): 64, (192, 128): 128}
     # the wrapper passes the kv tile to the kernel, which is built for these
-    # (D, kv tile) pairs alone and refuses any other
-    source = (Path(ops.__file__).parent / "csrc" / "flash_attention_sm90.cu").read_text()
-    built = re.findall(r"if \(d == (\d+) && kv_tile == (\d+)\)", source)
-    assert {int(d): int(t) for d, t in built} == ops.ATTENTION_KV_TILE
-    for dtype, d in ((torch.bfloat16, 96), (torch.float16, 128), (torch.float64, 64)):
+    # (Dqk, Dv, kv tile) triples alone and refuses any other; the f32 kernel
+    # is built for the same pairs
+    csrc = Path(ops.__file__).parent / "csrc"
+    built = re.findall(r"if \(d == (\d+) && dv == (\d+) && kv_tile == (\d+)\)",
+                       (csrc / "flash_attention_sm90.cu").read_text())
+    assert {(int(d), int(dv)): int(t) for d, dv, t in built} == ops.ATTENTION_KV_TILE
+    built = re.findall(r"if \(d == (\d+) && dv == (\d+)\)",
+                       (csrc / "flash_attention.cu").read_text())
+    assert tuple((int(d), int(dv)) for d, dv in built) == ops.ATTENTION_HEAD_DIM_PAIRS
+    for dtype, d, dv in ((torch.bfloat16, 96, 96), (torch.float16, 128, 128),
+                         (torch.float64, 64, 64), (torch.bfloat16, 192, 192),
+                         (torch.float32, 128, 192), (torch.bfloat16, 24, 16)):
         with pytest.raises(ValueError):
-            ops.attention_variant(dtype, d)
+            ops.attention_variant(dtype, d, dv)
+    with pytest.raises(ValueError, match=r"\(192, 128\)"):
+        ops.tma_strides("v", torch.zeros((2, 3, 8, 65), dtype=torch.bfloat16)[..., :64],
+                        (192, 128))
+    # where TMA cannot read a view in place, the wrapper passes a copy
+    odd = torch.zeros((2, 3, 8, 65), dtype=torch.bfloat16)[..., :64]
+    t, st = ops.tma_operand("v", odd, (64, 64))
+    assert t.is_contiguous() and st == t.stride()[:3]
+    # MLA's v: a slice of the kv projection [B, S, H, dn + dv], read in place
+    kv = torch.zeros((2, 8, 4, 128 + 128), dtype=torch.bfloat16).transpose(1, 2)
+    v = kv[..., 128:]
+    t, st = ops.tma_operand("v", v, (192, 128))
+    assert t.data_ptr() == v.data_ptr() and st == (8 * 4 * 256, 256, 4 * 256)
     assert registry.VARIANTS["flash_attention"] == ("bf16_tc", "f32")
 
     # contiguous, a transposed [B, S, H, D] view (the model's v) and a
@@ -220,6 +250,70 @@ def test_attention_rejects_bad_inputs():
         ops.attention(q, q.double(), q.double())    # mixed dtypes
     with pytest.raises(ValueError):
         ops.attention(q, q, q, window=0)
+
+
+@pytest.mark.parametrize("v_shape", [
+    (2, 2, 8, 16),     # another batch
+    (1, 1, 8, 16),     # another kv head count
+    (1, 2, 9, 16),     # another length
+    (1, 2, 8),         # not 4-D
+])
+def test_attention_rejects_a_v_that_does_not_fit(v_shape):
+    """v may have its own head dim (MLA), but its (B, Hkv, S) must be k's."""
+    q, k = torch.ones((1, 4, 8, 24)), torch.ones((1, 2, 8, 24))
+    assert ops.attention(q, k, torch.ones((1, 2, 8, 16))).shape == (1, 4, 8, 16)
+    with pytest.raises(ValueError):
+        ops.attention(q, k, torch.ones(v_shape))
+
+
+@pytest.mark.parametrize("b,hq,hkv,s,d,dv,causal,window", [
+    (1, 4, 4, 40, 24, 16, True, None),      # the MLA smoke configs' pair
+    (2, 4, 2, 33, 24, 16, False, 9),
+    (1, 2, 2, 300, 192, 128, True, None),   # full width: the kernel's pair
+    (1, 2, 1, 130, 192, 128, True, 50),
+])
+def test_attention_plain_at_mla_head_dims_matches_jax_oracles(
+        b, hq, hkv, s, d, dv, causal, window):
+    """q, k [.., Dqk] and v [.., Dv]: the output is [.., Dv] and the logits
+    are scaled by 1 / sqrt(Dqk), as the JAX oracles (to which the JAX
+    package sends MLA) compute it; the blockwise version at the kernel's kv
+    tile and its default block agree, in f32 and in bf16."""
+    rng = np.random.default_rng(s + d)
+    arrays = [(rng.standard_normal(shape) * 0.3).astype(np.float32)
+              for shape in ((b, hq, s, d), (b, hkv, s, d), (b, hkv, s, dv))]
+    (jq, jk, jv), (tq, tk, tv) = _both(arrays)
+    want = _np(_r_attention_ref(jq, jk, jv, causal=causal, window=window))
+    got = ops.attention(tq, tk, tv, causal=causal, window=window)
+    assert got.shape == (b, hq, s, dv)
+    np.testing.assert_allclose(got.numpy(), want, **ATTN_TOL)
+    np.testing.assert_allclose(
+        _np(_r_attention_blockwise(jq, jk, jv, causal=causal, window=window,
+                                   block_k=128)), want, **ATTN_TOL)
+    for block_k in (128, 1024):
+        blockwise = ref.attention_blockwise(tq, tk, tv, causal=causal,
+                                            window=window, block_k=block_k)
+        np.testing.assert_allclose(blockwise.numpy(), want, **ATTN_TOL)
+    (jq, jk, jv), (tq, tk, tv) = _both(arrays, "bf16")
+    want = _np(_r_attention_blockwise(jq, jk, jv, causal=causal, window=window,
+                                      block_k=128))
+    got = ref.attention_blockwise(tq, tk, tv, causal=causal, window=window, block_k=128)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(), want, **BF16_TOL)
+
+
+def test_attention_backward_at_mla_head_dims_matches_jax_vjp():
+    """The plain backward with v of its own head dim: dq, dk [.., Dqk] and
+    dv [.., Dv] against `jax.vjp` of the reference oracle."""
+    rng = np.random.default_rng(11)
+    arrays = [(rng.standard_normal(shape) * 0.3).astype(np.float32)
+              for shape in ((1, 4, 37, 24), (1, 2, 37, 24), (1, 2, 37, 16),
+                            (1, 4, 37, 16))]
+    (jq, jk, jv, jdo), (tq, tk, tv, tdo) = _both(arrays)
+    _, vjp = jax.vjp(lambda q, k, v: _r_attention_ref(q, k, v, causal=True),
+                     jq, jk, jv)
+    for got, want in zip(ref.attention_backward(tq, tk, tv, tdo, causal=True), vjp(jdo)):
+        assert got.shape == want.shape
+        np.testing.assert_allclose(got.numpy(), _np(want), rtol=1e-5, atol=1e-6)
 
 
 # ---------------------------------------------------------- norms and RoPE
@@ -285,10 +379,10 @@ def test_transformer_forward_matches_jax(smoke_pair):
     cfg, params, model = smoke_pair
     jt, tt = _prompt(cfg, 2, 24)
     want = _np(_r_forward(params, cfg, jt))
-    got = model(tt)
-    assert got.shape == (2, 24, cfg.vocab)
+    got, aux = model(tt)
+    assert got.shape == (2, 24, cfg.vocab) and float(aux) == 0.0  # no MoE layer
     np.testing.assert_allclose(got.numpy(), want, **TOL)
-    h = model.forward_hidden(tt)
+    h, _ = model.forward_hidden(tt)
     np.testing.assert_allclose(model.logits_from_hidden(h).numpy(), want, **TOL)
 
 
@@ -344,24 +438,34 @@ def test_load_jax_params_rejects_a_mismatched_tree(smoke_pair):
 
 
 @pytest.mark.parametrize("field", [
-    dict(attention="mla"), dict(moe=True), dict(mtp=True), dict(qk_norm=True),
-    dict(mlp="gelu"), dict(norm="layernorm"),
+    dict(attention="linear"), dict(attention="mla"), dict(moe=True, mlp="gelu"),
+    dict(mlp="relu"), dict(norm="batchnorm"), dict(dtype="float16"),
 ])
 def test_unported_config_fields_raise(field):
+    """Every field of the five archs runs (tests/test_torch_lm_archs.py);
+    what neither package runs raises: an unknown attention, MLP, norm or
+    dtype, MLA without its kv latent rank, and MoE with GELU experts (the
+    JAX package's experts are SwiGLU only)."""
     cfg = dataclasses.replace(configs.get_arch("qwen2-1.5b").smoke(), **field)
     with pytest.raises(NotImplementedError):
         Transformer(cfg, device="cpu")
-    if "attention" in field or "moe" in field:  # n_params counts dense GQA only
-        with pytest.raises(NotImplementedError):
-            cfg.n_params()
 
 
 def test_window_runs_forward_but_not_the_decode_cache():
+    """A window runs through the kernel in the forward, and the decode
+    cache is a ring of min(max_seq, window) positions (it used to be
+    refused): decoding past the window equals the windowed forward."""
     cfg = dataclasses.replace(configs.get_arch("qwen2-1.5b").smoke(), window=4)
     model = Transformer(cfg, device="cpu")
-    assert torch.isfinite(model(torch.zeros((1, 9), dtype=torch.int32))).all()
-    with pytest.raises(NotImplementedError):
-        model.init_cache(1, 16)
+    toks = torch.arange(9, dtype=torch.int32)[None] * 7 % cfg.vocab
+    logits, _ = model(toks)
+    assert torch.isfinite(logits).all()
+    assert model.init_cache(1, 16)["layers"]["k"].shape[3] == 4
+    assert model.init_cache(1, 3)["layers"]["k"].shape[3] == 3
+    cache = model.init_cache(1, 16)
+    for t in range(9):
+        got, cache = model.decode_step(toks[:, t], cache)
+        np.testing.assert_allclose(got.numpy(), logits[:, t].numpy(), **TOL)
 
 
 # ------------------------------------------------------------ data, configs
@@ -376,24 +480,29 @@ def test_token_stream_matches_the_reference():
             np.testing.assert_array_equal(got[k].numpy(), np.asarray(want[k]))
 
 
-LM_FIELDS_LEFT_OUT = {
-    "q_lora_rank", "kv_lora_rank", "qk_nope_dim", "qk_rope_dim", "v_head_dim",
-    "n_routed", "n_shared", "top_k", "first_dense_layers", "dense_d_ff",
-    "capacity_factor", "router_aux_coef", "moe_groups", "moe_gather_weights"}
+LM_ARCHS = ("qwen2-1.5b", "qwen3-8b", "starcoder2-15b", "deepseek-v2-lite-16b",
+            "deepseek-v3-671b")
+# the published sizes, counted as the reference's n_params counts them
+N_PARAMS = {"qwen2-1.5b": 1_543_569_408, "qwen3-8b": 8_190_427_136,
+            "starcoder2-15b": 15_955_132_416, "deepseek-v2-lite-16b": 15_706_357_760,
+            "deepseek-v3-671b": 671_025_397_760}
 
 
 def test_lm_config_matches_the_reference():
-    mine, theirs = configs.get_arch("qwen2-1.5b"), rconfigs.get_arch("qwen2-1.5b")
-    for a, b in ((mine.CONFIG, theirs.CONFIG), (mine.smoke(), theirs.smoke())):
-        assert type(a) is LMConfig
-        assert {k: getattr(b, k) for k in vars(a)} == vars(a)
-        # the reference's fields the port leaves out: MLA, MoE sizes and
-        # training knobs, each at its default in these configs
-        assert set(vars(b)) - set(vars(a)) == LM_FIELDS_LEFT_OUT
-        ref_defaults = {f.name: f.default for f in dataclasses.fields(b)}
-        assert all(getattr(b, k) == ref_defaults[k] for k in LM_FIELDS_LEFT_OUT)
-        assert a.n_params() == b.n_params() and a.hd == b.hd
-    assert mine.CONFIG.n_params() == 1_543_569_408
-    assert set(mine.SHAPES) == set(theirs.SHAPES)
-    for name, s in mine.SHAPES.items():
-        assert dataclasses.asdict(s) == dataclasses.asdict(theirs.SHAPES[name])
+    """The five LM archs' configs, smoke configs and shapes field for field
+    (every field of the reference's LMConfig, MLA, MoE and MTP included),
+    with the same n_params."""
+    assert set(LM_ARCHS) <= set(configs.ARCH_IDS)
+    assert set(configs.ARCH_IDS) == set(rconfigs.ARCH_IDS)
+    for arch in LM_ARCHS:
+        mine, theirs = configs.get_arch(arch), rconfigs.get_arch(arch)
+        for a, b in ((mine.CONFIG, theirs.CONFIG), (mine.smoke(), theirs.smoke())):
+            assert type(a) is LMConfig
+            assert vars(a) == vars(b)
+            assert [f.name for f in dataclasses.fields(a)] == \
+                [f.name for f in dataclasses.fields(b)]
+            assert a.n_params() == b.n_params() and a.hd == b.hd
+        assert mine.CONFIG.n_params() == N_PARAMS[arch]
+        assert set(mine.SHAPES) == set(theirs.SHAPES)
+        for name, s in mine.SHAPES.items():
+            assert dataclasses.asdict(s) == dataclasses.asdict(theirs.SHAPES[name])

@@ -11,12 +11,11 @@ sliding window), MLA, MoE and MTP, and the training knobs. Of the MoE perf
 knobs, `moe_groups` selects the per-group dispatch (`models/transformer.py`);
 `moe_gather_weights` is a sharding constraint in the JAX package and does
 nothing on one card. `RecsysConfig` is the JAX package's field for field. Of
-`GNNConfig` the port keeps
-the fields it reads. Left out: the knobs of the JAX package's sharded
-message passing (`distributed`, `message_dtype`), which the one-device port
-does not have; `sample_sizes`, since the sampled path takes its fanouts
-from `ShapeSpec.fanout`; and `dtype`, since the port builds its GNNs in f32
-only.
+`GNNConfig` the port keeps the fields it reads, the knobs of the sharded
+message passing among them (`distributed`, `message_dtype`:
+`models/gnn_distributed.py`, reached through `launch/cells.py`). Left out:
+`sample_sizes`, since the sampled path takes its fanouts from
+`ShapeSpec.fanout`; and `dtype`, since the port builds its GNNs in f32 only.
 """
 from __future__ import annotations
 
@@ -105,6 +104,18 @@ class LMConfig:
             total += self.n_layers * mlp_mult * d * self.d_ff
         return total
 
+    def n_active_params(self) -> int:
+        """Parameters a token activates (MoE: its top-k routed experts and
+        the shared ones), as the JAX package counts them."""
+        if not self.moe:
+            return self.n_params()
+        d = self.d_model
+        mlp_mult = 3 if self.mlp == "swiglu" else 2
+        n_moe = self.n_layers - self.first_dense_layers
+        return (self.n_params()
+                - n_moe * (self.n_routed + self.n_shared) * mlp_mult * d * self.d_ff
+                + n_moe * (self.top_k + self.n_shared) * mlp_mult * d * self.d_ff)
+
 
 @dataclasses.dataclass(frozen=True)
 class GNNConfig:
@@ -116,6 +127,11 @@ class GNNConfig:
     aggregators: Tuple[str, ...] = ("mean",)
     scalers: Tuple[str, ...] = ("identity",)
     eps_learnable: bool = False          # gin
+    # full-graph message passing over the engine's edge partition, one
+    # bucketed exchange a layer (`models/gnn_distributed.py`), in place of
+    # the local segment ops; the cells take it where it is set
+    distributed: bool = False
+    message_dtype: str = "float32"  # "bfloat16" halves the exchange's payload
 
 
 # ------------------------------------------------------------ RecSys family

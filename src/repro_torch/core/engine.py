@@ -264,6 +264,11 @@ class Prims(NamedTuple):
     overlap: Callable
     # [Pl, ...] -> [P, ...]: every shard's block, on every rank
     gather: Callable
+    # a value every rank holds alike (a parameter) -> this rank's use of it:
+    # the identity, whose backward reduces the gradient over the ranks (the
+    # transpose of a replicated shard_map input); None where all shards are
+    # in this process and autograd sums their uses itself
+    replicate: Optional[Callable] = None
 
 
 def _overlap_lagged(all_reduce_or: Callable) -> Callable:

@@ -21,13 +21,13 @@ import torch
 def resolve_device(device: Union[str, torch.device, None]) -> torch.device:
     """The device an entry point runs on: `cuda` unless the caller names one.
     Asking for CUDA where there is none raises -- nothing falls back to the
-    CPU."""
+    CPU. `meta` builds shapes without data (the dry run's cells)."""
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "no CUDA device is available; pass device='cpu' to run the plain "
             "PyTorch versions of the kernels")
-    if dev.type not in ("cuda", "cpu"):
+    if dev.type not in ("cuda", "cpu", "meta"):
         raise ValueError(f"unsupported device {dev}")
     return dev
 

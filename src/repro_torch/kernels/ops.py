@@ -27,18 +27,33 @@ plain version on the CPU) and whose backward is the plain one in
 CUDA-core kernel (`csrc/flash_attention.cu`, variant "f32"). Both take q and
 k of one head dim Dqk and v of its own, Dv: the GQA pairs (64, 64),
 (128, 128), (256, 256), and MLA's (192, 128).
+
+Under the cost counter (`launch/op_cost.py`, `registry.set_cost_hook`),
+`segment_agg`, `attention` (and its plain backward) and `embedding_bag`
+report their call's work by `kernels/cost.py`, whichever of the kernel and
+the plain version runs. A meta tensor (the dry run) takes neither: the
+wrapper gives its output's shape and dtype, and computes nothing.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import math
-from typing import Dict, Optional
+from typing import Callable, Dict, Optional
 
 import torch
 
 from repro_torch.graph.structs import DeviceGraph
+from repro_torch.kernels import cost as _cost
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels import registry
+
+
+def _counted(name: str, cost: Callable, tensor_core: bool = False):
+    """The cost hook's context around a wrapper's work, given the call's
+    (bytes, operations) as a thunk; a null context without a hook."""
+    hook = registry.get_cost_hook()
+    return contextlib.nullcontext() if hook is None else hook(name, cost(), tensor_core)
 
 
 def _check_inputs(vals: torch.Tensor, dg: DeviceGraph,
@@ -289,12 +304,16 @@ def segment_agg(
     if mask.dtype != torch.bool or mask.shape != feats.shape[:2]:
         raise ValueError(f"mask must be bool{list(feats.shape[:2])}, got "
                          f"{mask.dtype}{list(mask.shape)}")
-    if _needs_grad(feats):
-        return _SegmentAgg.apply(feats, mask)
-    return _segment_agg_forward(feats, mask)
+    with _counted("segment_agg", lambda: _cost.segment_agg_cost(
+            *feats.shape, feats.element_size())):
+        if _needs_grad(feats):
+            return _SegmentAgg.apply(feats, mask)
+        return _segment_agg_forward(feats, mask)
 
 
 def _segment_agg_forward(feats, mask):
+    if feats.is_meta:
+        return feats.new_empty((feats.shape[0], 4, feats.shape[2]), dtype=torch.float32)
     if registry.use_kernel("segment_agg", feats):
         return _segment_agg_cuda(feats, mask)
     return _ref.segment_agg_ref(feats, mask)
@@ -480,12 +499,17 @@ def attention(
                          f"{q.dtype}, {k.dtype}, {v.dtype}")
     if window is not None and window < 1:
         raise ValueError(f"window must be None or >= 1, got {window}")
-    if _needs_grad(q, k, v):
-        return _Attention.apply(q, k, v, causal, window)
-    return _attention_forward(q, k, v, causal, window)
+    with _counted("flash_attention", lambda: _cost.attention_cost(
+            b, hq, k.shape[1], s, d, q.element_size(), causal, window,
+            v.shape[3]), tensor_core=q.dtype == torch.bfloat16):
+        if _needs_grad(q, k, v):
+            return _Attention.apply(q, k, v, causal, window)
+        return _attention_forward(q, k, v, causal, window)
 
 
 def _attention_forward(q, k, v, causal, window):
+    if q.is_meta:
+        return q.new_empty(q.shape[:3] + v.shape[3:])
     if registry.use_kernel("flash_attention", q):
         return _attention_cuda(q, k, v, causal, window)
     return _ref.attention_plain(q, k, v, causal=causal, window=window)
@@ -508,8 +532,15 @@ class _Attention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do):
         q, k, v = ctx.saved_tensors
-        dq, dk, dv = _ref.attention_backward(q, k, v, do, causal=ctx.causal,
-                                             window=ctx.window)
+        b, hq, s, d = q.shape
+        # counted by its formula, as the kernels are; f32 arithmetic
+        with _counted("attention_backward", lambda: _cost.attention_backward_cost(
+                b, hq, k.shape[1], s, d, q.element_size(), ctx.causal, ctx.window,
+                v.shape[3])):
+            if q.is_meta:
+                return q.new_empty(q.shape), k.new_empty(k.shape), v.new_empty(v.shape), None, None
+            dq, dk, dv = _ref.attention_backward(q, k, v, do, causal=ctx.causal,
+                                                 window=ctx.window)
         return dq, dk, dv, None, None
 
 
@@ -559,6 +590,12 @@ def embedding_bag(
     if weights.dtype != torch.float32 or weights.shape != ids.shape:
         raise ValueError(f"weights must be f32{list(ids.shape)}, got "
                          f"{weights.dtype}{list(weights.shape)}")
-    if registry.use_kernel("embedding_bag", table):
-        return _embedding_bag_cuda(table, ids, weights, mode)
-    return _ref.embedding_bag_ref(table, ids, weights, mode=mode)
+    # the distinct rows the ids name depend on the data: at most one a slot
+    with _counted("embedding_bag", lambda: _cost.embedding_bag_cost(
+            *ids.shape, table.shape[1], table.element_size(),
+            min(ids.numel(), table.shape[0]))):
+        if table.is_meta:
+            return table.new_empty((ids.shape[0], table.shape[1]))
+        if registry.use_kernel("embedding_bag", table):
+            return _embedding_bag_cuda(table, ids, weights, mode)
+        return _ref.embedding_bag_ref(table, ids, weights, mode=mode)

@@ -89,6 +89,23 @@ def uses_kernel(t: torch.Tensor) -> bool:
     raise ValueError(f"no kernel or plain version for device {t.device}")
 
 
+# ------------------------------------------------------------ cost seam
+# `set_cost_hook` installs the cost counter of `launch/op_cost.py`: each
+# kernel wrapper of `kernels/ops.py` on this slice's paths calls
+# hook(name, (bytes, operations), tensor_core) around its work, which
+# counts the call by `kernels/cost.py` and not the plain version's ops
+_COST_HOOK: Optional[Callable] = None
+
+
+def set_cost_hook(hook: Optional[Callable]) -> None:
+    global _COST_HOOK
+    _COST_HOOK = hook
+
+
+def get_cost_hook() -> Optional[Callable]:
+    return _COST_HOOK
+
+
 # ------------------------------------------------------ resilience seam
 # MODE_KERNEL runs a CUDA tensor's kernel; MODE_REF the plain version
 MODE_KERNEL = "kernel"

@@ -48,6 +48,14 @@ from repro_torch.models.transformer import DTYPES
 
 _BLOCK_KEYS = ("wq", "wk", "wv", "wo", "ln1_g", "ln1_b", "w_in", "b_in",
                "w_out", "b_out", "ln2_g", "ln2_b")
+# logical sharding specs of the reference's `init`, by the path's last key
+_SPECS = {
+    "items": ("item", "table_dim"), "pos": (None, None), "out_bias": ("item",),
+    "wq": ("embed", "heads"), "wk": ("embed", "heads"), "wv": ("embed", "heads"),
+    "wo": ("heads", "embed"), "ln1_g": (None,), "ln1_b": (None,),
+    "w_in": ("embed", "ff"), "b_in": ("ff",), "w_out": ("ff", "embed"),
+    "b_out": (None,), "ln2_g": (None,), "ln2_b": (None,),
+}
 
 
 def negatives(items: torch.Tensor, n_negatives: int, n_items: int) -> torch.Tensor:
@@ -72,7 +80,7 @@ class Bert4Rec(nn.Module):
         if cfg.dtype not in DTYPES:
             raise NotImplementedError(f"{cfg.name}: dtype {cfg.dtype!r}")
         dev = resolve_device(device)
-        gen = torch.Generator(device=dev).manual_seed(seed)
+        gen = common.generator(dev, seed)
         dt = DTYPES[cfg.dtype]
         d = cfg.embed_dim
 
@@ -126,6 +134,13 @@ class Bert4Rec(nn.Module):
             else:
                 paths[name] = (name,)
         return paths
+
+    def param_specs(self) -> Dict:
+        """The reference's logical sharding spec of each parameter, in the
+        JAX tree (the second value of its `init`)."""
+        paths = self.param_paths()
+        return common.nest({name: _SPECS[path[-1]] for name, path in paths.items()},
+                           paths)
 
     def _block(self, i: int, x: torch.Tensor, pad_mask: torch.Tensor) -> torch.Tensor:
         p = {k: self.params[f"blocks_{i}_{k}"] for k in _BLOCK_KEYS}

@@ -20,15 +20,26 @@ from torch import nn
 CE_NEG_INF = -1e30
 
 
-def dense_init(gen: torch.Generator, d_in: int, d_out: int) -> torch.Tensor:
+def generator(device: torch.device, seed: int) -> Optional[torch.Generator]:
+    """The weights' generator on `device`, seeded; None on the meta device,
+    which has no generator: the dry run builds shapes and draws nothing."""
+    if device.type == "meta":
+        return None
+    return torch.Generator(device=device).manual_seed(seed)
+
+
+def dense_init(gen: Optional[torch.Generator], d_in: int, d_out: int) -> torch.Tensor:
     """f32 N(0, 1) / sqrt(d_in) weights in the JAX layout [d_in, d_out],
     drawn from `gen` on its device."""
     return normal(gen, (d_in, d_out), 1.0 / math.sqrt(d_in))
 
 
-def normal(gen: torch.Generator, shape, scale: float,
+def normal(gen: Optional[torch.Generator], shape, scale: float,
            dtype: torch.dtype = torch.float32) -> torch.Tensor:
-    """N(0, scale^2) drawn in f32 from `gen` on its device, cast to dtype."""
+    """N(0, scale^2) drawn in f32 from `gen` on its device, cast to dtype;
+    without a generator, an empty meta tensor of that shape (`generator`)."""
+    if gen is None:
+        return torch.empty(shape, dtype=dtype, device="meta")
     return (torch.randn(shape, generator=gen, device=gen.device) * scale).to(dtype)
 
 

@@ -34,7 +34,19 @@ from repro_torch.configs.base import GNNConfig
 from repro_torch.graph import segment_ops
 from repro_torch.graph.structs import resolve_device
 from repro_torch.kernels import ops as kops
+from repro_torch.models import common
 from repro_torch.models.common import dense_init, flatten_tree
+
+
+# logical sharding specs of the reference's `init`, by the path's last keys
+_PARAM_SPECS = {
+    ("w_self",): ("feat", None), ("w_nbr",): ("feat", None),
+    ("mlp", "w1"): ("feat", None), ("mlp", "b1"): (None,),
+    ("mlp", "w2"): (None, "feat"), ("mlp", "b2"): (None,), ("eps",): (),
+    ("w",): ("feat", None), ("a_src",): (None, None), ("a_dst",): (None, None),
+    ("b",): (None,),
+}
+_HEAD_SPECS = {"w": ("feat", "classes"), "b": ("classes",)}
 
 
 def _params(**tensors: torch.Tensor) -> nn.ParameterDict:
@@ -132,7 +144,8 @@ class GNN(nn.Module):
                  device=None, seed: int = 0):
         super().__init__()
         dev = resolve_device(device)
-        gen = torch.Generator().manual_seed(seed)
+        # drawn on the CPU and moved; nothing is drawn for the meta device
+        gen = common.generator(torch.device("cpu") if dev.type != "meta" else dev, seed)
         self.cfg = cfg
         self.layers = nn.ModuleList()
         d_prev = d_in
@@ -151,8 +164,8 @@ class GNN(nn.Module):
                 h = cfg.n_heads
                 p = _params(
                     w=dense_init(gen, d_prev, h * d_out),
-                    a_src=torch.randn((h, d_out), generator=gen) * 0.1,
-                    a_dst=torch.randn((h, d_out), generator=gen) * 0.1)
+                    a_src=common.normal(gen, (h, d_out), 0.1),
+                    a_dst=common.normal(gen, (h, d_out), 0.1))
                 d_prev = h * d_out if not last else d_out
             elif cfg.model == "pna":
                 n_in = d_prev * len(cfg.aggregators) * len(cfg.scalers) + d_prev
@@ -178,6 +191,14 @@ class GNN(nn.Module):
         groups.append(("head", ("head",), self.head))
         return {f"{prefix}.{k}": base + (("mlp", k[4:]) if k.startswith("mlp_") else (k,))
                 for prefix, base, p in groups for k in p.keys()}
+
+    def param_specs(self) -> Dict:
+        """The reference's logical sharding spec of each parameter, in the
+        JAX tree (the second value of its `init`)."""
+        return common.nest({name: _PARAM_SPECS[path[-2:] if path[-2] == "mlp" else path[-1:]]
+                            if path[0] == "layers" else _HEAD_SPECS[path[-1]]
+                            for name, path in self.param_paths().items()},
+                           self.param_paths())
 
     def load_jax_params(self, tree: Mapping) -> "GNN":
         """Copy a JAX parameter tree ({"layers": [...], "head": {...}}, leaves

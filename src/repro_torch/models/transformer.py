@@ -160,6 +160,58 @@ def _combine(ye_flat, slot, token_of, keep, gate, t):
     return ye_flat.new_zeros((t, ye_flat.shape[1])).index_add(0, token_of, contrib)
 
 
+# logical sharding specs of the reference's `init`, by the parameter's key
+# (a norm's gains and biases are (None,) wherever they are)
+_ATTN_SPECS = {
+    "wq": ("embed", "heads"), "wk": ("embed", "kv_heads"), "wv": ("embed", "kv_heads"),
+    "wo": ("heads", "embed"), "bq": ("heads",), "bk": ("kv_heads",),
+    "bv": ("kv_heads",), "q_norm": (None,), "k_norm": (None,),
+    "wq_a": ("embed", None), "q_a_norm": (None,), "wq_b": (None, "heads"),
+    "wkv_a": ("embed", None), "kv_a_norm": (None,), "wkv_b": (None, "heads"),
+}
+_MLP_SPECS = {
+    "w_in": ("embed", "ff"), "b_in": ("ff",), "w_out": ("ff", "embed"),
+    "b_out": (None,), "w_gate": ("embed", "ff"), "w_up": ("embed", "ff"),
+    "w_down": ("ff", "embed"),
+}
+_MOE_SPECS = {
+    "router": ("embed", None), "w_gate": ("expert", "expert_embed", None),
+    "w_up": ("expert", "expert_embed", None), "w_down": ("expert", None, "expert_embed"),
+}
+
+
+def _param_spec(cfg: LMConfig, path: Tuple[str, ...]) -> Tuple:
+    stacked = path[0] in STACKS
+    rest = path[1:] if stacked else (path[2:] if path[:2] == ("mtp", "layer") else path)
+    key = rest[-1]
+    if path == ("embed",):
+        spec = ("vocab", "embed")
+    elif path == ("lm_head",):
+        spec = ("embed", "vocab")
+    elif path == ("mtp", "proj"):
+        spec = ("embed", None)
+    elif key in ("g", "b"):
+        spec = (None,)
+    elif rest[0] == "attn":
+        spec = _ATTN_SPECS[key]
+    elif path[0] == "moe_layers" and len(rest) == 2:
+        spec = _MOE_SPECS[key]
+    else:
+        spec = _MLP_SPECS[key]
+    return ((None,) + spec) if stacked else spec
+
+
+def cache_specs(cfg: LMConfig) -> Dict:
+    """The logical sharding specs of `Transformer.init_cache`'s cache (the
+    reference's `cache_specs`)."""
+    if cfg.attention == "mla":
+        per_layer = {"ckv": (None, "batch", None, None), "kr": (None, "batch", None, None)}
+    else:
+        per_layer = {"k": (None, "batch", "kv_heads", None, None),
+                     "v": (None, "batch", "kv_heads", None, None)}
+    return {"layers": per_layer, "pos": ()}
+
+
 class Transformer(nn.Module):
     """The decoder (`cfg`), weights drawn from
     `torch.Generator(device).manual_seed(seed)` on `device`, which defaults
@@ -170,7 +222,7 @@ class Transformer(nn.Module):
         super().__init__()
         check_supported(cfg)
         dev = resolve_device(device)
-        gen = torch.Generator(device=dev).manual_seed(seed)
+        gen = common.generator(dev, seed)
         dt = DTYPES[cfg.dtype]
         d = cfg.d_model
         self.cfg = cfg
@@ -295,6 +347,13 @@ class Transformer(nn.Module):
         "attn", "wq"), "moe_layers_mlp_shared_w_gate" -> ("moe_layers",
         "mlp", "shared", "w_gate"))."""
         return dict(self._paths)
+
+    def param_specs(self) -> Dict:
+        """The reference's logical sharding spec of each parameter, in the
+        JAX tree (the second value of its `init`), from its recorded path;
+        a stacked layer's spec leads with None for the stack's axis."""
+        return common.nest({name: _param_spec(self.cfg, path)
+                            for name, path in self._paths.items()}, self._paths)
 
     def _group(self, prefix: Tuple[str, ...]) -> Dict[str, torch.Tensor]:
         """The parameters under `prefix`, by the rest of their path joined
@@ -433,7 +492,9 @@ class Transformer(nn.Module):
         e = cfg.n_routed
         slot, token_of, keep, gate, aux, cap = moe_dispatch(
             x2d, p["mlp_router"], cfg, dropless=dropless)
-        if dropless:  # every entry is kept: slot = expert * T + place
+        # every entry is kept: slot = expert * T + place. A meta tensor (the
+        # dry run) has no load to read and keeps the reference's T rows
+        if dropless and not x2d.is_meta:
             expert, place = slot // cap, slot % cap
             cap = int(place.max()) + 1
             slot = expert * cap + place

@@ -5,8 +5,8 @@ clipping, the decay and the rounding of the state are the reference's.
 
 The moments are kept in `state_dtype` ("float32" or "bfloat16") and updated
 in f32; the bias corrections are f32 powers of the int32 step count. The
-sharding specs of the state (`state_specs`) wait for the port's sharding
-layer.
+state's logical sharding specs (`state_specs`) are its parameters', as in
+the reference (`sharding.py` resolves them).
 """
 from __future__ import annotations
 
@@ -42,6 +42,11 @@ def clip_by_global_norm(tree, max_norm: float):
     norm = global_norm(tree)
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
     return tree_map(lambda x: x * scale.to(x.dtype), tree), norm
+
+
+def state_specs(param_specs) -> Dict:
+    """The optimizer state shards exactly like its parameter."""
+    return {"mu": param_specs, "nu": param_specs, "count": ()}
 
 
 def init_state(params, cfg: AdamWConfig) -> Dict:

@@ -20,6 +20,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from torch_train_util import few_torch_threads  # noqa: E402,F401
+
 from repro.core import count_matches as rcount  # noqa: E402
 from repro.core import prune as rprune  # noqa: E402
 from repro.core import prune_batch as rprune_batch  # noqa: E402

@@ -19,6 +19,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from torch_train_util import few_torch_threads  # noqa: E402,F401
+
 import jax.numpy as jnp  # noqa: E402
 
 from repro.checkpoint import ckpt as rckpt  # noqa: E402

@@ -12,6 +12,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from torch_train_util import few_torch_threads  # noqa: E402,F401
+
 from repro.core.enumerate import enumerate_matches as renumerate  # noqa: E402
 from repro.core.pipeline import prune as rprune  # noqa: E402
 from repro.core.template import Template as RT  # noqa: E402

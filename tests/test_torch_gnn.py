@@ -9,6 +9,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from torch_train_util import few_torch_threads  # noqa: E402,F401
+
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
@@ -189,10 +191,12 @@ def test_gnn_configs_match_the_reference():
             assert type(a).__name__ == type(b).__name__ == "GNNConfig"
             assert {k: getattr(b, k) for k in vars(a)} == vars(a)
             # the reference's fields the port leaves out, each at a value
-            # the port's fixed behaviour matches
-            assert set(vars(b)) - set(vars(a)) == {
-                "distributed", "message_dtype", "sample_sizes", "dtype"}
-            assert not b.distributed and b.dtype == "float32"
+            # the port's fixed behaviour matches; the sharded message
+            # passing's knobs are the port's too (models/gnn_distributed.py)
+            assert set(vars(b)) - set(vars(a)) == {"sample_sizes", "dtype"}
+            assert b.dtype == "float32"
+            assert (a.distributed, a.message_dtype) == (b.distributed, b.message_dtype)
+            assert not a.distributed
         assert set(mine.SHAPES) == set(theirs.SHAPES)
         for name, s in mine.SHAPES.items():
             t = theirs.SHAPES[name]

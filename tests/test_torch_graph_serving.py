@@ -16,6 +16,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from torch_train_util import few_torch_threads  # noqa: E402,F401
+
 from repro.core import count_matches as rcount  # noqa: E402
 from repro.core import enumerate_matches as renumerate  # noqa: E402
 from repro.core import prune as rprune  # noqa: E402

@@ -16,6 +16,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from torch_train_util import few_torch_threads  # noqa: E402,F401
+
 import jax.numpy as jnp  # noqa: E402
 
 from repro.core import nlcc as rnlcc  # noqa: E402

@@ -25,8 +25,10 @@ IMPORT_RE = re.compile(r"^\s*(import|from)\s+(jax|repro)\b")
 # loss with MTP and the router aux loss, the serving CLI on an MLA arch, a
 # bf16 checkpoint round trip, a retrieval, a few
 # train steps through the training launchers and the train step (optim,
-# train, the negatives' generator), then
-# checks that nothing of JAX or the JAX package was loaded, and that the
+# train, the negatives' generator), the sharded PNA loss on the sim
+# backend, the sharding rules, a dry run of one cell and perf_iter of the
+# distributed cell on the meta device under the cost counter (cells,
+# abstract, op_cost, roofline, kernels.cost), then checks that nothing of JAX or the JAX package was loaded, and that the
 # default device is CUDA (which raises where there is none).
 SCRIPT = textwrap.dedent("""
     import sys
@@ -168,6 +170,31 @@ SCRIPT = textwrap.dedent("""
     assert int(st["step"]) == 1 and float(m["loss"]) > 0
     assert prng.randint(prng.key(0), 3, 1, 10).shape == (3,)
     assert float(schedules.constant(0)) == 1.0
+
+    from repro_torch import sharding
+    from repro_torch.kernels import cost as kcost
+    from repro_torch.launch import abstract, cells, dryrun, op_cost, perf_iter, roofline
+    from repro_torch.core.engine import sim_prims
+    from repro_torch.models import gnn_distributed as gd
+    from repro_torch.train.step import param_tree
+    pna = get_arch("pna").smoke()
+    pb, _, part = gd.partitioned_batch_from_graph(gg, 6, 3, 2, device="cpu")
+    loss_fn = gd.build_distributed_pna_loss(pna, sim_prims(2, "cpu"),
+                                            part.n_local)
+    assert float(loss_fn(param_tree(GNN(pna, 6, 3, device="cpu")), pb)[0]) > 0
+    assert sharding.logical_to_physical(("batch",), sharding.SINGLE_POD) == ("data",)
+    assert kcost.bound(kcost.segment_agg_cost(1, 1, 1, 4))[1] == "bytes"
+    assert roofline.PEAK_FLOPS == 989e12
+    assert abstract.abstract_init(lambda device: (device.type, None))[0] == "meta"
+    with tempfile.TemporaryDirectory() as d:
+        assert dryrun.main(["--arch", "gin-tu", "--shape", "molecule", "--out", d]) == 0
+        rec = perf_iter.main(["--arch", "pna", "--shape", "full_graph_sm", "--chips",
+                              "2", "--set", "distributed=true", "--out", d])
+        assert rec["counted"]["collectives"]["total"] > 0
+    assert isinstance(cells.build_cell("bert4rec", "retrieval_cand"), cells.Cell)
+    with op_cost.OpCounter() as counter:
+        torch.ones(2, 3) @ torch.ones(3, 4)
+    assert counter.flops_f32 == 48
     loaded = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "repro"))
     assert not loaded, loaded
@@ -203,7 +230,9 @@ SCRIPT = textwrap.dedent("""
                            ("launch.train", lambda: train_cli.main(
                                ["--arch", "pna", "--steps", "1"])),
                            ("launch.pattern_gnn",
-                            lambda: pattern_gnn.main(["--steps", "1"]))):
+                            lambda: pattern_gnn.main(["--steps", "1"])),
+                           ("partitioned_batch_from_graph()",
+                            lambda: gd.partitioned_batch_from_graph(gg, 6, 3, 2))):
             try:
                 call()
             except RuntimeError as e:
@@ -215,7 +244,9 @@ SCRIPT = textwrap.dedent("""
 
 
 def test_port_runs_without_jax_or_the_reference_package():
-    env = {"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"}
+    # two torch threads, as the other port test files run (torch_train_util)
+    env = {"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin",
+           "OMP_NUM_THREADS": "2"}
     env.update({k: v for k, v in os.environ.items()
                 if k in ("HOME", "TMPDIR", "LD_LIBRARY_PATH")})
     proc = subprocess.run([sys.executable, "-c", SCRIPT], capture_output=True,

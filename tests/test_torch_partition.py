@@ -13,6 +13,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from torch_train_util import few_torch_threads  # noqa: E402,F401
+
 from repro.graph import partition as rpart  # noqa: E402
 from repro.graph.generators import rmat_graph as rrmat  # noqa: E402
 from repro_torch.core.engine import make_backend  # noqa: E402

@@ -15,6 +15,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from torch_train_util import few_torch_threads  # noqa: E402,F401
+
 from repro.core import enumerate as renum_mod  # noqa: E402
 from repro.core.oracle import enumerate_matches_bruteforce  # noqa: E402
 from repro.core.pipeline import prune as rprune  # noqa: E402

@@ -15,6 +15,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from torch_train_util import few_torch_threads  # noqa: E402,F401
+
 from repro.core.lcc import lcc_route_bucket as rlcc_bucket  # noqa: E402
 from repro.core.nlcc import nlcc_route_bucket as rnlcc_bucket  # noqa: E402
 from repro.core.state import init_state as rinit_state  # noqa: E402

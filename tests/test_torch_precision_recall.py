@@ -10,6 +10,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from torch_train_util import few_torch_threads  # noqa: E402,F401
+
 try:  # optional dev dependency: the property tests degrade to skips
     from hypothesis import HealthCheck, given, settings, strategies as st
 except ImportError:

@@ -21,6 +21,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from torch_train_util import few_torch_threads  # noqa: E402,F401
+
 from repro.checkpoint import ckpt as rckpt  # noqa: E402
 from repro.core import loadbalance as rlb  # noqa: E402
 from repro.core import resilience as rres  # noqa: E402

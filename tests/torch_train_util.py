@@ -1,7 +1,8 @@
 """Helpers of the training tests (tests/test_torch_train_*.py,
 tests/test_torch_trainer.py): the port's loss and gradients as a tree in
 the JAX package's layout, and comparisons of trees against the
-reference's, with the tolerances those files share."""
+reference's, with the tolerances those files share; and the thread limit
+that most port test files import (`few_torch_threads`)."""
 import jax
 import numpy as np
 import pytest
@@ -17,15 +18,18 @@ LOSS_RTOL = 1e-5
 GRAD_ATOL, GRAD_RTOL = 1e-6, 1e-4
 # parameters after K AdamW steps
 PARAM_ATOL = 1e-5
-# torch's intra-op threads while a training test file runs: its tensors are
+# torch's intra-op threads while a port test file runs: its tensors are
 # small, and the test workers share the machine's cores
 TEST_THREADS = 2
 
 
 @pytest.fixture(scope="module", autouse=True)
 def few_torch_threads():
-    """Imported by each training test file: TEST_THREADS torch threads for
-    the file's tests, the worker's setting restored after them."""
+    """Imported by each port test file that runs torch in the test's
+    process: TEST_THREADS torch threads for the file's tests, the worker's
+    setting restored after them (the test workers share the machine's
+    cores; with a thread per core in each, a file of small ops ran up to 50x
+    slower under the tier-1 run than alone)."""
     n = torch.get_num_threads()
     torch.set_num_threads(TEST_THREADS)
     yield

@@ -32,3 +32,12 @@ def get_arch(arch_id: str):
         raise KeyError(f"unknown arch {arch_id!r}; known: {ARCH_IDS}")
     return importlib.import_module(_MODULES[arch_id])
 
+
+def get_config(arch_id: str):
+    """The arch's full-size config."""
+    return get_arch(arch_id).CONFIG
+
+
+def get_shapes(arch_id: str):
+    """The arch's input shapes by name."""
+    return get_arch(arch_id).SHAPES

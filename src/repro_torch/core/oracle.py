@@ -71,3 +71,24 @@ def _connected_order(t: Template) -> List[int]:
         frontier.extend(t.adj[nxt])
     return order
 
+
+def solution_subgraph_oracle(g: Graph, template: Template):
+    """(vertex mask, arc mask over g's arc list, omega bool[n, n0], the
+    matches) of the union of all matches, from the brute-force
+    enumeration."""
+    matches = enumerate_matches_bruteforce(g, template)
+    vmask = np.zeros(g.n, dtype=bool)
+    ekeys: Set[int] = set()
+    omega = np.zeros((g.n, template.n0), dtype=bool)
+    for m in matches:
+        for q, v in enumerate(m):
+            vmask[v] = True
+            omega[v, q] = True
+        for a, b in template.edge_set:
+            u, v = m[a], m[b]
+            ekeys.add(u * g.n + v)
+            ekeys.add(v * g.n + u)
+    arc_keys = g.src.astype(np.int64) * g.n + g.dst
+    emask = (np.isin(arc_keys, np.asarray(sorted(ekeys), dtype=np.int64)) if ekeys
+             else np.zeros(g.m, bool))
+    return vmask, emask, omega, matches

@@ -69,6 +69,11 @@ class PruneState:
         }
 
 
+def solution_counts(state: PruneState) -> Dict[str, int]:
+    """The state's active vertices, active arcs and omega bits."""
+    return state.counts()
+
+
 def init_state(dg: DeviceGraph, template: Template) -> PruneState:
     """Alg. 2 initialization: omega(v) = {q : l(q) == l(v)}; all edges active."""
     n_labels = max(int(template.labels.max()) + 1, int(torch.max(dg.labels)) + 1)

@@ -120,6 +120,14 @@ def cycle_graph(length: int, labels) -> Graph:
     return Graph.from_undirected_pairs(length, pairs, labels)
 
 
+def path_graph(length: int, labels) -> Graph:
+    """A simple path of `length` vertices."""
+    labels = np.asarray(labels, dtype=np.int32)
+    idx = np.arange(length - 1, dtype=np.int64)
+    pairs = np.stack([idx, idx + 1], axis=1)
+    return Graph.from_undirected_pairs(length, pairs, labels)
+
+
 def torus_graph(rows: int, cols: int, labels) -> Graph:
     """Doubly-periodic grid (Fig. 2(c)'s 4x3 torus that defeats cycle checking)."""
     labels = np.asarray(labels, dtype=np.int32).reshape(rows * cols)
@@ -130,6 +138,13 @@ def torus_graph(rows: int, cols: int, labels) -> Graph:
             pairs.append((vid[r, c], vid[r, (c + 1) % cols]))
             pairs.append((vid[r, c], vid[(r + 1) % rows, c]))
     return Graph.from_undirected_pairs(rows * cols, np.asarray(pairs), labels)
+
+
+def clique_graph(k: int, labels) -> Graph:
+    """The complete graph on k vertices."""
+    labels = np.asarray(labels, dtype=np.int32)
+    pairs = [(i, j) for i in range(k) for j in range(i + 1, k)]
+    return Graph.from_undirected_pairs(k, np.asarray(pairs), labels)
 
 
 def star_graph(n_leaves: int, center_label: int, leaf_label: int) -> Graph:

@@ -92,3 +92,45 @@ def segment_softmax(scores: torch.Tensor, segment_ids: torch.Tensor,
     ex = torch.exp(scores - mx[ids])
     den = segment_sum(ex, segment_ids, num_segments)
     return ex / den[ids].clamp_min(1e-16)
+
+
+class _Variance(torch.autograd.Function):
+    """E[x^2] - mean^2 with the product kept exact: one rounding, after the
+    difference, as an FMA gives it. XLA contracts the reference's
+    `sq / degc - mean * mean` into fma(-mean, mean, sq / degc) on the CPU;
+    rounding mean^2 first as well loses what digits the cancellation left
+    at a vertex whose neighbours are close in a column, and its 1e-12
+    floor then turns that noise into a gradient of up to 5e5 x d var / dx.
+    The product of two f32 values is exact in float64, so the difference is
+    taken there and rounded once. Where a segment's samples are all equal
+    in a column (`flat`: one sample, a repeated arc, a column ReLU zeroed)
+    the variance is exactly 0, as the reference computes it where XLA does
+    not contract; the FMA's residue there would stand in for it. The
+    backward is the formula's, in the input's type: nothing wider is
+    saved."""
+
+    @staticmethod
+    def forward(ctx, sq_mean, mean, flat):
+        var = (sq_mean.double() - mean.double() * mean.double()).to(sq_mean.dtype)
+        ctx.save_for_backward(mean)
+        return torch.where(flat, 0.0, var)
+
+    @staticmethod
+    def backward(ctx, g):
+        (mean,) = ctx.saved_tensors
+        return g, -(g * mean) * 2, None
+
+
+def mean_and_std(s: torch.Tensor, sq: torch.Tensor, deg: torch.Tensor,
+                 mn: torch.Tensor, mx: torch.Tensor):
+    """PNA's mean and std from a segment's sum s, sum of squares sq, min mn
+    and max mx [..., F] over deg [...] samples: mean = s / max(deg, 1),
+    std = sqrt(max(sq / max(deg, 1) - mean^2, 0) + 1e-12) (`_Variance` for
+    the rounding; 0 where mn == mx). The 1e-12 keeps d std / d var finite
+    at 0, and `torch.maximum` splits its gradient at a tie as `jnp.maximum`
+    does."""
+    degc = deg.clamp_min(1.0)[..., None]
+    mean = s / degc
+    var = _Variance.apply(sq / degc, mean, mn == mx)
+    std = torch.sqrt(torch.maximum(var, torch.zeros_like(var)) + 1e-12)
+    return mean, std

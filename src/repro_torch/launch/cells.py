@@ -25,7 +25,9 @@ graph of the shape's size), so `cell()` runs the step there.
 
 A cell's `fn` reads parameters from its arguments, not from the model it
 was built with (`torch.func.functional_call`), as the reference's jitted
-functions take them.
+functions take them. A train cell consumes its state (`build_train_step`'s
+donate=True), as the reference's train cells donate theirs, so the dry run
+counts the new state once, over the old one's storage.
 """
 from __future__ import annotations
 
@@ -153,7 +155,7 @@ def _lm_train_cell(arch, cfg: LMConfig, shape: ShapeSpec, dev, seed) -> Cell:
              "labels": _ints((k, mb, s), cfg.vocab, dev, gen)}
     batch_specs = {"tokens": (None, "batch", None), "labels": (None, "batch", None)}
     return Cell(arch=arch, shape=shape.name, step_kind="train_step",
-                fn=build_train_step(model, tc), args=(state, batch),
+                fn=build_train_step(model, tc, donate=True), args=(state, batch),
                 arg_specs=(state_specs, batch_specs),
                 model_flops_fn=lambda: 6.0 * cfg.n_active_params() * gb * s)
 
@@ -319,7 +321,7 @@ def _gnn_train_cell(arch, cfg: GNNConfig, shape: ShapeSpec, chips, dev, seed) ->
     model = GNN(cfg, shape.d_feat, n_classes, device=dev, seed=seed)
     state, state_specs = _train_state(model, tc)
     return Cell(arch=arch, shape=shape.name, step_kind="train_step",
-                fn=build_train_step(model, tc), args=(state, batch),
+                fn=build_train_step(model, tc, donate=True), args=(state, batch),
                 arg_specs=(state_specs, batch_specs),
                 model_flops_fn=lambda: _gnn_flops(cfg, m, nn_))
 
@@ -346,7 +348,7 @@ def _recsys_train_cell(arch, cfg: RecsysConfig, shape: ShapeSpec, dev, seed) -> 
     v_eff = (1 + cfg.n_negatives) if cfg.n_negatives else (cfg.n_items + 2)
     tokens = shape.batch * cfg.seq_len
     return Cell(arch=arch, shape=shape.name, step_kind="train_step",
-                fn=build_train_step(model, tc), args=(state, batch),
+                fn=build_train_step(model, tc, donate=True), args=(state, batch),
                 arg_specs=(state_specs, batch_specs),
                 model_flops_fn=lambda: 6.0 * tokens * (
                     _recsys_per_token(cfg) + cfg.embed_dim * v_eff))

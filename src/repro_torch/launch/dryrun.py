@@ -18,7 +18,11 @@ distributed GNN's sim backend).
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun [--arch A] [--shape S]
-      [--chips N] [--jobs J] [--out DIR]
+      [--chips N] [--jobs J] [--out DIR] [--set K=V ...] [--set-shape K=V ...]
+
+--set and --set-shape replace fields of the config and of the shape (a
+cut: `--set n_layers=12 --set train_microbatches=2 --set-shape
+global_batch=2`), and the records then go under DIR/cut/.
 """
 from __future__ import annotations
 
@@ -78,14 +82,39 @@ def measure_cell(cell) -> Dict:
     }
 
 
+def parse_val(v: str):
+    """A --set value: a bool, an int, a float or else the string."""
+    if v.lower() in ("true", "false"):
+        return v.lower() == "true"
+    for kind in (int, float):
+        try:
+            return kind(v)
+        except ValueError:
+            pass
+    return v
+
+
+def parse_sets(pairs) -> Dict:
+    """["k=v", ...] -> {k: parse_val(v)}."""
+    out = {}
+    for kv in pairs:
+        k, v = kv.split("=", 1)
+        out[k] = parse_val(v)
+    return out
+
+
 def run_cell(arch: str, shape_name: str, chips: int = 1, out_dir: Optional[str] = OUT_DIR,
-             cfg_overrides: Optional[Dict] = None) -> Dict:
+             cfg_overrides: Optional[Dict] = None,
+             shape_overrides: Optional[Dict] = None) -> Dict:
     """The record of one cell (written under out_dir unless it is None)."""
     from repro_torch.configs import get_arch
     from repro_torch.launch.cells import build_cell
 
     rec = {"arch": arch, "shape": shape_name, "mesh": mesh_name(chips), "chips": chips}
-    cell = build_cell(arch, shape_name, chips=chips, cfg_overrides=cfg_overrides)
+    if cfg_overrides or shape_overrides:
+        rec.update(overrides=cfg_overrides or {}, shape_overrides=shape_overrides or {})
+    cell = build_cell(arch, shape_name, chips=chips, cfg_overrides=cfg_overrides,
+                      shape_overrides=shape_overrides)
     if cell is None:
         rec.update(status="skipped", reason=get_arch(arch).SHAPES[shape_name].skip)
     else:
@@ -116,12 +145,12 @@ def line(rec: Dict) -> str:
 
 
 def _job(args):
-    arch, shape, chips, out_dir = args
+    arch, shape, chips, out_dir, sets, shape_sets = args
     import torch
 
     torch.set_num_threads(1)
     try:
-        return run_cell(arch, shape, chips, out_dir)
+        return run_cell(arch, shape, chips, out_dir, sets, shape_sets)
     except Exception as e:  # a failing cell is a fault of the port: reported
         traceback.print_exc()
         return {"arch": arch, "shape": shape, "mesh": mesh_name(chips),
@@ -144,14 +173,21 @@ def main(argv=None) -> int:
                          "distributed GNN's shard count)")
     ap.add_argument("--jobs", type=int, default=1, help="worker processes")
     ap.add_argument("--out", default=OUT_DIR)
+    ap.add_argument("--set", action="append", default=[],
+                    help="config field override key=value (a cut)")
+    ap.add_argument("--set-shape", action="append", default=[],
+                    help="shape field override key=value (a cut)")
     args = ap.parse_args(argv)
+    sets, shape_sets = parse_sets(args.set), parse_sets(args.set_shape)
 
     from repro_torch.configs import ARCH_IDS, get_arch
 
     archs = [args.arch] if args.arch else list(ARCH_IDS)
     cells = [(a, s) for a in archs
              for s in ([args.shape] if args.shape else list(get_arch(a).SHAPES))]
-    jobs = [(a, s, args.chips, args.out) for a, s in sorted(cells, key=_cost_order)]
+    out = os.path.join(args.out, "cut") if sets or shape_sets else args.out
+    jobs = [(a, s, args.chips, out, sets, shape_sets)
+            for a, s in sorted(cells, key=_cost_order)]
     t0 = time.perf_counter()
     if args.jobs > 1:
         import multiprocessing as mp
@@ -170,7 +206,7 @@ def main(argv=None) -> int:
     print(f"{len(recs)} cells ({sum(r['status'] == 'ok' for r in recs)} ok, "
           f"{sum(r['status'] == 'skipped' for r in recs)} skipped, "
           f"{len(failures)} failed) in {time.perf_counter() - t0:.1f} s; "
-          f"records in {args.out}", flush=True)
+          f"records in {out}", flush=True)
     return 1 if failures else 0
 
 

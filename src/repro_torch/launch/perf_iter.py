@@ -16,20 +16,9 @@ import argparse
 import json
 import os
 
-from repro_torch.launch.dryrun import OUT_DIR, mesh_name, run_cell
+from repro_torch.launch.dryrun import OUT_DIR, mesh_name, parse_sets, run_cell
 
 PERF_DIR = os.path.join("experiments", "perf_torch")
-
-
-def parse_val(v: str):
-    if v.lower() in ("true", "false"):
-        return v.lower() == "true"
-    for kind in (int, float):
-        try:
-            return kind(v)
-        except ValueError:
-            pass
-    return v
 
 
 def main(argv=None) -> dict:
@@ -45,10 +34,7 @@ def main(argv=None) -> dict:
                     help="the dry run's records to compare with")
     args = ap.parse_args(argv)
 
-    overrides = {}
-    for kv in args.set:
-        k, v = kv.split("=", 1)
-        overrides[k] = parse_val(v)
+    overrides = parse_sets(args.set)
     rec = run_cell(args.arch, args.shape, args.chips, out_dir=None,
                    cfg_overrides=overrides)
     rec.update(tag=args.tag, overrides=overrides)

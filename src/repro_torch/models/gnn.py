@@ -76,13 +76,7 @@ def _agg_stats(x, src, dst, n):
     mx = segment_ops.segment_max(msgs, dst, n)   # -inf where empty
     sq = segment_ops.segment_sum(msgs * msgs, dst, n)
     deg = segment_ops.segment_count(dst, n)
-    degc = deg.clamp_min(1.0)[:, None]
-    mean = s / degc
-    # +eps inside sqrt: d/dx sqrt(x) -> inf at 0 would NaN a backward pass
-    # jnp.maximum splits its gradient at a tie (a degree-1 vertex, a column
-    # that ReLU zeroed); clamp_min would pass all of it
-    var = sq / degc - mean * mean
-    std = torch.sqrt(torch.maximum(var, torch.zeros_like(var)) + 1e-12)
+    mean, std = segment_ops.mean_and_std(s, sq, deg, mn, mx)
     empty = (deg <= 0)[:, None]
     big = float(np.finfo(np.float32).max)
     mn = torch.where(empty | (mn >= big), 0.0, mn)

@@ -93,11 +93,7 @@ def aggregate_sweep(x_local, send_src_local, recv_dst_local, n_local: int,
         return t.reshape((pl, rows) + tuple(t.shape[1:]))[:, :-1]
 
     s, sq, mn, mx, deg = local(s), local(sq), local(mn), local(mx), local(deg)
-    degc = deg.clamp_min(1.0)[..., None]
-    mean = s / degc
-    # jnp.maximum splits its gradient at the tie of a degree-1 vertex
-    var = sq / degc - mean * mean
-    std = torch.sqrt(torch.maximum(var, torch.zeros_like(var)) + 1e-12)
+    mean, std = segment_ops.mean_and_std(s, sq, deg, mn, mx)
     empty = (deg <= 0)[..., None]
     mn = torch.where(empty | (mn >= BIG), 0.0, mn)
     mx = torch.where(empty | (mx <= -BIG), 0.0, mx)

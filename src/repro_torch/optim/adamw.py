@@ -18,6 +18,8 @@ import torch
 from repro_torch.optim.tree import leaves, tree_map, unflatten
 
 STATE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+# elements of a leaf updated at once (`update`)
+UPDATE_PIECE = 1 << 26
 
 
 @dataclasses.dataclass(frozen=True)
@@ -37,10 +39,14 @@ def global_norm(tree) -> torch.Tensor:
     return torch.sqrt(torch.sum(torch.stack(sq)))
 
 
+def _clip_scale(norm: torch.Tensor, max_norm: float) -> torch.Tensor:
+    return torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
+
+
 def clip_by_global_norm(tree, max_norm: float):
     """(tree scaled by min(1, max_norm / max(norm, 1e-9)), norm)."""
     norm = global_norm(tree)
-    scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
+    scale = _clip_scale(norm, max_norm)
     return tree_map(lambda x: x * scale.to(x.dtype), tree), norm
 
 
@@ -62,26 +68,51 @@ def init_state(params, cfg: AdamWConfig) -> Dict:
 
 
 @torch.no_grad()
-def update(grads, state, params, cfg: AdamWConfig, lr_scale=1.0):
-    """Returns (new_params, new_state, metrics); the inputs are not
-    modified."""
+def update(grads, state, params, cfg: AdamWConfig, lr_scale=1.0, inplace=False):
+    """Returns (new_params, new_state, metrics). The clipped gradient is
+    `clip_by_global_norm`'s, formed a leaf at a time. The inputs are not
+    modified, unless `inplace`: then each parameter and moment is
+    overwritten with its new value (the reference's train step with its
+    state donated), so that the old and the new state are never both
+    held, and the returned trees are `params` and `state`'s own."""
     metrics = {}
+    scale = None
     if cfg.clip_norm is not None:
-        grads, gnorm = clip_by_global_norm(grads, cfg.clip_norm)
+        gnorm = global_norm(grads)
+        scale = _clip_scale(gnorm, cfg.clip_norm)
         metrics["grad_norm"] = gnorm
     count = state["count"] + 1
     b1c = 1.0 - cfg.b1 ** count.float()
     b2c = 1.0 - cfg.b2 ** count.float()
     lr = cfg.lr * torch.as_tensor(lr_scale, dtype=torch.float32, device=count.device)
 
-    def upd(p, g, mu, nu):
+    def upd_piece(p, g, mu, nu):
+        if scale is not None:
+            g = g * scale.to(g.dtype)
         g32 = g.float()
         mu32 = cfg.b1 * mu.float() + (1 - cfg.b1) * g32
         nu32 = cfg.b2 * nu.float() + (1 - cfg.b2) * g32 * g32
         step = (mu32 / b1c) / (torch.sqrt(nu32 / b2c) + cfg.eps)
         p32 = p.float()
         p_new = p32 - lr * (step + cfg.weight_decay * p32)
-        return p_new.to(p.dtype), mu32.to(mu.dtype), nu32.to(nu.dtype)
+        return p_new, mu32, nu32
+
+    def upd(p, g, mu, nu):
+        outs = (p, mu, nu) if inplace else tuple(map(torch.empty_like, (p, mu, nu)))
+        ts = (p, g, mu, nu) + outs
+        if p.is_meta or not all(t.is_contiguous() for t in ts):
+            for out, value in zip(outs, upd_piece(p, g, mu, nu)):
+                out.copy_(value)
+            return outs
+        # elementwise, so a piece at a time: the f32 temporaries of a leaf
+        # stacked over the layers stay near UPDATE_PIECE elements each (on
+        # the meta device, which holds nothing, the whole leaf at once)
+        flat = [t.view(-1) for t in ts]
+        for s in range(0, p.numel(), UPDATE_PIECE):
+            piece = [t[s:s + UPDATE_PIECE] for t in flat]
+            for out, value in zip(piece[4:], upd_piece(*piece[:4])):
+                out.copy_(value)
+        return outs
 
     out = [upd(p, g, m, n) for p, g, m, n in zip(
         leaves(params), leaves(grads), leaves(state["mu"]), leaves(state["nu"]))]

@@ -1,6 +1,7 @@
 """Batched LM serving: prefill and greedy decode with a static KV cache
 (the JAX package's `serve/engine.py`). Recsys serving calls the model's
-`serve_scores` and `retrieval_scores` directly.
+`serve_scores` and `retrieval_scores`, directly or through
+`build_recsys_scorer`.
 
 `build_prefill` runs one full-sequence forward (`Transformer.forward_hidden`,
 one `flash_attention` launch per layer) that also writes each layer's roped
@@ -19,6 +20,7 @@ from typing import Callable
 
 import torch
 
+from repro_torch.models.bert4rec import Bert4Rec
 from repro_torch.models.transformer import Transformer
 
 
@@ -62,3 +64,16 @@ def greedy_generate(model: Transformer, prompt: torch.Tensor, max_new: int,
         out.append(tok)
     return torch.stack(out, dim=1)
 
+
+
+# --------------------------------------------------------------- recsys
+def build_recsys_scorer(model: Bert4Rec, kind: str) -> Callable:
+    """The scorer of a recsys serving cell: "serve" -> (items [B, L]) ->
+    top-k catalog scores (`serve_scores`); "retrieval" -> (items, cands
+    [C]) -> [B, C] (`retrieval_scores`). The model stands in for the
+    reference's (params, cfg)."""
+    if kind == "serve":
+        return model.serve_scores
+    if kind == "retrieval":
+        return model.retrieval_scores
+    raise ValueError(kind)

@@ -3,8 +3,9 @@
 three families (the JAX package's `train/step.py`).
 
 The step is a function (state, batch) -> (state, metrics) that leaves its
-inputs as they are. The state is a tree of tensors with the reference's
-paths,
+inputs as they are, or, built with donate=True, overwrites the state it is
+given (as the reference's train cells donate theirs). The state is a tree
+of tensors with the reference's paths,
 
     {"params": <the model's JAX tree>, "opt": {"mu", "nu", "count"},
      "step": int32[] (, "ef": the error feedback with compress_grads)},
@@ -125,9 +126,15 @@ def _microbatch(batch: Mapping, i: int) -> Dict:
             for key, v in batch.items()}
 
 
-def build_train_step(model: nn.Module, tc: TrainConfig) -> Callable:
+def build_train_step(model: nn.Module, tc: TrainConfig, donate: bool = False) -> Callable:
     """step(state, batch) -> (new state, metrics {"loss", "lr_scale",
-    "grad_norm"}) for `model`'s family (its config is `model.cfg`)."""
+    "grad_norm"}) for `model`'s family (its config is `model.cfg`).
+
+    donate=True consumes the state, as the reference's train cells donate
+    theirs (`donate_argnums=(0,)`): AdamW overwrites its parameters and
+    moments (`adamw.update(inplace=True)`), so a step holds one state, not
+    the old and the new; the caller keeps only the returned one. The
+    values are the same either way."""
     kw = {"remat": tc.remat} if isinstance(model, transformer.Transformer) else {}
     wrapper = _Loss(model, _loss_for(model), kw)
     paths = model.param_paths()
@@ -156,11 +163,15 @@ def build_train_step(model: nn.Module, tc: TrainConfig) -> Callable:
                                                    device=p.device), params)
             loss_sum = torch.zeros((), dtype=torch.float32,
                                    device=leaves(params)[0].device)
+            # summed and divided in place: the f32 sums are this step's own
             for i in range(k):
                 loss, g = value_and_grad(params, _microbatch(micro, i))
-                grads = tree_map(torch.add, grads, g)
+                for acc, gi in zip(leaves(grads), leaves(g)):
+                    acc.add_(gi)
+                del g
                 loss_sum = loss_sum + loss
-            grads = tree_map(lambda g: g / k, grads)
+            for acc in leaves(grads):
+                acc.div_(k)
             loss = loss_sum / k
         else:
             loss, grads = value_and_grad(params, batch)
@@ -171,7 +182,7 @@ def build_train_step(model: nn.Module, tc: TrainConfig) -> Callable:
         lr_scale = schedules.warmup_cosine(
             state["step"], warmup_steps=tc.warmup_steps, total_steps=tc.total_steps)
         new_params, new_opt, om = adamw.update(
-            grads, state["opt"], params, tc.optimizer, lr_scale=lr_scale)
+            grads, state["opt"], params, tc.optimizer, lr_scale=lr_scale, inplace=donate)
         new_state["params"] = new_params
         new_state["opt"] = new_opt
         new_state["step"] = state["step"] + 1

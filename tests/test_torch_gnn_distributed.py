@@ -306,3 +306,85 @@ def test_distributed_step_updates_as_adamw_on_its_gradients(graph, setup):
     assert int(new["step"]) == 1
     for a, b in zip(_flat(new["params"]), _flat(want_params)):
         np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=0, atol=1e-7)
+
+
+def _with_close_pairs(g, groups=8, seed=4):
+    """g plus `groups` planted triples (u1, u2, v): u1 and u2 share their
+    in-neighbours (three of g's vertices and v) and v has exactly u1 and u2
+    (both arcs of each edge: the partition wants an undirected graph).
+    With u2's features within 1e-4 of u1's, the first layer maps them
+    within about as much of each other, so at v the second layer's variance
+    is below what f32 resolves in E[x^2] - mean^2 in every column that ReLU
+    did not zero. Returns the graph and the (u1, u2) pairs."""
+    rng = np.random.default_rng(seed)
+    src, dst = list(g.src), list(g.dst)
+    pairs = []
+    for i in range(groups):
+        u1, u2, v = g.n + 3 * i, g.n + 3 * i + 1, g.n + 3 * i + 2
+        for w in rng.choice(g.n, 3, replace=False):
+            for u in (u1, u2):
+                src += [w, u]
+                dst += [u, w]
+        for u in (u1, u2):
+            src += [u, v]
+            dst += [v, u]
+        pairs.append((u1, u2))
+    n = g.n + 3 * groups
+    labels = np.concatenate([g.labels, np.zeros(3 * groups, g.labels.dtype)])
+    return RGraph(n, np.asarray(src, np.int32), np.asarray(dst, np.int32), labels), pairs
+
+
+def _perturbed(tree, seed):
+    """Every weight times (1 + 1e-7 N(0, 1)): about one f32 rounding."""
+    rng = np.random.default_rng(seed)
+    return jax.tree.map(lambda t: (np.asarray(t) * (1 + 1e-7 * rng.standard_normal(
+        np.shape(t)))).astype(np.float32), tree)
+
+
+def _rel_move(got, want):
+    """The largest relative L2 difference of a gradient leaf."""
+    return max(float(np.linalg.norm(np.asarray(a, np.float64) - np.asarray(b, np.float64))
+                     / np.linalg.norm(np.asarray(b, np.float64)))
+               for a, b in zip(got, want))
+
+
+def test_gradient_near_a_variance_tie_moves_no_more_than_the_reference(
+        graph, setup, single_device_reference):
+    """At a vertex of two in-neighbours that are close in a column, PNA's
+    variance E[x^2] - mean^2 cancels to f32 noise, and sqrt(var + 1e-12)
+    makes d std / d var up to 5e5. The reference's compiled step keeps
+    mean^2 exact (an FMA), so its noise is rarely an exact 0 (a tie of
+    max(var, 0), where the 5e5 multiplies the residue of the backward's
+    cancellation); a port that rounds mean^2 first ties there often.
+    Under a 1e-7 change of the weights the port's gradient must move no
+    more than 3x as far, relative L2, as the reference's (planted pairs,
+    module docstring of `_with_close_pairs`)."""
+    rcfg, cfg, rparams, _ = setup
+    g, pairs = _with_close_pairs(graph)
+    mine, feats, part = gd.partitioned_batch_from_graph(_tg(g), D_FEAT, N_CLASSES, 2,
+                                                        seed=1, device="cpu")
+    rng = np.random.default_rng(5)
+    feats = feats.copy()
+    nl = part.n_local
+    for u1, u2 in pairs:
+        feats[u2] = feats[u1] * (1 + 1e-4 * rng.standard_normal(D_FEAT)).astype(np.float32)
+        mine["x"][u2 // nl, u2 % nl] = torch.from_numpy(feats[u2])
+    ref_batch = _global_batch(g, mine, feats)
+    model = GNN(cfg, D_FEAT, N_CLASSES, device="cpu")
+
+    def both(tree):
+        want = jax.tree.leaves(single_device_reference(
+            tree, jnp.asarray(feats), ref_batch)[1][0])
+        params = param_tree(model.load_jax_params(np_tree(tree)))
+        got = _port_value_and_grad(cfg, 2, mine, nl, params)[1]
+        return [got["head"]["b"], got["head"]["w"]] + [
+            lay[k] for lay in got["layers"] for k in ("b", "w")], want
+
+    got0, want0 = both(rparams)
+    assert_grads_close(dict(zip(range(len(got0)), got0)), dict(zip(range(len(want0)), want0)))
+    moves = []
+    for s in range(3):
+        got, want = both(_perturbed(rparams, s))
+        moves.append((_rel_move(got, got0), _rel_move(want, want0)))
+    port, reference = max(m[0] for m in moves), max(m[1] for m in moves)
+    assert port <= 3 * reference, moves

@@ -25,8 +25,11 @@ IMPORT_RE = re.compile(r"^\s*(import|from)\s+(jax|repro)\b")
 # loss with MTP and the router aux loss, the serving CLI on an MLA arch, a
 # bf16 checkpoint round trip, a retrieval, a few
 # train steps through the training launchers and the train step (optim,
-# train, the negatives' generator), the sharded PNA loss on the sim
-# backend, the sharding rules, a dry run of one cell and perf_iter of the
+# train, the negatives' generator; a donated MoE step and the MoE launcher),
+# PNA's mean and std, the sharded PNA loss on the sim
+# backend, the sharding rules, a dry run of one cell (and of a cut one),
+# the oracle, counts, generators, configs and recsys scorer helpers, and
+# perf_iter of the
 # distributed cell on the meta device under the cost counter (cells,
 # abstract, op_cost, roofline, kernels.cost), then checks that nothing of JAX or the JAX package was loaded, and that the
 # default device is CUDA (which raises where there is none).
@@ -168,6 +171,16 @@ SCRIPT = textwrap.dedent("""
     st, m = step(st, {"tokens": torch.zeros((2, 6), dtype=torch.int32),
                       "labels": torch.ones((2, 6), dtype=torch.int32)})
     assert int(st["step"]) == 1 and float(m["loss"]) > 0
+    ds = get_arch("deepseek-v2-lite-16b").smoke()
+    moe = Transformer(ds, device="cpu")
+    dtc = TrainConfig(microbatches=2, remat=True)
+    st = init_state(moe, dtc)
+    st, m = build_train_step(moe, dtc, donate=True)(
+        st, {"tokens": torch.zeros((2, 6), dtype=torch.int32),
+             "labels": torch.ones((2, 6), dtype=torch.int32)})
+    assert int(st["step"]) == 1 and float(m["loss"]) > 0
+    assert train_cli.main(["--arch", "deepseek-v2-lite-16b", "--steps", "1",
+                           "--device", "cpu", "--log-every", "0"]).steps_run == 1
     assert prng.randint(prng.key(0), 3, 1, 10).shape == (3,)
     assert float(schedules.constant(0)) == 1.0
 
@@ -177,6 +190,11 @@ SCRIPT = textwrap.dedent("""
     from repro_torch.core.engine import sim_prims
     from repro_torch.models import gnn_distributed as gd
     from repro_torch.train.step import param_tree
+    from repro_torch.graph import segment_ops
+    mean, std = segment_ops.mean_and_std(
+        torch.tensor([[2.0]]), torch.tensor([[2.0]]), torch.tensor([2.0]),
+        torch.tensor([[1.0]]), torch.tensor([[1.0]]))
+    assert float(mean) == 1.0 and abs(float(std) - 1e-6) < 1e-12
     pna = get_arch("pna").smoke()
     pb, _, part = gd.partitioned_batch_from_graph(gg, 6, 3, 2, device="cpu")
     loss_fn = gd.build_distributed_pna_loss(pna, sim_prims(2, "cpu"),
@@ -188,10 +206,23 @@ SCRIPT = textwrap.dedent("""
     assert abstract.abstract_init(lambda device: (device.type, None))[0] == "meta"
     with tempfile.TemporaryDirectory() as d:
         assert dryrun.main(["--arch", "gin-tu", "--shape", "molecule", "--out", d]) == 0
+        assert dryrun.main(["--arch", "qwen2-1.5b", "--shape", "train_4k", "--set",
+                            "n_layers=1", "--set", "train_microbatches=2",
+                            "--set-shape", "global_batch=2", "--out", d]) == 0
         rec = perf_iter.main(["--arch", "pna", "--shape", "full_graph_sm", "--chips",
                               "2", "--set", "distributed=true", "--out", d])
         assert rec["counted"]["collectives"]["total"] > 0
     assert isinstance(cells.build_cell("bert4rec", "retrieval_cand"), cells.Cell)
+    from repro_torch.configs import get_config, get_shapes
+    from repro_torch.core.oracle import solution_subgraph_oracle
+    from repro_torch.core.state import solution_counts
+    from repro_torch.serve.engine import build_recsys_scorer
+    assert get_config("pna") is get_arch("pna").CONFIG and "molecule" in get_shapes("gin-tu")
+    assert solution_subgraph_oracle(g, t)[0].all()
+    assert solution_counts(res.state)["active_vertices"] == 4
+    assert gen.clique_graph(4, [0] * 4).m == 12 and gen.path_graph(3, [0] * 3).m == 4
+    assert build_recsys_scorer(Bert4Rec(rec_cfg, device="cpu"), "retrieval")(
+        items, cands).shape == (2, 39)
     with op_cost.OpCounter() as counter:
         torch.ones(2, 3) @ torch.ones(3, 4)
     assert counter.flops_f32 == 48

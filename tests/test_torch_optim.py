@@ -155,3 +155,29 @@ def test_compress_grads_error_feedback_matches_over_three_rounds():
         for a, b in zip(leaves(ef), jax.tree.leaves(ref_ef)):
             np.testing.assert_array_equal(a.numpy(), np.asarray(b))
         assert any(float(x.abs().max()) > 0 for x in leaves(ef))
+
+
+@pytest.mark.parametrize("dtype,state_dtype", [(torch.float32, "float32"),
+                                               (torch.bfloat16, "bfloat16")])
+def test_update_in_place_and_in_pieces_equals_the_whole(monkeypatch, dtype, state_dtype):
+    """`update` a piece of a leaf at a time (here 4 elements, so that every
+    leaf of more spans several, the last one short) and in place (a donated
+    state): the values of the update that leaves its inputs as they are,
+    bit for bit, written into the given tensors; a non-contiguous leaf is
+    updated whole."""
+    cfg = adamw.AdamWConfig(lr=1e-2, state_dtype=state_dtype)
+    p = _t(_tree(4), dtype)
+    p["w"] = p["w"].t()   # non-contiguous
+    g = _t(_tree(5, scale=3.0), dtype)
+    g["w"] = g["w"].t()
+    want_p, want_s, want_m = adamw.update(g, adamw.init_state(p, cfg), p, cfg)
+    monkeypatch.setattr(adamw, "UPDATE_PIECE", 4)
+    p2, s2 = tree_map(torch.clone, p), adamw.init_state(p, cfg)
+    given = leaves(p2) + leaves(s2["mu"]) + leaves(s2["nu"])
+    got_p, got_s, got_m = adamw.update(g, s2, p2, cfg, inplace=True)
+    assert all(a is b for a, b in zip(leaves(got_p) + leaves(got_s["mu"])
+                                      + leaves(got_s["nu"]), given))
+    for a, b in zip(leaves(got_p) + leaves(got_s["mu"]) + leaves(got_s["nu"]),
+                    leaves(want_p) + leaves(want_s["mu"]) + leaves(want_s["nu"])):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    assert float(got_m["grad_norm"]) == float(want_m["grad_norm"])

@@ -172,6 +172,8 @@ def test_generators_and_device_graph_match_reference():
         (rgen.torus_graph(4, 3, np.arange(12)), gen.torus_graph(4, 3, np.arange(12))),
         (rgen.cycle_graph(9, np.arange(9)), gen.cycle_graph(9, np.arange(9))),
         (rgen.star_graph(6, 1, 2), gen.star_graph(6, 1, 2)),
+        (rgen.path_graph(7, np.arange(7)), gen.path_graph(7, np.arange(7))),
+        (rgen.clique_graph(5, np.arange(5)), gen.clique_graph(5, np.arange(5))),
     ]
     bg_r, bg_t = pairs[1]
     pat_r = RGraph.from_undirected_pairs(4, DIAMOND[1], DIAMOND[0])
@@ -223,3 +225,23 @@ def test_unported_options_raise(tmp_path, reference):
     assert count_matches(res).n_embeddings == ref_enum.n_embeddings
     with pytest.raises(ValueError):
         prune(tg, tm, device="cpu", nlcc_route="sideways")
+
+
+@pytest.mark.parametrize("name", ["needles", "triangle_er", "fig2c"])
+def test_solution_oracle_and_counts_match_reference(name, reference):
+    """`core/oracle.solution_subgraph_oracle` against the reference's (the
+    vertex and arc masks, omega and the matches), and `core/state.
+    solution_counts` of the port's prune against the reference's of its
+    own."""
+    from repro.core.oracle import solution_subgraph_oracle as r_oracle
+    from repro.core.state import solution_counts as r_counts
+    from repro_torch.core.state import solution_counts
+
+    g, (labels, edges) = SCENARIOS[name]
+    want = r_oracle(g, RT(labels, edges))
+    got = oracle.solution_subgraph_oracle(_port_graph(g), Template(labels, edges))
+    for a, b in zip(got[:3], want[:3]):
+        np.testing.assert_array_equal(a, b)
+    assert sorted(map(tuple, got[3])) == sorted(map(tuple, want[3]))
+    res = prune(_port_graph(g), Template(labels, edges), device="cpu", wave=WAVE)
+    assert solution_counts(res.state) == r_counts(reference(name)[0].state)

@@ -196,3 +196,38 @@ def test_recsys_config_matches_the_reference():
     assert set(mine.SHAPES) == set(theirs.SHAPES)
     for name, s in mine.SHAPES.items():
         assert dataclasses.asdict(s) == dataclasses.asdict(theirs.SHAPES[name])
+
+
+@pytest.mark.parametrize("kind", ["serve", "retrieval"])
+def test_recsys_scorer_matches_the_reference(smoke_pair, kind):
+    """`serve/engine.build_recsys_scorer` against the reference's, on the
+    same weights and items; an unknown kind raises in both."""
+    from repro.serve import engine as rengine
+    from repro_torch.serve import engine
+
+    cfg, params, model, items = smoke_pair
+    cands = np.random.default_rng(4).integers(1, cfg.n_items + 1, 50).astype(np.int32)
+    args = (items[:3],) + ((torch.from_numpy(cands),) if kind == "retrieval" else ())
+    want = rengine.build_recsys_scorer(cfg, kind)(
+        params, *(jnp.asarray(a.numpy()) for a in args))
+    got = engine.build_recsys_scorer(model, kind)(*args)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    with pytest.raises(ValueError):
+        engine.build_recsys_scorer(model, "decode")
+
+
+def test_get_config_and_get_shapes_match_the_reference():
+    """`configs.get_config` and `get_shapes` of every arch equal the
+    reference's in every field the port's configs have (the GNN configs
+    leave out the reference's `dtype` and `sample_sizes`)."""
+    from repro_torch.configs import ARCH_IDS
+
+    assert set(ARCH_IDS) == set(rconfigs.ARCH_IDS)
+    for arch in ARCH_IDS:
+        mine, theirs = (dataclasses.asdict(c) for c in (
+            configs.get_config(arch), rconfigs.get_config(arch)))
+        assert mine == {k: theirs[k] for k in mine}
+        mine, theirs = configs.get_shapes(arch), rconfigs.get_shapes(arch)
+        assert set(mine) == set(theirs)
+        for name, s in mine.items():
+            assert dataclasses.asdict(s) == dataclasses.asdict(theirs[name])

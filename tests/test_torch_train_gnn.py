@@ -147,18 +147,23 @@ def test_sampled_graphsage_trains_as_the_reference():
 
 def _near_tie(rng, d):
     """Two f32 feature rows a, b != a whose f32 variance as PNA computes it,
-    (a^2 + b^2) / 2 - ((a + b) / 2)^2, is exactly 0 in every column, while
-    their true variance is not: a tie of max(var, 0) at which d var / d a =
-    (a - b) / 2 is not 0."""
+    fl((a^2 + b^2) / 2) - ((a + b) / 2)^2 with the square exact (an FMA, as
+    XLA compiles the reference's training step), is exactly 0 in every
+    column, while their true variance is not: a tie of max(var, 0) at which
+    d var / d a = (a - b) / 2 is not 0. b = 2m - a, for m the nearest
+    12-bit value to a, so that m^2 is an f32 value."""
     a = rng.standard_normal(d).astype(np.float32)
     b = a.copy()
     for j in range(d):
-        for k in range(2000, 0, -1):
-            cand = np.float32(a[j] * np.float32(1 + k * 1e-7))
-            sq = a[j] * a[j] + cand * cand
-            mean = (a[j] + cand) / np.float32(2)
-            if cand != a[j] and sq / np.float32(2) - mean * mean == 0:
-                b[j] = cand
+        for k in range(2000):
+            aj = np.float32(a[j] * np.float32(1 + k * 1e-7))
+            m = np.float32(np.ldexp(np.round(np.ldexp(aj, 11 - np.frexp(aj)[1])),
+                                    np.frexp(aj)[1] - 11))
+            cand = np.float32(2 * m - aj)
+            sq = aj * aj + cand * cand
+            mean = (aj + cand) / np.float32(2)
+            if cand != aj and float(sq / np.float32(2)) - float(mean) ** 2 == 0:
+                a[j], b[j] = aj, cand
                 break
     assert (b != a).all()
     return a, b
@@ -201,10 +206,12 @@ def test_pna_gradients_split_at_variance_ties_as_jax_does():
     params = rgnn.init(jax.random.key(0), rcfg, D_FEAT, N_CLASSES)[0]
     model = GNN(cfg, D_FEAT, N_CLASSES, device="cpu").load_jax_params(np_tree(params))
 
-    def rloss(p, xx):
-        return rgnn.loss_fn(p, rcfg, {**theirs, "x": xx})[0]
+    # the graph is an argument, as in the reference's train step: XLA then
+    # contracts the variance into an FMA, as the port rounds it
+    def rloss(p, xx, b):
+        return rgnn.loss_fn(p, rcfg, {**b, "x": xx})[0]
     want_loss, (want_grads, want_gx) = jax.jit(
-        jax.value_and_grad(rloss, argnums=(0, 1)))(params, theirs["x"])
+        jax.value_and_grad(rloss, argnums=(0, 1)))(params, theirs["x"], theirs)
     mine["x"].requires_grad_(True)
     loss, grads = port_value_and_grad(model, gnn.loss_fn, mine)
     gx = torch.autograd.grad(gnn.loss_fn(model, mine)[0], mine["x"])[0].numpy()

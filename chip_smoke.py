@@ -157,8 +157,9 @@ From the root of a checkout, on a machine with a CUDA device and `nvcc`:
                trajectory, lcc_iterations (card == CPU), the count through
                both sharded joins; every `bitset_segment_or` call of the
                P = 4 prunes bit-exact against the plain version;
-            b. scale 20, the phase-4 graph, hex-unique at P = 2 (wave 1024)
-               and P = 4 (wave 512): each prune equal to phase 4's and
+            b. scale 18 (its own graph, the same generator and seed; 9c-10c
+               share it), hex-unique at P = 2 (wave 1024) and P = 4 (wave
+               512): each prune equal to the local prune of that graph and
                keeping exactly what its matches use, the count by both
                flavors; B, slots, padding, plane size, seconds by phase and
                by flavor, peak memory, `bitset_spmm` launches, the busy
@@ -167,13 +168,13 @@ From the root of a checkout, on a machine with a CUDA device and `nvcc`:
                that receive and one hop's at the wave's width bit-exact
                against the plain version, and every `bitset_segment_or`
                call of one more prune at each P;
-            c. scale 20, `prune(mesh=group)` on an NCCL group of one rank
+            c. scale 18, `prune(mesh=group)` on an NCCL group of one rank
                (one card holds one NCCL rank) equal to the sim at P = 1 and
-               to phase 4.
+               to the local prune.
 10. faults  resilience, the paper's checkpoint-and-rebalance and sharded
             batches (run with the prune path, reusing 9b's and 9c's
-            partitions; 10b and 10c run first, while a worker process
-            computes 10a's CPU side):
+            partitions; 10b and 10c run first, while a worker process,
+            started with the prune path, computes 10a's CPU side):
             a. scale 14, the scenarios of tests/test_torch_resilience.py on
                the sim at P = 4 for hex-unique and the 3c triangle: a shard
                loss at each phase boundary and in the middle of a wave,
@@ -188,18 +189,18 @@ From the root of a checkout, on a machine with a CUDA device and `nvcc`:
                lane equal to its single sharded prune and to the CPU's,
                every receive-side call of the P = 4 batch bit-exact
                against the plain version;
-            b. scale 20, hex-unique from the sim at P = 4 (wave 512) with a
+            b. scale 18, hex-unique from the sim at P = 4 (wave 512) with a
                checkpoint at every phase: (i) a shard loss at phase 1
                restarted onto P = 2, (ii)-(iv) the rebalance triggered at
                the first boundary onto P = 4, 1 (the local backend) and 2,
                (v) a collective timeout retried on one NCCL rank; each
-               equal to phase 4 with no plain-version call and its number
+               equal to 9b's local prune with no plain-version call and its number
                of moves as expected (two onto P = 4, the second at the
                next boundary); prune seconds beside 9b's and the moves'
                share of them, checkpoint bytes and seconds, restore and
                handoff seconds, the compacted graph's n, m, B and padding,
                the skew before and after, peak memory;
-            c. scale 20, `prune_batch` of 4 same-bucket templates at P = 2
+            c. scale 18, `prune_batch` of 4 same-bucket templates at P = 2
                with the largest wave of 64 and 32 that the lockstep group
                budget allows (read after the allocator's cache is
                emptied), each lane equal to its single P = 2 prune and to
@@ -297,6 +298,35 @@ From the root of a checkout, on a machine with a CUDA device and `nvcc`:
             f. the tensor-core kernel at those train shapes beside its bound
                and SDPA, and the plain backward at MLA's pair
                ([1,16/16,4096,192/128], [1,128/128,1024,192/128]) as 11b.
+13. sharded GNN  the sharded PNA step on the sim backend, the dry run of
+            every cell and four cells on the card under the cost counter
+            (`run_sharded_gnn`).
+14. sharded LM  the LM train step on a (2, 2) (data, model) mesh of four
+            gloo ranks sharing the card (NCCL refuses two ranks on one
+            GPU; a collective's tensors staged through page-locked host
+            memory), spawned after the parent frees its memory, with a
+            `file://` rendezvous (`run_sharded_lm`, run last):
+            a. the five archs' smoke step (12d's), 3 steps from one state,
+               held to the single-process step on the card within 11a's
+               bounds; `flash_attention` launched on every rank's local
+               heads, the f32 kernel, as often as the step should;
+            b. qwen3-8b (8 of 36 layers) and deepseek-v2-lite (1 dense + 2
+               MoE layers, 32 of 64 experts a model rank) at full width in
+               bf16, 2 x 4,096 tokens a step (a sequence a data rank),
+               remat, the state donated: each rank's reckoning on the meta
+               device (the four with their contexts within 85% of 80 GiB),
+               seconds a step, tokens/s, each rank's peak, the share of the
+               step in the collectives by kind; the first loss within
+               LM_PARITY_TOL of the single-process bf16 loss of the whole
+               batch, its CE and aux terms apart, and each MoE layer's
+               first routing (top-k sets and drops) against it;
+            c. the 14a step on a (1, 1) mesh over a one-rank NCCL group, in
+               its own process under deterministic algorithms, bit for bit
+               the single-process step;
+            d. qwen2's smoke step: 3 steps at (2, 2), the checkpoint
+               (gathered, rank 0 writing), restored onto (3, 1), step 4
+               there, held to an uninterrupted 4-step run within 11a's
+               bounds.
 
 Every time is printed beside the card's name and power limit. The line
 before the last is a JSON object listing each kernel with its launches on
@@ -375,6 +405,10 @@ SEED = 3
 EDGE_FACTOR = 16
 SCALE_PARITY = 14
 SCALE_FULL = 20
+# phases 9b, 9c, 10b and 10c: their host partitions and join plans took
+# 23-29 s each at scale 20; at 18 about a quarter (R-MAT with the same edge
+# factor, degree labels and seed), held to a local prune of that graph
+SCALE_SHARDED = 18
 # The main path's template: the unique-label 6-cycle "hex-unique" of
 # benchmarks/frontier_edge_prune.py. RMAT-2 (benchmarks/rmat_distributions.py)
 # is pruned empty by the first LCC on degree-labelled R-MAT, so no NLCC wave
@@ -1761,15 +1795,53 @@ def flavor_counts(res):
     return out
 
 
-def phase_sharded_parity(g):
+PARITY9A = (("hex-unique", HEX), ("3c triangle", TRI_MANY))
+
+
+def phase9a_cpu(g, out_dir):
+    """9a's CPU side (in 10a's worker process): the port's CPU sim at each
+    P of SHARDS_PARITY for each template, saved under out_dir (9a.npz, and
+    9a.json last, when all is written)."""
+    arrays, records = {}, {}
+    for name, tt in PARITY9A:
+        for P in SHARDS_PARITY:
+            cpu, s_cpu = timed(lambda: prune(g, Template(*tt), device="cpu", partition=P))
+            key = f"{name}-{P}"
+            arrays[f"{key}-omega"], arrays[f"{key}-edge_mask"] = cpu.omega, cpu.edge_mask
+            records[key] = {"traj": trajectory(cpu), "seconds": s_cpu,
+                            "lcc_iterations": cpu.stats["lcc_iterations"]}
+    np.savez(os.path.join(out_dir, "9a.npz"), **arrays)
+    with open(os.path.join(out_dir, "9a.json.tmp"), "w") as f:
+        json.dump(records, f)
+    os.replace(os.path.join(out_dir, "9a.json.tmp"), os.path.join(out_dir, "9a.json"))
+
+
+def phase9a_cpu_results(worker, timeout_s=600):
+    """9a's CPU side from the worker: (arrays, records), waiting for them."""
+    proc, out_dir = worker[0][0], worker[1]
+    done = os.path.join(out_dir, "9a.json")
+    end = time.monotonic() + timeout_s
+    while not os.path.exists(done):
+        if proc.poll() is not None or time.monotonic() > end:
+            with open(os.path.join(out_dir, "worker-0.log")) as f:
+                check(False, f"9a's CPU side did not arrive: {f.read()[-3000:]}")
+        time.sleep(0.5)
+    with open(done) as f:
+        records = json.load(f)
+    return np.load(os.path.join(out_dir, "9a.npz")), records
+
+
+def phase_sharded_parity(g, worker):
     """Scale 14: the sim backend at P in SHARDS_PARITY on the card against
-    the port's CPU sim and the card's local prune, for hex-unique and the
-    3c triangle (multiplicity counts); every `bitset_segment_or` call of the
-    P = 4 prunes held bit for bit to the plain version."""
+    the port's CPU sim (computed by 10a's worker process, `phase9a_cpu`) and
+    the card's local prune, for hex-unique and the 3c triangle
+    (multiplicity counts); every `bitset_segment_or` call of the P = 4
+    prunes held bit for bit to the plain version."""
     log(f"== phase 9a: R-MAT scale {SCALE_PARITY}, the sim backend at P in "
         f"{SHARDS_PARITY}, card vs CPU vs the local prune ({CARD})")
+    arrays, records = phase9a_cpu_results(worker)
     held_calls = []
-    for name, tt in (("hex-unique", HEX), ("3c triangle", TRI_MANY)):
+    for name, tt in PARITY9A:
         tmpl = Template(*tt)
         local = prune(g, tmpl, device=DEVICE)
         local_count = count_matches(local).n_embeddings
@@ -1780,11 +1852,16 @@ def phase_sharded_parity(g):
                 card, s_card = timed(lambda: prune(g, tmpl, device=DEVICE,
                                                    partition=P))
             spmm = registry.launch_counts()["bitset_spmm"]
-            cpu, s_cpu = timed(lambda: prune(g, tmpl, device="cpu", partition=P))
-            same_prune(card, cpu, f"9a {name} P={P} card vs CPU sim")
+            key = f"{name}-{P}"
+            rec = records[key]
+            same_prune(card, {"omega": arrays[f"{key}-omega"],
+                              "edge_mask": arrays[f"{key}-edge_mask"],
+                              "traj": [tuple(t) for t in rec["traj"]]},
+                       f"9a {name} P={P} card vs CPU sim")
             same_prune(card, local, f"9a {name} P={P} sim vs the local prune")
-            check(card.stats["lcc_iterations"] == cpu.stats["lcc_iterations"],
+            check(card.stats["lcc_iterations"] == rec["lcc_iterations"],
                   f"9a {name} P={P}: lcc_iterations differ card vs CPU")
+            s_cpu = rec["seconds"]
             counts = flavor_counts(card)
             check(all(c == local_count for c, _ in counts.values()),
                   f"9a {name} P={P}: counts {counts} != {local_count}")
@@ -1892,12 +1969,13 @@ def sweep_breakdown(be, wave, reps=5):
 
 
 def phase_sharded_full(g, ref4):
-    """Scale 20, the phase-4 graph: the sim backend at SHARDED_FULL, each
-    prune equal to phase 4's (omega, edge mask, trajectory, count) and
+    """Scale SCALE_SHARDED: the sim backend at SHARDED_FULL, each prune
+    equal to `ref4`, the local prune of that graph (omega, edge mask,
+    trajectory, count) and
     keeping exactly what its matches use; seconds by phase and by join
     flavor, peak memory, bitset_spmm launches, the busy share, and one
     sweep's breakdown. -> (a row per P, the partitions by P)."""
-    log(f"== phase 9b: R-MAT scale {SCALE_FULL}, the sim backend at "
+    log(f"== phase 9b: R-MAT scale {SCALE_SHARDED}, the sim backend at "
         f"(P, wave) in {SHARDED_FULL} ({CARD})")
     tmpl = Template(*HEX)
     lf = g.label_frequency()
@@ -1918,7 +1996,7 @@ def phase_sharded_full(g, ref4):
         peak = peak_gib()
         same_prune(res, ref4, f"9b P={P}")
         check(all(c == ref4["count"] for c, _ in counts.values()),
-              f"9b P={P}: counts {counts} != phase 4's {ref4['count']}")
+              f"9b P={P}: counts {counts} != the local prune's {ref4['count']}")
         check(spmm["bitset_spmm"] > 0, f"9b P={P}: bitset_spmm never launched")
         check(spmm["bitset_wave"] == 0, f"9b P={P}: the sharded path ran "
               "bitset_wave (its fused route is the reference's hop loop)")
@@ -1927,15 +2005,15 @@ def phase_sharded_full(g, ref4):
             f"pad={slots / g.m:.2f}x plane={plane_gib:.2f} GiB; partition "
             f"{s_part:.2f} s and its join plan {s_plan:.2f} s on the host; "
             f"prune {s_prune:.3f} s, its phases "
-            f"{sum(p.seconds for p in res.phases):.3f} s (phase 4's local "
+            f"{sum(p.seconds for p in res.phases):.3f} s (the local "
             f"prune's {ref4['seconds']:.3f} s); lcc_iterations "
             f"{res.stats['lcc_iterations']}, routes "
             f"{res.stats['dispatch_routes']}; count "
             + ", ".join(f"{fl} {s:.3f} s" for fl, (_, s) in counts.items())
             + f"; peak {peak:.3f} GiB; bitset_spmm launches "
             f"{spmm['bitset_spmm']}; {res.counts()}, {ref4['count']} matches,"
-            " omega/edge mask/trajectory == phase 4, keeps exactly what the "
-            "matches use")
+            " omega/edge mask/trajectory == the local prune, keeps exactly "
+            "what the matches use")
         for p in res.phases:
             log(f"  {p.phase:11s} {str(p.constraint or ''):28s} "
                 f"{p.seconds:9.4f} s waves={p.extra.get('nlcc_waves', '-')}")
@@ -1973,22 +2051,22 @@ def phase_sharded_full(g, ref4):
                                              else v) for k, v in t.items()}})
         del res
     slots8 = 8 * 8 * bucket_size(g, 8)
-    log(f"P=8 runs in 9a only: at scale {SCALE_FULL} its buckets hold "
+    log(f"P=8 runs in 9a only: at scale {SCALE_SHARDED} its buckets hold "
         f"{slots8} slots, {slots8 * 128 / 2**30:.1f} GiB a frontier plane at "
         f"wave 1024, and a hop holds two")
     return rows, parts
 
 
 def phase_spmd_nccl(g, ref4):
-    """Scale 20: the spmd backend on an NCCL group of one rank (file://
-    rendezvous in a temporary directory), against the sim backend at P = 1
-    and phase 4's prune, both on one P = 1 partition. -> (a row, the
-    partition)."""
+    """Scale SCALE_SHARDED: the spmd backend on an NCCL group of one rank
+    (file:// rendezvous in a temporary directory), against the sim backend
+    at P = 1 and the local prune (`ref4`), both on one P = 1 partition. ->
+    (a row, the partition)."""
     import torch.distributed as dist
     from repro_torch.launch.mesh import make_shard_group
 
-    log(f"== phase 9c: R-MAT scale {SCALE_FULL}, spmd on one NCCL rank vs "
-        f"sim P=1 vs phase 4 ({CARD})")
+    log(f"== phase 9c: R-MAT scale {SCALE_SHARDED}, spmd on one NCCL rank vs "
+        f"sim P=1 vs the local prune ({CARD})")
     tmpl = Template(*HEX)
     lf = g.label_frequency()
     part, s_part = timed(lambda: partition_graph(g, 1))
@@ -2005,7 +2083,7 @@ def phase_spmd_nccl(g, ref4):
             spmm = registry.launch_counts()["bitset_spmm"]
             check(res.stats["backend"] == "spmd", "9c: not the spmd backend")
             same_prune(res, sim, "9c spmd vs sim P=1")
-            same_prune(res, ref4, "9c spmd vs phase 4")
+            same_prune(res, ref4, "9c spmd vs the local prune")
             check(res.stats["lcc_iterations"] == sim.stats["lcc_iterations"],
                   "9c: lcc_iterations differ spmd vs sim")
             counts = flavor_counts(res)
@@ -2019,7 +2097,7 @@ def phase_spmd_nccl(g, ref4):
         f"lcc_iterations {res.stats['lcc_iterations']}; bitset_spmm launches "
         f"{spmm}; count " + ", ".join(f"{fl} {s:.3f} s" for fl, (_, s)
                                       in counts.items())
-        + "; omega/edge mask/trajectory/count == sim P=1 == phase 4")
+        + "; omega/edge mask/trajectory/count == sim P=1 == the local prune")
     return {"prune_s": round(s_spmd, 4), "launches": spmm}, part
 
 
@@ -2031,22 +2109,30 @@ def phase_spmd_nccl(g, ref4):
 RES_P, RES_RESTART_P = 4, 2
 RES_TEMPLATES = (("hex-unique", HEX, 32), ("3c triangle", TRI_MANY, WAVE))
 RES_RANDOM_SEED = 1
-# 10b: the skew that triggers the rebalance. The first boundary's active
-# arcs sit on the hubs' shards (low ids): 1.600 at P = 4, and within a
-# few percent after the shuffle. A rebalance onto P = 4 moves a second time
-# at the next boundary, where the 36 arcs left read 1.556 over 4 shards;
-# onto P = 2 and 1 it moves once
-IMBALANCE_TRIGGER = 1.5
+# 10b: the skew that triggers the rebalance, at scale 18 (SCALE_SHARDED).
+# The first boundary's active arcs sit on the hubs' shards (low ids): 1.716
+# at P = 4, and within a few percent after the shuffle. A rebalance onto
+# P = 4 moves a second time at the next boundary, where the 96 arcs left
+# read 1.250 over 4 shards; onto P = 2 they read 1.208 and it moves once,
+# onto 1 once (read with a trigger of 1.0001 on the card). At scale 20, 1.5
+# set the same pattern (1.600; 36 arcs at 1.556 over 4 shards)
+IMBALANCE_TRIGGER = 1.23
 CKPT_WAVE = 512
 # 10c: the sharded batch's templates, batch 1 of 8b's drain (its rounds
-# are few at scale 20), and its engine's queries in count mode; the waves
-# its budget chooses from. A job's hop sends wave/32 words a slot; past 2
+# are few at scale 20), and its engine's queries in count mode: 8b's TDS
+# batch with every label one lower, the weak-scaling relabel from scale 20
+# to SCALE_SHARDED (R-MAT's hub degrees fall about 2.3x, a label
+# ceil(log2(d + 1)) about one). Unshifted, the label-10/11 triangles
+# select scale 18's dense hub core: 4,687,540 matches, 135 s of counting
+# on P = 2 and 128 s on one shard, against 4,500 and 7.8 s shifted (a
+# probe on the H100). The waves its budget chooses from. A job's hop sends wave/32 words a slot; past 2
 # the receive kernel runs a warp per vertex, which R-MAT's hubs hold up
 # (9b), and a round's lone straggler job runs there alone: at wave 128 the
 # batch took 9.693 s and the engine 207.709 s, at 64 2.971 s and 57.693 s
 SHARDED_BATCH_WAVES = (64, 32)
 SHARDED_BATCH = slice(8, 12)
-ENGINE_QUERIES = SERVE_TDS_BATCH + SERVE_TDS_BATCH[:2]
+ENGINE_QUERIES = [([lab - 1 for lab in labels], edges)
+                  for labels, edges in SERVE_TDS_BATCH + SERVE_TDS_BATCH[:2]]
 
 
 def resilience_scenarios(K, k_tds):
@@ -2116,14 +2202,18 @@ def shifted_batch():
             for labels, edges in BATCH_VARIANTS]
 
 
-def phase10_cpu_worker(out_dir, threads=4):
-    """10a's CPU side, in a process of its own while the card runs 9b-10c:
-    every scenario's prune and the sharded batches at P = 2 and 4 on the
-    CPU, saved under out_dir (arrays as .npz, records as JSON)."""
+def phase10_cpu_worker(out_dir, part, threads=3):
+    """9a's and 10a's CPU sides, in two processes (part 0 and 1) while the
+    card runs phases 2-10c: part 0 9a's sims (`phase9a_cpu`), then 10a's
+    scenarios of the first template; part 1 those of the second, then the
+    sharded batches at P = 2 and 4; saved under out_dir (arrays as .npz,
+    records as records-<part>.json)."""
     torch.set_num_threads(threads)
     g = gen.rmat_graph(SCALE_PARITY, edge_factor=EDGE_FACTOR, seed=SEED)
+    if part == 0:
+        phase9a_cpu(g, out_dir)
     records = {}
-    for tname, spec, wave in RES_TEMPLATES:
+    for tname, spec, wave in RES_TEMPLATES[part:part + 1]:
         tmpl = Template(*spec)
         base = prune(g, tmpl, device="cpu", partition=RES_P, wave=wave)
         K, k_tds = plan_shape(base)
@@ -2136,34 +2226,37 @@ def phase10_cpu_worker(out_dir, threads=4):
                      omega=res.omega, edge_mask=res.edge_mask)
             records[f"{tname}-{i}"] = dict(
                 resilience_records(res, cfg.injector), traj=trajectory(res))
-    for P in (2, 4):
+    for P in (2, 4) if part == 1 else ():
         bres = prune_batch(g, shifted_batch(), device="cpu", partition=P)
         np.savez(os.path.join(out_dir, f"batch-{P}.npz"), **{
             f"{k}{i}": a for i, r in enumerate(bres.results)
             for k, a in zip(("omega", "ea"), lane_arrays(r))})
         records[f"batch-{P}"] = batch_counters(bres.stats)
-    with open(os.path.join(out_dir, "records.json"), "w") as f:
+    with open(os.path.join(out_dir, f"records-{part}.json"), "w") as f:
         json.dump(records, f)
 
 
 def start_phase10_worker():
-    """(process, its output directory): the CPU side of 10a, started now so
-    that it runs beside the card's phases."""
+    """(the two worker processes, their output directory, the start): the
+    CPU sides of 9a and 10a, started now so that they run beside the card's
+    phases."""
     out_dir = tempfile.mkdtemp(prefix="chip_smoke_10a_")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-    with open(os.path.join(out_dir, "worker.log"), "w") as out:
-        proc = subprocess.Popen(
-            [sys.executable, "-c", "import chip_smoke as cs; "
-             f"cs.phase10_cpu_worker({out_dir!r})"],
-            cwd=ROOT, env=env, stdout=out, stderr=subprocess.STDOUT)
-    return proc, out_dir, time.perf_counter()
+    procs = []
+    for part in (0, 1):
+        with open(os.path.join(out_dir, f"worker-{part}.log"), "w") as out:
+            procs.append(subprocess.Popen(
+                [sys.executable, "-c", "import chip_smoke as cs; "
+                 f"cs.phase10_cpu_worker({out_dir!r}, {part})"],
+                cwd=ROOT, env=env, stdout=out, stderr=subprocess.STDOUT))
+    return procs, out_dir, time.perf_counter()
 
 
 def stop_worker(worker):
-    proc = worker[0]
-    if proc.poll() is None:
-        proc.kill()
-    proc.wait()
+    for proc in worker[0]:
+        if proc.poll() is None:
+            proc.kill()
+        proc.wait()
 
 
 def plain_calls():
@@ -2179,15 +2272,17 @@ def phase_resilience_parity(g, worker):
     every receive-side call of the P = 4 batch held to the plain version."""
     log(f"== phase 10a: R-MAT scale {SCALE_PARITY}, faults on the sim at "
         f"P={RES_P} (restarts onto {RES_RESTART_P}), card vs CPU ({CARD})")
-    proc, out_dir, t_started = worker
-    proc.wait(timeout=900)
-    with open(os.path.join(out_dir, "worker.log")) as f:
-        check(proc.returncode == 0,
-              f"10a's CPU worker failed: {f.read()[-3000:]}")
-    log(f"10a's CPU worker: {time.perf_counter() - t_started:.1f} s since "
-        f"it started, beside 9b-10c")
-    with open(os.path.join(out_dir, "records.json")) as f:
-        cpu = json.load(f)
+    procs, out_dir, t_started = worker
+    cpu = {}
+    for part, proc in enumerate(procs):
+        proc.wait(timeout=900)
+        with open(os.path.join(out_dir, f"worker-{part}.log")) as f:
+            check(proc.returncode == 0,
+                  f"10a's CPU worker {part} failed: {f.read()[-3000:]}")
+        with open(os.path.join(out_dir, f"records-{part}.json")) as f:
+            cpu.update(json.load(f))
+    log(f"9a's and 10a's CPU workers: {time.perf_counter() - t_started:.1f} s since "
+        f"they started, beside phases 2-10c")
     for tname, spec, wave in RES_TEMPLATES:
         tmpl = Template(*spec)
         local = prune(g, tmpl, device=DEVICE, wave=wave)
@@ -2288,16 +2383,16 @@ def handoff_line(h):
 
 
 def phase_checkpoint_rebalance(g, ref4, parts, part1, unbalanced_s):
-    """10b, scale 20, the phase-4 graph, hex-unique: (i) a shard loss at
+    """10b, scale SCALE_SHARDED, 9b's graph, hex-unique: (i) a shard loss at
     phase 1 restarted onto P = 2 from the phase checkpoints, (ii)-(iv) the
     skew-triggered rebalance at the first boundary onto P = 4, 1 and 2, (v)
     a collective timeout retried in place on one NCCL rank; each equal to
-    phase 4 with no plain-version call. -> rows."""
+    the local prune (`ref4`) with no plain-version call. -> rows."""
     import torch.distributed as dist
     from repro_torch.core import resilience as res
     from repro_torch.launch.mesh import make_shard_group
 
-    log(f"== phase 10b: R-MAT scale {SCALE_FULL}, checkpoint and rebalance, "
+    log(f"== phase 10b: R-MAT scale {SCALE_SHARDED}, checkpoint and rebalance, "
         f"hex-unique from the sim at P=4 (wave {CKPT_WAVE}) ({CARD})")
     tmpl = Template(*HEX)
     lf = g.label_frequency()
@@ -2359,7 +2454,7 @@ def phase_checkpoint_rebalance(g, ref4, parts, part1, unbalanced_s):
                 f"move at phase {m.get('phase', m.get('restored_phase'))} "
                 f"{m['from_P']}->{m['to_P']} in {m['seconds']:.3f} s: "
                 f"{handoff_line(h)}" for m, h in zip(moves, hs))
-            + f"; peak {peak:.3f} GiB; launches {launches}; == phase 4")
+            + f"; peak {peak:.3f} GiB; launches {launches}; == the local prune")
         for p in out.phases:
             log(f"  {p.phase:11s} {str(p.constraint or ''):28s} "
                 f"{p.seconds:9.4f} s E*={p.active_edges}")
@@ -2396,7 +2491,7 @@ def phase_checkpoint_rebalance(g, ref4, parts, part1, unbalanced_s):
     log(f"(v) one-rank NCCL spmd, a collective timeout at phase 1 retried in "
         f"place: {s:.3f} s, ladder {rs['ladder']}, checkpoints "
         f"{rs['checkpoints']} ({[round(x, 4) for x in rs['checkpoint_seconds']]} s)"
-        f", bitset_spmm {spmm}; == phase 4")
+        f", bitset_spmm {spmm}; == the local prune")
     rows.append({"run": "(v) spmd retry", "prune_s": round(s, 4),
                  "launches": {"bitset_spmm": spmm}})
     return rows
@@ -2422,7 +2517,7 @@ def lockstep_wave(part, jobs):
 
 
 def phase_sharded_batches(g, parts):
-    """10c, scale 20: `prune_batch` of 4 same-bucket templates on the sim at
+    """10c, scale SCALE_SHARDED: `prune_batch` of 4 same-bucket templates on the sim at
     P = 2, the wave (64 or 32) set by the lockstep group budget, each lane
     equal to its single P = 2 prune and to the P = 1 batch;
     `GraphQueryEngine(partition=)` serving 8 queries in count mode against
@@ -2431,7 +2526,7 @@ def phase_sharded_batches(g, parts):
     from repro_torch.core.batch import lockstep_job_bytes
 
     part = parts[2]
-    log(f"== phase 10c: R-MAT scale {SCALE_FULL}, sharded batches on the sim "
+    log(f"== phase 10c: R-MAT scale {SCALE_SHARDED}, sharded batches on the sim "
         f"at P={part.P} ({CARD})")
     lf = g.label_frequency()
     templates = example_workload(SERVE_QUERIES, seed=1,
@@ -4032,18 +4127,46 @@ def run_train(with_gnn=True):
     }
 
 
+def sharded_graph():
+    """(the R-MAT graph of phases 9b-10c at SCALE_SHARDED, its local prune
+    of hex-unique on the card: omega, edge mask, trajectory, count and
+    seconds, which those phases hold their prunes to)."""
+    g, s_gen = timed(lambda: gen.rmat_graph(SCALE_SHARDED, edge_factor=EDGE_FACTOR,
+                                            seed=SEED))
+    tmpl = Template(*HEX)
+    local, s_prune = timed(lambda: prune(g, tmpl, device=DEVICE))
+    cnt = count_matches(local)
+    log(f"R-MAT scale {SCALE_SHARDED} for phases 9b-10c: n={g.n} m={g.m} "
+        f"(generated in {s_gen:.1f} s); the local prune {s_prune:.3f} s, "
+        f"{local.counts()}, {cnt.n_embeddings} matches")
+    ref = {"omega": local.omega, "edge_mask": local.edge_mask,
+           "traj": trajectory(local), "count": cnt.n_embeddings,
+           "seconds": sum(p.seconds for p in local.phases)}
+    return g, ref
+
+
 def run_prune():
     """The prune path (phases 2-4), many queries against one graph (phase
-    8) and a sharded graph (phase 9) -> their kernels' entries of the JSON
-    line, with their launches on the main path (phase 4), on the edge-prune,
-    tuned and planned prunes (4b, 4c), serving the 32-query workload (8b),
-    on the incremental path (8c), and, for bitset_spmm, on the P = 2
-    sharded prune and count (9b, `launches_sharded`) and the spmd prune
-    (9c)."""
+    8) and a sharded graph (phases 9, 10) -> their kernels' entries of the
+    JSON line, with their launches on the main path (phase 4), on the
+    edge-prune, tuned and planned prunes (4b, 4c), serving the 32-query
+    workload (8b), on the incremental path (8c), and, for bitset_spmm, on
+    the P = 2 sharded prune and count (9b, `launches_sharded`) and the spmd
+    prune (9c). Phase 10a's CPU side runs in a process of its own from the
+    start, beside the card's phases."""
     # no dispatch policy: a cache left in the checkout must not move the
     # routes of phases 2-4 off the kernels (4c installs its own and clears it)
     registry.set_policy(None)
     phase_kernels_small()
+    worker = start_phase10_worker()
+    try:
+        return prune_path(worker)
+    finally:
+        stop_worker(worker)
+
+
+def prune_path(worker):
+    """`run_prune`'s phases 2-10, beside 10a's CPU worker."""
     t0 = time.perf_counter()
     g = gen.rmat_graph(SCALE_FULL, edge_factor=EDGE_FACTOR, seed=SEED)
     t1 = time.perf_counter()
@@ -4061,37 +4184,29 @@ def run_prune():
     edge = phase_edge_prune_full(g, dg, default, cnt.n_embeddings)
     plans = phase_planner_policy(g, dg, default, cnt.n_embeddings)
     phase_quickstart_cli()
-    # phase 9 holds the sharded prunes to this one
-    ref4 = {"omega": default.omega, "edge_mask": default.edge_mask,
-            "traj": trajectory(default), "count": cnt.n_embeddings,
-            "seconds": sum(p.seconds for p in default.phases)}
     del default
     # phase 8: many queries against one graph, the same two kernels
     t0 = time.perf_counter()
     phase_batch_parity(g14)
     served = phase_batch_full(g, dg)
     inc = phase_incremental_full(g, dg)
-    del dg
+    del dg, g
     phase_batch_clis()
     log(f"phase 8: {time.perf_counter() - t0:.1f} s ({CARD})")
     # phase 9: a sharded graph, bitset_spmm as each shard's receive side
     t0 = time.perf_counter()
-    phase_sharded_parity(g14)
-    # phase 10a's CPU side runs in its own process beside 9b-10c
-    worker = start_phase10_worker()
-    try:
-        sharded, parts = phase_sharded_full(g, ref4)
-        spmd, part1 = phase_spmd_nccl(g, ref4)
-        log(f"phase 9: {time.perf_counter() - t0:.1f} s ({CARD})")
-        # phase 10: checkpoint and rebalance, sharded batches, faults
-        t0 = time.perf_counter()
-        rebalanced = phase_checkpoint_rebalance(
-            g, ref4, parts, part1, sharded[1]["prune_s"])
-        sharded_batch = phase_sharded_batches(g, parts)
-        del g, parts, part1
-        phase_resilience_parity(g14, worker)
-    finally:
-        stop_worker(worker)
+    phase_sharded_parity(g14, worker)
+    g, ref = sharded_graph()
+    sharded, parts = phase_sharded_full(g, ref)
+    spmd, part1 = phase_spmd_nccl(g, ref)
+    log(f"phase 9: {time.perf_counter() - t0:.1f} s ({CARD})")
+    # phase 10: checkpoint and rebalance, sharded batches, faults
+    t0 = time.perf_counter()
+    rebalanced = phase_checkpoint_rebalance(
+        g, ref, parts, part1, sharded[1]["prune_s"])
+    sharded_batch = phase_sharded_batches(g, parts)
+    del g, parts, part1
+    phase_resilience_parity(g14, worker)
     log(f"phase 10: {time.perf_counter() - t0:.1f} s ({CARD})")
     return [{
         "name": name, "route": "cuda",
@@ -4732,10 +4847,10 @@ def no_sync_in_moe():
     forward and remat's recomputation): a device-to-host read there raises."""
     block = Transformer._moe_block
 
-    def guarded(self, p, x2d, dropless=False):
+    def guarded(self, p, x2d, dropless=False, lp=None):
         torch.cuda.set_sync_debug_mode("error")
         try:
-            return block(self, p, x2d, dropless)
+            return block(self, p, x2d, dropless, lp)
         finally:
             torch.cuda.set_sync_debug_mode("default")
 
@@ -5449,6 +5564,589 @@ def run_sharded_gnn(started=None):
             "dryrun": dry, "cells_on_card": counted}
 
 
+# ----------------------------------- phase 14: the LM train step on a mesh of ranks
+# The reference runs its LM step on a (data, model) device mesh (FSDP on
+# data; heads, ff, experts and vocab on model); the port runs it on a mesh
+# of torch.distributed ranks (`launch/mesh.py`, `transformer.MeshPlan`).
+# One card holds one NCCL rank, so the mesh's four ranks share the card
+# over gloo, every rank's tensors and kernels on the card, a collective's
+# tensors staged through host memory (`launch/mesh.py`). 14a-14b and 14d
+# run in one spawned job of SHARDED_LM_RANKS ranks; 14c in a process of
+# its own on a one-rank NCCL group.
+SHARDED_LM_MESH = (2, 2)
+SHARDED_LM_RANKS = 4
+LM_ALL_ARCHS = (LM_ARCH,) + LM_ARCHS
+# 14a: 12d's step (f32, the kernel's head dims, 2 microbatches of 2 x 64
+# tokens, full remat): each microbatch's rows split one a data rank
+SHARDED_LM_STEPS = 3
+# 14b: full width in bf16, train_4k cut to 2 x 4,096 tokens as one
+# microbatch (a sequence a data rank), full remat, f32 moments, the state
+# donated; the depths (deepseek: 1 dense + 2 MoE layers of 64 experts, 32
+# a model rank), each reckoned per rank on the meta device. Two steps: the
+# first warms up, the second is timed (a step takes 10-17 s on the H100,
+# 90-95% of it in the staged collectives: PERF.md §5)
+SHARDED_LM_CUT = {"qwen3-8b": 8, "deepseek-v2-lite-16b": 3}
+SHARDED_LM_FULL_BATCH = 2
+SHARDED_LM_FULL_STEPS = 2
+# a rank's CUDA context, beside its reckoned peak (the four must fit the card)
+SHARDED_LM_CONTEXT_GIB = 0.6
+# 14d: 3 steps at (2, 2), a checkpoint, step 4 restored onto (3, 1): 6 rows
+# of 64 tokens a step split over 2 and then 3 data ranks
+SHARDED_LM_ELASTIC = ((2, 2), (3, 1), 6, 64)
+SHARDED_LM_TIMEOUT_S = 600
+
+
+def sharded_lm_tc(arch):
+    """14a's train config: 12d's."""
+    return TrainConfig(optimizer=AdamWConfig(
+        state_dtype=cells.LM_STATE_DTYPE.get(arch, "float32"), **TRAIN_OPT),
+        warmup_steps=1, total_steps=10, microbatches=LM_ARCH_TRAIN_MICRO, remat=True)
+
+
+def sharded_lm_full_tc():
+    return TrainConfig(optimizer=AdamWConfig(lr=3e-4), microbatches=1, remat=True,
+                       warmup_steps=1, total_steps=SHARDED_LM_FULL_STEPS)
+
+
+def sharded_lm_full(arch):
+    """14b's (config, tokens a sequence) for `arch`: full width at its cut."""
+    return (dataclasses.replace(get_arch(arch).CONFIG, n_layers=SHARDED_LM_CUT[arch]),
+            get_arch(arch).SHAPES[LM_TRAIN_SHAPE].seq_len)
+
+
+def rank_reckoned_gib(cfg, tc, mesh_shape, batch, seq):
+    """One rank's reckoning on the meta device (the dry run's way: shapes,
+    no storage): its blocks of the state (`state_shardings` at mesh_shape),
+    LM_TRAIN_GRAD_BYTES of gradients a parameter of its blocks (12e's
+    rule), and its rows of the batch."""
+    from repro_torch import sharding
+    from repro_torch.train.step import state_shardings
+
+    model = Transformer(cfg, device="meta")
+    sh = state_shardings(model, tc, mesh_shape)
+    sizes = dict(zip(mesh_shape.axis_names, mesh_shape.shape))
+
+    def local(shape, spec):
+        shape = list(shape)
+        for i, ax in enumerate(spec):
+            for a in ((ax,) if isinstance(ax, str) else (ax or ())):
+                shape[i] //= sizes[a]
+        return int(np.prod(shape))
+
+    specs = leaves(sh["params"], is_leaf=sharding.is_spec_leaf)
+    n_local = [local(p.shape, s) for p, s in zip(leaves(param_tree(model)), specs)]
+    moment = adamw.STATE_DTYPES[tc.optimizer.state_dtype].itemsize
+    elt = transformer.DTYPES[cfg.dtype].itemsize
+    rows = batch // sizes.get("data", 1)
+    return (sum(n_local) * (elt + 2 * moment + LM_TRAIN_GRAD_BYTES)
+            + 2 * rows * seq * 4) / 2**30, sum(n_local)
+
+
+COLLECTIVES = ("all_reduce", "all_gather", "reduce_scatter")
+
+
+def timed_collectives():
+    """Wrap launch/mesh's collectives (the model's autograd Functions and
+    the step call them by name) so that each one's wall time, from a device
+    sync before it to one after it, its input bytes and its calls add up in
+    the returned dict, by collective ({name: [seconds, bytes, calls]})."""
+    from repro_torch.launch import mesh as rmesh
+
+    spent = {name: [0.0, 0, 0] for name in COLLECTIVES}
+
+    def timing(name, fn):
+        def call(x, *a, **k):
+            sync()
+            t0 = time.perf_counter()
+            out = fn(x, *a, **k)
+            sync()
+            rec = spent[name]
+            rec[0] += time.perf_counter() - t0
+            rec[1] += x.numel() * x.element_size()
+            rec[2] += 1
+            return out
+        return call
+
+    for name in COLLECTIVES:
+        setattr(rmesh, name, timing(name, getattr(rmesh, name)))
+    return spent
+
+
+@contextlib.contextmanager
+def first_routes(limit):
+    """The first `limit` `moe_dispatch` calls while open (a step's forward
+    routes its MoE layers in order before remat recomputes them) -> a list
+    of {"top": each token's top-k experts, sorted, int16 [T, k]; "gap": its
+    k-th minus its (k+1)-th router probability, f32 [T]; "dropped": the
+    entries past capacity}, on the host."""
+    calls = []
+    dispatch = transformer.moe_dispatch
+
+    def recording(x2d, router, cfg, dropless=False):
+        out = dispatch(x2d, router, cfg, dropless=dropless)
+        if len(calls) < limit:
+            with torch.no_grad():
+                top = torch.topk(torch.softmax(x2d.float() @ router, dim=-1),
+                                 cfg.top_k + 1, dim=-1)
+                calls.append({
+                    "top": top.indices[:, :-1].sort(-1).values.to(torch.int16).cpu(),
+                    "gap": (top.values[:, -2] - top.values[:, -1]).cpu(),
+                    "dropped": int((~out[2]).sum())})
+        return out
+
+    transformer.moe_dispatch = recording
+    try:
+        yield calls
+    finally:
+        transformer.moe_dispatch = dispatch
+
+
+@contextlib.contextmanager
+def first_loss_terms():
+    """The CE and the router aux loss of the first `Transformer.loss` call
+    while open -> {"ce", "aux"} (on a mesh, this rank's shares: the data
+    ranks' sum to the global terms)."""
+    terms = {}
+    loss = Transformer.loss
+
+    def recording(self, batch, remat=False, plan=None):
+        out = loss(self, batch, remat=remat, plan=plan)
+        if not terms:
+            terms.update(ce=float(out[1]["ce"].detach()), aux=float(out[1]["aux"].detach()))
+        return out
+
+    Transformer.loss = recording
+    try:
+        yield terms
+    finally:
+        Transformer.loss = loss
+
+
+def n_moe_layers(cfg):
+    return cfg.n_layers - cfg.first_dense_layers if cfg.moe else 0
+
+
+def sharded_lm_rank(rank, init, out_dir, device, full_shapes):
+    """One rank of phase 14's job on `device`: 14a's five archs, 14d's
+    elastic restore, 14b's steps of `full_shapes` ({arch: (config, tokens a
+    sequence)}); results into out_dir (rank 0's gathered states, every
+    rank's report)."""
+    from repro_torch.launch import mesh as rmesh
+    from repro_torch.sharding import gather_tree
+    from repro_torch.train.step import state_shardings
+
+    global DEVICE
+    DEVICE = device
+    torch.set_num_threads(2)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rmesh.make_shard_group(SHARDED_LM_RANKS, backend="gloo", init_method=init,
+                           rank=rank, timeout_s=300)
+    mesh = rmesh.make_rank_mesh(SHARDED_LM_MESH)
+    report = {"rank": rank, "coords": mesh.coords, "14a": {}, "14b": {}}
+    # 14a
+    for arch in LM_ALL_ARCHS:
+        cfg, tc = serve_cli.serve_config(arch), sharded_lm_tc(arch)
+        model = Transformer(cfg, device=DEVICE, seed=SEED)
+        sh = state_shardings(model, tc, mesh)
+        state = init_train_state(model, tc, mesh=mesh)
+        step = build_train_step(model, tc, mesh=mesh)
+        stream = SyntheticTokenStream(cfg.vocab, *LM_ARCH_TRAIN_TOKENS, seed=SEED,
+                                      device=DEVICE)
+        registry.reset_launches()
+        losses = []
+        for i in range(SHARDED_LM_STEPS):
+            state, met = step(state, stream(i))
+            losses.append(float(met["loss"]))
+        report["14a"][arch] = {
+            "launches": registry.launch_counts()["flash_attention"],
+            "variants": registry.variant_counts("flash_attention"),
+            "plain_calls": plain_calls_on_card(), "losses": losses}
+        full = gather_tree(state, sh, mesh)
+        if rank == 0:
+            torch.save({"losses": losses, "params": tree_map(lambda t: t.cpu(), full["params"])},
+                       os.path.join(out_dir, f"14a-{arch}.pt"))
+        del model, state, step, full
+    # 14d
+    first, second, rows, seq = SHARDED_LM_ELASTIC
+    cfg = serve_cli.serve_config(LM_ARCH)
+    model = Transformer(cfg, device=DEVICE, seed=SEED)
+    tc = train_tc()
+    stream = SyntheticTokenStream(cfg.vocab, rows, seq, seed=SEED, device=DEVICE)
+    ckpt_dir = os.path.join(out_dir, "ckpt")
+    elastic = {}
+    for shape, ranks, steps in ((first, None, SHARDED_LM_STEPS),
+                                (second, list(range(int(np.prod(second)))),
+                                 SHARDED_LM_STEPS + 1)):
+        m = rmesh.make_rank_mesh(shape, ranks=ranks)
+        if m is None:
+            continue
+        sh = state_shardings(model, tc, m)
+        rep = trainer.run(init_train_state(model, tc, mesh=m), build_train_step(model, tc, mesh=m),
+                          stream, num_steps=steps, ckpt_dir=ckpt_dir,
+                          ckpt_interval=SHARDED_LM_STEPS, mesh=m, specs=sh)
+        elastic[str(shape)] = {"losses": rep.losses, "steps_run": rep.steps_run,
+                               "final_step": rep.final_step}
+    report["14d"] = elastic
+    del model
+    free_card()
+    # 14b
+    spent = timed_collectives()
+    for arch, (cfg, seq) in full_shapes.items():
+        tc = sharded_lm_full_tc()
+        t0 = time.perf_counter()
+        model = Transformer(cfg, device=DEVICE, seed=SEED)
+        state = init_train_state(model, tc, mesh=mesh)
+        model.to("meta")
+        free_card()
+        init_s = time.perf_counter() - t0
+        step = build_train_step(model, tc, donate=True, mesh=mesh)
+        stream = SyntheticTokenStream(cfg.vocab, SHARDED_LM_FULL_BATCH, seq, seed=SEED,
+                                      device=DEVICE)
+        reset_peak()
+        registry.reset_launches()
+        times, coll, losses = [], [], []
+        for i in range(SHARDED_LM_FULL_STEPS):
+            batch = stream(i)
+            sync()
+            for rec in spent.values():
+                rec[:] = [0.0, 0, 0]
+            t0 = time.perf_counter()
+            if i == 0:   # the warm-up step: its routing and loss terms
+                with first_routes(n_moe_layers(cfg)) as routes, first_loss_terms() as terms:
+                    state, met = step(state, batch)
+            else:
+                state, met = step(state, batch)
+            losses.append(float(met["loss"]))
+            sync()
+            times.append(time.perf_counter() - t0)
+            coll.append({name: list(rec) for name, rec in spent.items()})
+        report["14b"][arch] = {
+            "init_s": init_s, "step_s": times, "collective_s": coll, "losses": losses,
+            "peak_gib": peak_gib(),
+            "reserved_gib": (torch.cuda.max_memory_reserved() / 2**30
+                             if DEVICE == "cuda" else 0.0),
+            "launches": registry.launch_counts()["flash_attention"],
+            "recomputed": registry.backward_launch_counts()["flash_attention"],
+            "variants": registry.variant_counts("flash_attention"),
+            "plain_calls": plain_calls_on_card(), "first_terms": terms,
+            "dropped": [r["dropped"] for r in routes]}
+        if rank == 0 and routes:
+            torch.save(routes, os.path.join(out_dir, f"14b-routes-{arch}.pt"))
+        del model, state, step, stream
+        free_card()
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(report, f)
+
+
+def sharded_lm_references(full_shapes):
+    """The parent's single-process steps on the card, before the ranks
+    start: 14a's three steps of each arch, 14d's uninterrupted four, and
+    14b's first loss of the bf16 model at each cut (its forward alone, on
+    the whole batch as the step takes it: the loss, its CE and aux terms and
+    the routing), with the mean of the sequences' losses each taken alone
+    beside it (the MoE layers then route 4,096 tokens at a time)."""
+    refs = {"14a": {}, "14b": {}}
+    for arch in LM_ALL_ARCHS:
+        cfg, tc = serve_cli.serve_config(arch), sharded_lm_tc(arch)
+        model = Transformer(cfg, device=DEVICE, seed=SEED)
+        state, step = init_train_state(model, tc), build_train_step(model, tc)
+        stream = SyntheticTokenStream(cfg.vocab, *LM_ARCH_TRAIN_TOKENS, seed=SEED,
+                                      device=DEVICE)
+        losses = []
+        for i in range(SHARDED_LM_STEPS):
+            state, met = step(state, stream(i))
+            losses.append(float(met["loss"]))
+        refs["14a"][arch] = {"losses": losses, "params": state["params"]}
+    _, _, rows, seq = SHARDED_LM_ELASTIC
+    cfg = serve_cli.serve_config(LM_ARCH)
+    model, tc = Transformer(cfg, device=DEVICE, seed=SEED), train_tc()
+    state, step = init_train_state(model, tc), build_train_step(model, tc)
+    stream = SyntheticTokenStream(cfg.vocab, rows, seq, seed=SEED, device=DEVICE)
+    losses = []
+    for i in range(SHARDED_LM_STEPS + 1):
+        state, met = step(state, stream(i))
+        losses.append(float(met["loss"]))
+    refs["14d"] = {"losses": losses, "state": state}
+    for arch, (cfg, seq) in full_shapes.items():
+        model = Transformer(cfg, device=DEVICE, seed=SEED)
+        batch = SyntheticTokenStream(cfg.vocab, SHARDED_LM_FULL_BATCH, seq, seed=SEED,
+                                     device=DEVICE)(0)
+        with torch.no_grad():
+            with first_routes(n_moe_layers(cfg)) as routes:
+                loss, terms = model.loss(batch)
+            per_sequence = float(torch.stack([   # equal counts: the mean of the means
+                model.loss({k: v[i:i + 1] for k, v in batch.items()})[0]
+                for i in range(SHARDED_LM_FULL_BATCH)]).mean())
+        refs["14b"][arch] = {"loss": float(loss), "ce": float(terms["ce"]),
+                             "aux": float(terms["aux"]), "per_sequence": per_sequence,
+                             "routes": routes}
+        del model
+        free_card()
+    return refs
+
+
+def sharded_lm_nccl_worker():
+    """14c, in a process of its own (deterministic algorithms, cuBLAS's
+    workspace set before the first product): each arch's 14a step on a
+    (1, 1) mesh over a one-rank NCCL group against the single-process step,
+    bit for bit; prints a JSON line and "OK"."""
+    from repro_torch.launch import mesh as rmesh
+    from repro_torch.optim.tree import keyed_leaves
+
+    torch.use_deterministic_algorithms(True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    with tempfile.TemporaryDirectory() as d:
+        rmesh.make_shard_group(1, backend="nccl", rank=0,
+                               init_method=f"file://{d}/rendezvous")
+        one = rmesh.make_rank_mesh((1, 1))
+        out = {}
+        for arch in LM_ALL_ARCHS:
+            cfg, tc = serve_cli.serve_config(arch), sharded_lm_tc(arch)
+            model = Transformer(cfg, device=DEVICE, seed=SEED)
+            runs = []
+            for m in (None, one):
+                state = init_train_state(model, tc, mesh=m)
+                step = build_train_step(model, tc, mesh=m)
+                stream = SyntheticTokenStream(cfg.vocab, *LM_ARCH_TRAIN_TOKENS, seed=SEED,
+                                              device=DEVICE)
+                losses = []
+                for i in range(SHARDED_LM_STEPS):
+                    state, met = step(state, stream(i))
+                    losses.append(float(met["loss"]))
+                runs.append((losses, state))
+            (l0, s0), (l1, s1) = runs
+            same = l0 == l1 and all(torch.equal(a, b) for (_, a), (_, b) in zip(
+                keyed_leaves(s0), keyed_leaves(s1)))
+            out[arch] = {"losses": l1, "bit_equal": same}
+            check(same, f"14c {arch}: the (1, 1) NCCL mesh's step differs from the "
+                  f"single-process step: losses {l1} vs {l0}")
+        import torch.distributed as dist
+        dist.destroy_process_group()
+    print(json.dumps(out))
+    print("OK")
+
+
+def run_sharded_lm():
+    """Phase 14 -> its fields of the flash_attention entry of the JSON line:
+    the launches per rank on the mesh (14a, 14b), 14b's times and peaks."""
+    import torch.multiprocessing as mp
+    from repro_torch.sharding import MeshShape
+
+    t_phase = time.perf_counter()
+    mesh_shape = MeshShape(("data", "model"), SHARDED_LM_MESH)
+    log(f"== phase 14: the LM train step on a {SHARDED_LM_MESH} (data, model) mesh of "
+        f"{SHARDED_LM_RANKS} gloo ranks sharing the card ({CARD})")
+    free_card()
+    reckoned = {}
+    full_shapes = {arch: sharded_lm_full(arch) for arch in SHARDED_LM_CUT}
+    for arch, (cfg, seq) in full_shapes.items():
+        gib, n_local = rank_reckoned_gib(cfg, sharded_lm_full_tc(), mesh_shape,
+                                         SHARDED_LM_FULL_BATCH, seq)
+        total = SHARDED_LM_RANKS * (gib + SHARDED_LM_CONTEXT_GIB)
+        reckoned[arch] = gib
+        log(f"14b {arch} cut to {cfg.n_layers} of {get_arch(arch).CONFIG.n_layers} "
+            f"layers ({cfg.n_params()} parameters, {n_local} a rank): reckoned {gib:.3f} "
+            f"GiB a rank on the meta device (its blocks of the bf16 parameters and f32 "
+            f"moments, {LM_TRAIN_GRAD_BYTES} bytes a parameter of gradients, its rows); "
+            f"{SHARDED_LM_RANKS} x ({gib:.2f} + {SHARDED_LM_CONTEXT_GIB} context) = "
+            f"{total:.1f} GiB")
+        check(total <= LM_TRAIN_BUDGET * 80,
+              f"14b {arch}: the ranks reckon at {total:.1f} GiB, over "
+              f"{LM_TRAIN_BUDGET:.0%} of 80 GiB")
+    # the ranks start first: the parent's single-process references and 14c
+    # (a process of its own, on one NCCL rank) run while the ranks take 14a
+    # and 14d, all small, and are done before the ranks reach 14b
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), CUBLAS_WORKSPACE_CONFIG=":4096:8")
+    code = f"import chip_smoke as cs; cs.DEVICE = {DEVICE!r}; cs.sharded_lm_nccl_worker()"
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        ctx = mp.start_processes(sharded_lm_rank,
+                                 args=(f"file://{d}/rendezvous", d, DEVICE, full_shapes),
+                                 nprocs=SHARDED_LM_RANKS, join=False, start_method="spawn")
+        nccl = subprocess.Popen([sys.executable, "-c", code], stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE, text=True, env=env, cwd=ROOT)
+        end = time.monotonic() + SHARDED_LM_TIMEOUT_S
+        try:
+            t1 = time.perf_counter()
+            refs = sharded_lm_references(full_shapes)
+            free_card()
+            log(f"single-process references on the card: {time.perf_counter() - t1:.1f} s "
+                "(beside the ranks' 14a)")
+            out14c, err14c = nccl.communicate(timeout=SHARDED_LM_TIMEOUT_S)
+            s14c = time.perf_counter() - t0
+            while not ctx.join(timeout=1):
+                check(time.monotonic() < end,
+                      f"phase 14's ranks not done within {SHARDED_LM_TIMEOUT_S} s")
+        finally:
+            for proc in ctx.processes:
+                if proc.is_alive():
+                    proc.terminate()
+                proc.join(10)
+            if nccl.poll() is None:
+                nccl.kill()
+                nccl.communicate()
+        job_s = time.perf_counter() - t0
+        reports = []
+        for r in range(SHARDED_LM_RANKS):
+            with open(os.path.join(d, f"rank{r}.json")) as f:
+                reports.append(json.load(f))
+        got = {arch: torch.load(os.path.join(d, f"14a-{arch}.pt")) for arch in LM_ALL_ARCHS}
+        mesh_routes = {arch: torch.load(os.path.join(d, f"14b-routes-{arch}.pt"))
+                       for arch, (cfg, _) in full_shapes.items() if cfg.moe}
+        from repro_torch.checkpoint import ckpt
+
+        resumed, meta = ckpt.restore_checkpoint(os.path.join(d, "ckpt"), refs["14d"]["state"],
+                                                step=SHARDED_LM_STEPS + 1, device="cpu")
+    log(f"the ranks' job: {job_s:.1f} s (spawn, 14a, 14d, 14b)")
+    # 14a
+    log(f"== phase 14a: the five archs' smoke step (12d's: f32, the kernel's head dims, "
+        f"{LM_ARCH_TRAIN_MICRO} microbatches of {LM_ARCH_TRAIN_TOKENS[0] // LM_ARCH_TRAIN_MICRO}"
+        f" x {LM_ARCH_TRAIN_TOKENS[1]} tokens, one row a data rank, remat) at "
+        f"{SHARDED_LM_MESH}, {SHARDED_LM_STEPS} steps against the single-process step on "
+        f"the card (losses rtol {TRAIN_LOSS_TOL}, parameters atol {TRAIN_PARAM_TOL} but "
+        f"for {TRAIN_FLIP_SHARE} of a leaf)")
+    launches_a = {}
+    for arch in LM_ALL_ARCHS:
+        cfg = serve_cli.serve_config(arch)
+        ref = refs["14a"][arch]
+        check(np.allclose(got[arch]["losses"], ref["losses"], rtol=TRAIN_LOSS_TOL, atol=0),
+              f"14a {arch}: losses {got[arch]['losses']} vs {ref['losses']}")
+        diff, flips, top = params_diff(got[arch]["params"], ref["params"],
+                                       SHARDED_LM_STEPS, TRAIN_OPT["lr"])
+        want = SHARDED_LM_STEPS * LM_ARCH_TRAIN_MICRO * (2 * cfg.n_layers + int(cfg.mtp))
+        per_rank = [r["14a"][arch]["launches"] for r in reports]
+        for r in reports:
+            a = r["14a"][arch]
+            check(a["launches"] == want and a["variants"].get("f32", 0) == want
+                  and not a["plain_calls"],
+                  f"14a {arch} rank {r['rank']}: flash_attention {a['launches']} launches "
+                  f"by variant {a['variants']}, plain calls {a['plain_calls']}; "
+                  f"expected {want}, all f32")
+            check(a["losses"] == got[arch]["losses"],
+                  f"14a {arch}: rank {r['rank']}'s losses differ from rank 0's")
+        launches_a[arch] = per_rank
+        log(f"  {arch}: losses {[round(x, 6) for x in got[arch]['losses']]} (single "
+            f"process {[round(x, 6) for x in ref['losses']]}), parameters max |mesh - "
+            f"single| {diff:.3g}{f' ({flips} entries by up to {top:.3g})' if flips else ''};"
+            f" flash_attention launches per rank {per_rank} (f32 kernel, each rank's "
+            f"local heads; {want} expected)")
+    # 14d
+    first, second, rows, seq = SHARDED_LM_ELASTIC
+    ref = refs["14d"]
+    e0 = reports[0]["14d"]
+    check(e0[str(first)]["steps_run"] == SHARDED_LM_STEPS
+          and e0[str(second)]["final_step"] == SHARDED_LM_STEPS + 1
+          and e0[str(second)]["steps_run"] == 1 and int(meta["step"]) == SHARDED_LM_STEPS + 1,
+          f"14d: runs {e0}")
+    check(np.allclose(e0[str(first)]["losses"] + e0[str(second)]["losses"], ref["losses"],
+                      rtol=TRAIN_LOSS_TOL, atol=0),
+          f"14d: losses {e0} vs the uninterrupted {ref['losses']}")
+    diff, flips, top = params_diff(tree_map(torch.as_tensor, resumed["params"]),
+                                   ref["state"]["params"], SHARDED_LM_STEPS + 1,
+                                   TRAIN_OPT["lr"])
+    log(f"== phase 14d: {LM_ARCH} smoke (f32, {rows} x {seq} tokens a step): "
+        f"{SHARDED_LM_STEPS} steps at {first}, the checkpoint (gathered, rank 0 "
+        f"writing) restored onto {second}, step {SHARDED_LM_STEPS + 1} there: losses "
+        f"{[round(x, 6) for x in e0[str(first)]['losses'] + e0[str(second)]['losses']]}, "
+        f"the uninterrupted single-process run {[round(x, 6) for x in ref['losses']]}; "
+        f"parameters at step {SHARDED_LM_STEPS + 1} max |restored - uninterrupted| "
+        f"{diff:.3g}{f' ({flips} entries by up to {top:.3g})' if flips else ''}")
+    # 14b
+    full = {}
+    for arch, (cfg, seq) in full_shapes.items():
+        rs = [r["14b"][arch] for r in reports]
+        step_s = [float(np.median(r["step_s"][1:])) for r in rs]   # after the warm-up
+        coll_share = [float(sum(c[n][0] for c in r["collective_s"][1:] for n in c)
+                            / np.sum(r["step_s"][1:])) for r in rs]
+        # rank 0's last step, by collective: [seconds, bytes in, calls]
+        by_kind = rs[0]["collective_s"][-1]
+        tokens = SHARDED_LM_FULL_BATCH * seq
+        ref = refs["14b"][arch]
+        first_rel = abs(rs[0]["losses"][0] - ref["loss"]) / abs(ref["loss"])
+        per_sequence_rel = abs(ref["per_sequence"] - ref["loss"]) / abs(ref["loss"])
+        # the mesh's terms: the shares of one rank of each data row summed
+        terms = {t: sum(r["14b"][arch]["first_terms"][t] for r in reports
+                        if r["coords"]["model"] == 0) for t in ("ce", "aux")}
+        routing = []
+        for mine, theirs in zip(mesh_routes.get(arch, []), ref["routes"]):
+            differ = (mine["top"] != theirs["top"]).any(-1)
+            routing.append({
+                "tokens": int(differ.numel()), "top_k_differ": int(differ.sum()),
+                "max_gap_where_differ": float(theirs["gap"][differ].max()) if differ.any()
+                else None,
+                "dropped": [mine["dropped"], theirs["dropped"]]})
+        want = 2 * cfg.n_layers * SHARDED_LM_FULL_STEPS
+        for r in rs:
+            check(all(np.isfinite(r["losses"])), f"14b {arch}: losses {r['losses']}")
+            check(r["launches"] == want and r["recomputed"] == want // 2
+                  and r["variants"].get("bf16_tc", 0) == want and not r["plain_calls"],
+                  f"14b {arch}: flash_attention {r['launches']} launches ({r['recomputed']} "
+                  f"in the backward) by variant {r['variants']}, plain calls "
+                  f"{r['plain_calls']}; expected {want}, all bf16_tc")
+        check(first_rel <= LM_PARITY_TOL,
+              f"14b {arch}: the first loss {rs[0]['losses'][0]:.6f} is {first_rel:.3g} from "
+              f"the single-process bf16 loss {ref['loss']:.6f}, over {LM_PARITY_TOL}")
+        s = max(step_s)
+        full[arch] = {
+            "n_layers": cfg.n_layers, "n_params": cfg.n_params(), "mesh": SHARDED_LM_MESH,
+            "step_s": s, "tokens_per_s": tokens / s, "losses": rs[0]["losses"],
+            "first_loss_rel": first_rel, "first_terms": {"mesh": terms, "single": {
+                t: ref[t] for t in ("ce", "aux")}},
+            "per_sequence_loss_rel": per_sequence_rel, "routing": routing,
+            "reckoned_gib": reckoned[arch],
+            "peak_gib": [r["peak_gib"] for r in rs],
+            "reserved_gib": [r["reserved_gib"] for r in rs],
+            "collective_share": coll_share, "collectives_last_step_rank0": by_kind,
+            "init_s": [r["init_s"] for r in rs],
+            "launches_per_step": rs[0]["launches"] / SHARDED_LM_FULL_STEPS}
+        log(f"== phase 14b: {cfg.name} at full width in bf16, cut to {cfg.n_layers} of "
+            f"{get_arch(arch).CONFIG.n_layers} layers"
+            f"{f' ({cfg.first_dense_layers} dense + {cfg.n_layers - cfg.first_dense_layers} MoE of {cfg.n_routed} experts, {cfg.n_routed // SHARDED_LM_MESH[1]} a model rank)' if cfg.moe else ''}"
+            f", {SHARDED_LM_FULL_BATCH} x {seq} tokens a step as one microbatch (one "
+            f"sequence a data rank, the heads, ff, experts and vocabulary split over the "
+            f"model ranks), remat, f32 moments, the state donated, {SHARDED_LM_MESH} "
+            f"({CARD})")
+        log(f"  seconds a step (step{'s' if SHARDED_LM_FULL_STEPS > 2 else ''} "
+            f"1{f'-{SHARDED_LM_FULL_STEPS - 1}, median' if SHARDED_LM_FULL_STEPS > 2 else ''}"
+            f", the slowest rank) {s:.3f}, {tokens / s:.0f} tokens/s; per rank {[round(x, 3) for x in step_s]} s, "
+            f"collectives {[f'{100 * c:.1f}%' for c in coll_share]} of the step (gloo, "
+            f"staged through page-locked host memory; rank 0's last step by collective: "
+            + ", ".join(f"{n} {v[0]:.2f} s for {v[1] / 2**30:.2f} GiB in {v[2]} calls"
+                        for n, v in by_kind.items())
+            + f"); losses {[round(x, 6) for x in rs[0]['losses']]}, "
+            f"the first {first_rel:.3g} from the single-process bf16 loss "
+            f"{ref['loss']:.6f} of the whole batch (CE {terms['ce']:.6f} on the mesh, "
+            f"{ref['ce']:.6f} single; aux {terms['aux']:.6f} and {ref['aux']:.6f}; the "
+            f"sequences' losses taken alone average {ref['per_sequence']:.6f}, "
+            f"{per_sequence_rel:.3g} from it); peak per rank {[round(r['peak_gib'], 3) for r in rs]} "
+            f"GiB (reserved {[round(r['reserved_gib'], 3) for r in rs]}) against "
+            f"{reckoned[arch]:.3f} reckoned; the weights made and sharded in "
+            f"{max(r['init_s'] for r in rs):.1f} s; flash_attention "
+            f"{rs[0]['launches'] // SHARDED_LM_FULL_STEPS} launches a step a rank "
+            f"({cfg.n_layers} layers, forward and remat's recompute), all bf16_tc")
+        for j, r in enumerate(routing):
+            log(f"  MoE layer {j + 1} at the first step, mesh (rank 0) vs single process: "
+                f"{r['top_k_differ']} of {r['tokens']} tokens with another top-{cfg.top_k} "
+                f"set (the largest k-th to (k+1)-th router probability gap among them "
+                f"{r['max_gap_where_differ']}); entries dropped past capacity "
+                f"{r['dropped'][0]} and {r['dropped'][1]}")
+    # 14c
+    log("== phase 14c: the 14a step on a (1, 1) mesh over a one-rank NCCL group, "
+        "against the single-process step, bit for bit (deterministic algorithms)")
+    log(out14c.strip())
+    check(nccl.returncode == 0 and out14c.strip().endswith("OK"),
+          f"14c failed ({nccl.returncode}): {err14c[-3000:]}")
+    log(f"14c: every arch bit for bit (in its own process beside the ranks, done {s14c:.1f} s "
+        "after they started)")
+    log(f"phase 14: {time.perf_counter() - t_phase:.1f} s ({CARD})")
+    return {"launches_sharded_train": {
+        "14a": launches_a,
+        "14b": {a: [r["14b"][a]["launches"] / SHARDED_LM_FULL_STEPS for r in reports]
+                for a in SHARDED_LM_CUT}},
+        "sharded_train": full}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -5481,10 +6179,13 @@ def main():
         t0 = time.perf_counter()
         sharded = run_sharded_gnn(dry)
         seconds["run_sharded_gnn"] = round(time.perf_counter() - t0, 1)
+    t0 = time.perf_counter()
+    sharded_lm = run_sharded_lm()
+    seconds["run_sharded_lm"] = round(time.perf_counter() - t0, 1)
     for k in kernels:
         k.update(train.get(k["name"], {}))
         if k["name"] == "flash_attention":
-            k.update(archs)
+            k.update(archs, **sharded_lm)
         if k["name"] == "segment_agg":
             k.update(sharded_pna=sharded["sharded_pna"], dryrun=sharded["dryrun"])
         k["counted_on_card"] = [r for r in sharded["cells_on_card"]

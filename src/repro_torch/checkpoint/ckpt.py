@@ -38,6 +38,14 @@ differently, and what crosses depends on the direction:
     as corrupt. That side belongs to the JAX package.
 A `V2` leaf whose manifest says anything but "bfloat16", or any other
 mismatch of shape or dtype, is still corrupt.
+
+On a mesh of ranks (`mesh=`, a `launch/mesh.RankMesh`, with `specs` the
+tree's resolved specs), `save_checkpoint` gathers every leaf to its global
+array and the mesh's first rank alone writes, so a checkpoint saved on a
+mesh reads like one saved on one card; `restore_checkpoint(mesh=)` reads
+the global arrays on every rank and keeps each rank's block of the
+caller's mesh, which may be another than the one that saved (the
+reference's `shardings=`).
 """
 from __future__ import annotations
 
@@ -45,6 +53,7 @@ import json
 import os
 import shutil
 import tempfile
+import types
 import warnings
 import zipfile
 from typing import Any, Dict, List, Optional, Tuple
@@ -82,7 +91,23 @@ def save_checkpoint(
     tree: Any,
     extra_meta: Optional[Dict] = None,
     keep: int = 3,
+    mesh=None,
+    specs=None,
 ) -> str:
+    """Write `tree` as step `step` -> the checkpoint's directory. With
+    `mesh`, every rank of the mesh calls it with its blocks (`specs`, their
+    resolved specs): the leaves are gathered, the first rank writes, and
+    every rank returns once the checkpoint is complete."""
+    final = os.path.join(directory, f"step_{step:012d}")
+    if mesh is not None:
+        from repro_torch.launch.mesh import barrier
+        from repro_torch.sharding import gather_tree
+
+        tree = gather_tree(tree, specs, mesh)
+        if mesh.is_first:
+            save_checkpoint(directory, step, tree, extra_meta, keep)
+        barrier(mesh)
+        return final
     os.makedirs(directory, exist_ok=True)
     pairs = keyed_leaves(tree)
     arrays = {f"a{i}": _host(leaf) for i, (_, leaf) in enumerate(pairs)}
@@ -94,7 +119,6 @@ def save_checkpoint(
         "treedef": f"PyTreeDef({_treedef(tree)})",
         "meta": extra_meta or {},
     }
-    final = os.path.join(directory, f"step_{step:012d}")
     tmp = tempfile.mkdtemp(dir=directory, prefix=f".tmp{step}_")
     try:
         np.savez(os.path.join(tmp, "arrays.npz"), **arrays)
@@ -197,11 +221,24 @@ def latest_valid_step(directory: str) -> Optional[int]:
     return None
 
 
+def _global_shape(like, spec, mesh) -> Tuple[int, ...]:
+    """The global shape of a block of `like`'s shape under a resolved spec."""
+    from repro_torch.sharding import _block_index
+
+    shape = list(getattr(like, "shape", ()))
+    for dim, entry in enumerate(spec):
+        if entry is not None:
+            shape[dim] *= _block_index(entry, mesh)[1]
+    return tuple(shape)
+
+
 def restore_checkpoint(
     directory: str,
     like_tree: Any,
     step: Optional[int] = None,
     device=None,
+    mesh=None,
+    specs=None,
 ) -> Tuple[Any, Dict]:
     """Restore into the structure of `like_tree` -> (tree, meta with
     "step"). Leaves come back as host numpy arrays, or as torch tensors on
@@ -212,7 +249,30 @@ def restore_checkpoint(
 
     With step=None the newest valid checkpoint is used, skipping corrupt or
     partial directories with a warning; an explicit step is restored as it
-    is and raises on corruption."""
+    is and raises on corruption.
+
+    With `mesh` (every rank of the mesh calls it), like_tree holds this
+    rank's blocks under `specs`: the checkpoint's global leaves are checked
+    against the global shapes they stand for, and each rank gets its block
+    of the caller's mesh, a torch tensor on `device` (None: the CPU). The
+    first rank chooses the step."""
+    if mesh is not None:
+        from repro_torch.launch.mesh import broadcast_int
+        from repro_torch.sharding import is_spec_leaf, shard_leaf
+
+        if step is None:
+            found = latest_valid_step(directory) if mesh.is_first else None
+            step = broadcast_int(-1 if found is None else found, mesh)
+            if step < 0:
+                raise FileNotFoundError(f"no valid checkpoints under {directory}")
+        spec_list = [s for _, s in keyed_leaves(specs, is_leaf=is_spec_leaf)]
+        globals_like = unflatten(like_tree, [
+            types.SimpleNamespace(shape=_global_shape(l, sp, mesh)) for (_, l), sp
+            in zip(keyed_leaves(like_tree), spec_list)])
+        tree, meta = restore_checkpoint(directory, globals_like, step)
+        blocks = [_own_block(shard_leaf(_to_device(a, "cpu"), sp, mesh), device)
+                  for (_, a), sp in zip(keyed_leaves(tree), spec_list)]
+        return unflatten(like_tree, blocks), meta
     if step is None:
         step = latest_valid_step(directory)
         if step is None:
@@ -251,12 +311,29 @@ def restore_checkpoint(
         leaves.append(_bf16_tensor(arr) if dtypes is not None
                       and _is_bf16_bits(arr, dtypes[i]) else arr)
     if device is not None:
-        import torch
-
-        leaves = [(a if isinstance(a, torch.Tensor) else torch.from_numpy(
-            np.ascontiguousarray(a).reshape(a.shape))).to(device) for a in leaves]
+        leaves = [_to_device(a, device) for a in leaves]
     return (unflatten(like_tree, leaves),
             manifest["meta"] | {"step": manifest["step"]})
+
+
+def _own_block(block, device):
+    """A block (a view of a global leaf) as its own contiguous tensor on
+    `device` (None: the CPU), so that the global leaf can be freed."""
+    import torch
+
+    return torch.empty(block.shape, dtype=block.dtype,
+                       device=device or "cpu").copy_(block)
+
+
+def _to_device(a, device):
+    """A host array or CPU tensor as a torch tensor on `device` (None: as
+    it is)."""
+    if device is None:
+        return a
+    import torch
+
+    return (a if isinstance(a, torch.Tensor) else torch.from_numpy(
+        np.ascontiguousarray(a).reshape(a.shape))).to(device)
 
 
 class CheckpointManager:
@@ -269,11 +346,12 @@ class CheckpointManager:
         self.keep = keep
 
     def maybe_save(self, step: int, tree: Any,
-                   extra_meta: Optional[Dict] = None):
+                   extra_meta: Optional[Dict] = None, mesh=None, specs=None):
         if self.interval > 0 and step % self.interval == 0:
             return save_checkpoint(self.directory, step, tree, extra_meta,
-                                   self.keep)
+                                   self.keep, mesh=mesh, specs=specs)
         return None
 
-    def restore_latest(self, like_tree: Any, device=None):
-        return restore_checkpoint(self.directory, like_tree, device=device)
+    def restore_latest(self, like_tree: Any, device=None, mesh=None, specs=None):
+        return restore_checkpoint(self.directory, like_tree, device=device,
+                                  mesh=mesh, specs=specs)

@@ -118,25 +118,96 @@ def unnest(tree, paths: Mapping[str, Tuple]) -> Dict[str, torch.Tensor]:
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
-                  mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                  mask: Optional[torch.Tensor] = None,
+                  denom: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Mean token-level CE in f32. logits [..., V], labels int[...]; with a
-    mask, the mean over its true entries (at least 1)."""
+    mask, the mean over its true entries (at least 1). With `denom` (a data
+    rank's share on a mesh, `ce_denominator`), the masked sum over it."""
     logits = logits.float()
     logz = torch.logsumexp(logits, dim=-1)
     gold = logits.gather(-1, labels.long()[..., None])[..., 0]
     nll = logz - gold
+    if denom is not None:
+        return (nll if mask is None else nll * mask.float()).sum() / denom
     if mask is not None:
         m = mask.float()
         return (nll * m).sum() / m.sum().clamp_min(1.0)
     return nll.mean()
 
 
-class _BlockwiseCE(torch.autograd.Function):
-    """Mean token NLL streamed over vocabulary blocks; the backward
-    recomputes each block's logits instead of keeping them."""
+def ce_denominator(labels: torch.Tensor, mask: Optional[torch.Tensor],
+                   mesh=None) -> torch.Tensor:
+    """The count a token-mean CE divides by: the mask's true entries (at
+    least 1), or every label; with `mesh` (a `launch/mesh.RankMesh` whose
+    data ranks hold different rows), summed over `data`, so that each data
+    rank's masked sum over it is its share of the mean. It carries no
+    gradient."""
+    from repro_torch.launch.mesh import all_reduce
+
+    count = (mask.float().sum() if mask is not None
+             else torch.tensor(float(labels.numel()), device=labels.device))
+    if mesh is not None:
+        count = all_reduce(count, mesh, "data")
+    return count.clamp_min(1.0) if mask is not None else count
+
+
+class _VocabParallelCE(torch.autograd.Function):
+    """The masked NLL sum of logits split over `model` by vocabulary: each
+    rank holds logits [N, V/model] of the rows v0.. of the vocabulary; the
+    row max and the sum of exponentials are combined over `model`, the
+    target logit comes from the rank that owns it (Megatron-LM's
+    vocab-parallel cross-entropy). w [N] weights each row's NLL. The
+    backward gives each rank the gradient of its own logits."""
 
     @staticmethod
-    def forward(ctx, h, head, labels, mk, denom, block):
+    def forward(ctx, logits, labels, w, v0, mesh):
+        from repro_torch.launch.mesh import all_reduce
+
+        x = logits.float()
+        vl = x.shape[-1]
+        m = all_reduce(x.amax(-1), mesh, "model", "max")
+        ex = torch.exp(x - m[:, None])
+        se = all_reduce(ex.sum(-1), mesh, "model")
+        idx = labels - v0
+        own = (idx >= 0) & (idx < vl)
+        gold = all_reduce(torch.where(
+            own, x.gather(1, idx.clamp(0, vl - 1)[:, None])[:, 0] - m, 0.0),
+            mesh, "model")
+        ctx.save_for_backward(ex, se, idx, own, w)
+        ctx.dtype = logits.dtype
+        return ((torch.log(se) - gold) * w).sum()
+
+    @staticmethod
+    def backward(ctx, g):
+        ex, se, idx, own, w = ctx.saved_tensors
+        grad = ex / se[:, None]
+        rows = torch.nonzero(own).squeeze(1)
+        grad[rows, idx[rows]] -= 1.0
+        return (grad * (g * w)[:, None]).to(ctx.dtype), None, None, None, None
+
+
+def vocab_parallel_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                                 mask: Optional[torch.Tensor], denom: torch.Tensor,
+                                 mesh, v0: int) -> torch.Tensor:
+    """`cross_entropy`'s masked NLL sum over `denom` (`ce_denominator`) in
+    f32, of logits [..., V/model] that are this model rank's vocabulary
+    rows from v0 (`_VocabParallelCE`)."""
+    lab = labels.reshape(-1).long()
+    m = (mask.reshape(-1).float() if mask is not None
+         else torch.ones(lab.shape, device=logits.device))
+    return _VocabParallelCE.apply(logits.reshape(lab.shape[0], -1), lab, m / denom,
+                                  v0, mesh)
+
+
+class _BlockwiseCE(torch.autograd.Function):
+    """Mean token NLL streamed over vocabulary blocks; the backward
+    recomputes each block's logits instead of keeping them. With `mesh`,
+    head holds this model rank's vocabulary columns from v0, and the running
+    max, the sum of exponentials and the target logit are combined over
+    `model` before the log."""
+
+    @staticmethod
+    def forward(ctx, h, head, labels, mk, denom, block, mesh=None, v0=0):
         lse = torch.full(labels.shape, CE_NEG_INF, device=h.device)
         l = torch.zeros(labels.shape, device=h.device)
         gold = torch.zeros(labels.shape, device=h.device)
@@ -148,14 +219,21 @@ class _BlockwiseCE(torch.autograd.Function):
             l = l * torch.exp(lse - m_new) + torch.exp(
                 logits - m_new[:, None]).sum(1)
             lse = m_new
-            idx = labels - off
+            idx = labels - v0 - off
             in_blk = (idx >= 0) & (idx < logits.shape[1])
             gold = gold + torch.where(
                 in_blk, logits.gather(1, idx.clamp(0, logits.shape[1] - 1)[:, None])[:, 0],
                 0.0)
+        if mesh is not None:
+            from repro_torch.launch.mesh import all_reduce
+
+            m_all = all_reduce(lse, mesh, "model", "max")
+            l = all_reduce(l * torch.exp(lse - m_all), mesh, "model")
+            lse = m_all
+            gold = all_reduce(gold, mesh, "model")
         lse = lse + torch.log(l.clamp_min(1e-30))
         ctx.save_for_backward(h, head, labels, mk, denom, lse)
-        ctx.block = block
+        ctx.block, ctx.v0 = block, v0
         return ((lse - gold) * mk).sum() / denom
 
     @staticmethod
@@ -168,20 +246,21 @@ class _BlockwiseCE(torch.autograd.Function):
         for off in range(0, head.shape[1], ctx.block):
             hb = head[:, off:off + ctx.block].float()
             dl = torch.exp(h32 @ hb - lse[:, None])      # softmax over the vocab
-            idx = labels - off
+            idx = labels - ctx.v0 - off
             in_blk = (idx >= 0) & (idx < hb.shape[1])
             rows = torch.nonzero(in_blk).squeeze(1)
             dl[rows, idx[rows]] -= 1.0
             dl = dl * w[:, None]
             dh += dl @ hb.T
             dhead[:, off:off + ctx.block] = h32.T @ dl
-        return dh.to(h.dtype), dhead.to(head.dtype), None, None, None, None
+        return dh.to(h.dtype), dhead.to(head.dtype), None, None, None, None, None, None
 
 
 def blockwise_cross_entropy(h: torch.Tensor, head: torch.Tensor,
                             labels: torch.Tensor,
                             mask: Optional[torch.Tensor] = None,
-                            block: int = 8192) -> torch.Tensor:
+                            block: int = 8192, denom: Optional[torch.Tensor] = None,
+                            mesh=None, v0: int = 0) -> torch.Tensor:
     """Fused softmax-CE streamed over vocabulary blocks (the JAX package's
     `blockwise_cross_entropy`): the [T, V] logits are never materialised.
     A loop over V / block blocks carries a running (max, denominator, gold
@@ -192,17 +271,21 @@ def blockwise_cross_entropy(h: torch.Tensor, head: torch.Tensor,
     where the reference pads it with masked columns, which add nothing.
 
     h [..., D], head [D, V], labels int[...]. Returns the mean token NLL
-    (over mask's true entries, at least 1, with a mask)."""
+    (over mask's true entries, at least 1, with a mask). On a mesh, `denom`
+    (`ce_denominator`) replaces the count, and with `mesh` head holds this
+    model rank's vocabulary columns from v0."""
     d = head.shape[0]
     ht = h.reshape(-1, d)
     lab = labels.reshape(-1).long()
     if mask is not None:
         mk = mask.reshape(-1).float()
-        denom = mk.sum().clamp_min(1.0)
+        if denom is None:
+            denom = mk.sum().clamp_min(1.0)
     else:
         mk = torch.ones(lab.shape, device=h.device)
-        denom = torch.tensor(float(lab.shape[0]), device=h.device)
-    return _BlockwiseCE.apply(ht, head, lab, mk, denom, block)
+        if denom is None:
+            denom = torch.tensor(float(lab.shape[0]), device=h.device)
+    return _BlockwiseCE.apply(ht, head, lab, mk, denom, block, mesh, v0)
 
 
 def rms_norm(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:

@@ -64,7 +64,9 @@ from repro_torch.configs.base import LMConfig
 from repro_torch.graph.structs import resolve_device
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.ref import ATTENTION_NEG_INF
+from repro_torch.launch import mesh as rmesh
 from repro_torch.models import common
+from repro_torch.sharding import resolve_axis_spec
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 STACKS = ("dense_layers", "moe_layers")
@@ -201,6 +203,107 @@ def _param_spec(cfg: LMConfig, path: Tuple[str, ...]) -> Tuple:
     return ((None,) + spec) if stacked else spec
 
 
+class MeshPlan:
+    """How the training forward runs on a `launch/mesh.RankMesh` of (data,
+    model) ranks, as the reference's rules place each leaf.
+
+    Every parameter arrives as this rank's block of its reference spec
+    (`_param_spec`, resolved with the divisibility guard); `use` turns a
+    block into the tensor a computation needs:
+      - FSDP: dimensions on `data` are all-gathered at use (inside the remat
+        boundary, so that a recompute gathers again); the backward
+        reduce-scatters the gradient over `data`, which is also the
+        data-parallel sum (this rank's chunk alone when the batch is
+        replicated over `data`, `batch_split` False);
+      - TP / EP / vocab: heads, ff columns, experts and vocabulary rows split
+        evenly over `model` where their count divides (`split`) are used
+        where they lie; a leaf whose block is not the part this rank
+        computes (qwen2's kv heads at model = 4, a replicated bias) is
+        gathered over `model` and the part taken after `copy_to_model`.
+    The computation split over `model` is bracketed by Megatron's pair
+    (`launch/mesh.copy_to_model` in, `reduce_from_model` out), so everything
+    else is replicated over `model`, forward and backward.
+
+    One process runs the same code on the plan of `launch/mesh.local_mesh`
+    (mesh=None), a (1, 1) mesh whose collectives are identities: nothing
+    splits and every leaf is used whole."""
+
+    def __init__(self, model: "Transformer", mesh=None, batch_split: bool = False):
+        mesh = rmesh.local_mesh() if mesh is None else mesh
+        self.mesh, self.batch_split = mesh, batch_split
+        self.M, self.m = mesh.size("model"), mesh.index("model")
+        self.specs: Dict[Tuple, Tuple] = {}
+        for name, path in model.param_paths().items():
+            spec = resolve_axis_spec(tuple(model.params[name].shape),
+                                     _param_spec(model.cfg, path), mesh.shape)
+            if path[0] in STACKS:   # a layer's view drops the stack's axis
+                self.specs[(path[0], "_".join(path[1:]))] = spec[1:]
+            elif path[:2] == ("mtp", "layer"):
+                self.specs[("mtp_layer", "_".join(path[2:]))] = spec
+            else:
+                self.specs[(None, name)] = spec
+
+    def layer(self, stack: str) -> "_LayerPlan":
+        return _LayerPlan(self, stack)
+
+    def split(self, n: int) -> Tuple[int, int, bool]:
+        """(first, count, split) of n heads, columns, experts or vocabulary
+        rows on this model rank: an even split where `model` divides n, else
+        all n on every model rank (the computation replicated)."""
+        if self.M > 1 and n % self.M == 0:
+            return self.m * (n // self.M), n // self.M, True
+        return 0, n, False
+
+    def copy(self, x):
+        return rmesh.copy_to_model(x, self.mesh)
+
+    def reduce(self, x):
+        return rmesh.reduce_from_model(x, self.mesh)
+
+    def use(self, t, spec, want=None):
+        """The block t of a leaf stored under `spec`, as a computation uses
+        it: want=None, the whole leaf in a computation replicated over
+        `model`; "f", the whole leaf in a computation split over `model`;
+        (dim, sel), the entries sel (a slice or an index tensor) of dim in a
+        computation split over `model`."""
+        mesh = self.mesh
+        for dim, ax in enumerate(spec):
+            if ax == "data":
+                t = rmesh.gather_data(t, mesh, dim, self.batch_split)
+        on_model = [d for d, ax in enumerate(spec) if ax == "model"]
+        if isinstance(want, tuple):
+            dim, sel = want
+            n = t.shape[dim]
+            if (on_model == [dim] and isinstance(sel, slice)
+                    and (sel.start, sel.stop) == (self.m * n, (self.m + 1) * n)):
+                return t            # the block is the part this rank computes
+        for d in on_model:
+            t = rmesh.gather_from_model(t, mesh, d)
+        if want is None:
+            return t
+        t = self.copy(t)
+        if want == "f":
+            return t
+        dim, sel = want
+        if isinstance(sel, slice):
+            return t.narrow(dim, sel.start, sel.stop - sel.start)
+        return t.index_select(dim, sel)
+
+
+class _LayerPlan:
+    """A `MeshPlan` seen from one stack's layers: `w(p, key, want)` is the
+    layer's parameter `key` as `MeshPlan.use` gives it."""
+
+    def __init__(self, plan: MeshPlan, stack: str):
+        self.plan, self.stack = plan, stack
+
+    def w(self, p, key, want=None):
+        return self.plan.use(p[key], self.plan.specs[(self.stack, key)], want)
+
+    def spec(self, key):
+        return self.plan.specs[(self.stack, key)]
+
+
 def cache_specs(cfg: LMConfig) -> Dict:
     """The logical sharding specs of `Transformer.init_cache`'s cache (the
     reference's `cache_specs`)."""
@@ -322,6 +425,7 @@ class Transformer(nn.Module):
             norm(("mtp", "norm_e"), (), d)
             layer(("mtp", "layer"), (), moe=False)
         common.register_params(self, tensors)
+        self._local_plan: Optional[MeshPlan] = None
 
     @property
     def params(self) -> Dict[str, nn.Parameter]:
@@ -362,19 +466,19 @@ class Transformer(nn.Module):
         return {"_".join(path[n:]): self.params[name]
                 for name, path in self._paths.items() if path[:n] == prefix}
 
-    def _layers(self) -> List[Tuple[Dict[str, torch.Tensor], bool]]:
-        """(parameters by their names inside the layer, is MoE) for each
-        layer, the dense stack then the MoE stack: views of the stacked
-        tensors by `unbind`, whose backward stacks the layers' gradients once
-        (indexing layer by layer would make each layer's gradient a
-        zero-filled [L, ...] tensor, summed L times)."""
+    def _layers(self) -> List[Tuple[Dict[str, torch.Tensor], bool, str]]:
+        """(parameters by their names inside the layer, is MoE, its stack)
+        for each layer, the dense stack then the MoE stack: views of the
+        stacked tensors by `unbind`, whose backward stacks the layers'
+        gradients once (indexing layer by layer would make each layer's
+        gradient a zero-filled [L, ...] tensor, summed L times)."""
         out = []
         for stack in STACKS:
             stacked = {k: v.unbind(0) for k, v in self._group((stack,)).items()}
             if stacked:
                 n = len(next(iter(stacked.values())))
-                out += [({k: v[i] for k, v in stacked.items()}, stack == "moe_layers")
-                        for i in range(n)]
+                out += [({k: v[i] for k, v in stacked.items()}, stack == "moe_layers",
+                         stack) for i in range(n)]
         return out
 
     def _norm(self, p, name, x):
@@ -384,27 +488,60 @@ class Transformer(nn.Module):
         return common.rms_norm(x, p[name + "_g"], cfg.norm_eps)
 
     # -------------------------------------------------------------- attention
-    def _gqa_qkv(self, p, x, positions):
-        """Projections, heads, qk-norm and RoPE -> q [B, H, S, hd], k, v
-        [B, Hkv, S, hd]; positions int[B, S] (or [B, 1, 1] in decode)."""
+    def _gqa_qkv(self, p, x, positions, lp):
+        """Projections, heads, qk-norm and RoPE -> (q [B, Hl, S, hd] of this
+        model rank's heads, k, v [B, Hkv_l, S, hd] of the kv heads they
+        read, the output rows' slice, whether the heads split); positions
+        int[B, S] (or [B, 1, 1] in decode). On a mesh the q heads split
+        over `model`, each reading kv head h // group by its global index
+        (hazard m); where a rank's q heads do not map onto whole groups of
+        its kv heads, k and v are expanded to one per q head."""
         cfg = self.cfg
-        q, k, v = x @ p["attn_wq"], x @ p["attn_wk"], x @ p["attn_wv"]
+        hd, H = cfg.hd, cfg.n_heads
+        group = H // cfg.n_kv_heads
+        h0, hl, split = lp.plan.split(H)
+        kv_of = [(h0 + j) // group for j in range(hl)]
+        kv_heads = sorted(set(kv_of))
+        per = hl // len(kv_heads)
+        if hl % len(kv_heads) == 0 and all(kv_of[j] == kv_heads[j // per]
+                                           for j in range(hl)):
+            kv_sel, hkv = slice(kv_heads[0] * hd, (kv_heads[-1] + 1) * hd), len(kv_heads)
+        else:
+            kv_sel = torch.cat([torch.arange(i * hd, (i + 1) * hd) for i in kv_of]
+                               ).to(x.device)
+            hkv = hl
+        rows = slice(h0 * hd, (h0 + hl) * hd)
+        wq, wkv, wn = ((1, rows), (1, kv_sel), "f") if split else (None, None, None)
+        bq, bkv = ((0, rows), (0, kv_sel)) if split else (None, None)
+        xs = lp.plan.copy(x) if split else x
+        q = xs @ lp.w(p, "attn_wq", wq)
+        k = xs @ lp.w(p, "attn_wk", wkv)
+        v = xs @ lp.w(p, "attn_wv", wkv)
         if cfg.qkv_bias:
-            q, k, v = q + p["attn_bq"], k + p["attn_bk"], v + p["attn_bv"]
-        q = _split_heads(q, cfg.n_heads, cfg.hd)
-        k = _split_heads(k, cfg.n_kv_heads, cfg.hd)
-        v = _split_heads(v, cfg.n_kv_heads, cfg.hd)
+            q = q + lp.w(p, "attn_bq", bq)
+            k = k + lp.w(p, "attn_bk", bkv)
+            v = v + lp.w(p, "attn_bv", bkv)
+        q = _split_heads(q, hl, hd)
+        k = _split_heads(k, hkv, hd)
+        v = _split_heads(v, hkv, hd)
         if cfg.qk_norm:
-            q = common.rms_norm(q, p["attn_q_norm"], cfg.norm_eps)
-            k = common.rms_norm(k, p["attn_k_norm"], cfg.norm_eps)
+            q = common.rms_norm(q, lp.w(p, "attn_q_norm", wn), cfg.norm_eps)
+            k = common.rms_norm(k, lp.w(p, "attn_k_norm", wn), cfg.norm_eps)
         pos = positions if positions.dim() == 3 else positions[:, None, :]
         return (common.apply_rope(q, pos, cfg.rope_theta),
-                common.apply_rope(k, pos, cfg.rope_theta), v)
+                common.apply_rope(k, pos, cfg.rope_theta), v, rows, split)
 
-    def _gqa_attention(self, p, x, positions, kv_out=None):
+    def _row_out(self, p, o, lp, rows, split):
+        """The output projection, row-parallel on a mesh: this rank's rows
+        of attn_wo, the partial sums reduced over `model`."""
+        if not split:
+            return o @ lp.w(p, "attn_wo")
+        return lp.plan.reduce(o @ lp.w(p, "attn_wo", (0, rows)))
+
+    def _gqa_attention(self, p, x, positions, kv_out, lp):
         cfg = self.cfg
         b, s, _ = x.shape
-        q, k, v = self._gqa_qkv(p, x, positions)
+        q, k, v, rows, split = self._gqa_qkv(p, x, positions, lp)
         if kv_out is not None:  # prefill: the roped K and V go to the cache
             kc, vc = kv_out
             s_cache = kc.shape[2]
@@ -415,61 +552,96 @@ class Transformer(nn.Module):
                 kc[:, :, keep % s_cache] = k[:, :, keep]
                 vc[:, :, keep % s_cache] = v[:, :, keep]
         o = kops.attention(q, k, v, causal=True, window=cfg.window)
-        o = o.transpose(1, 2).reshape(b, s, cfg.n_heads * cfg.hd)
-        return o @ p["attn_wo"]
+        o = o.transpose(1, 2).reshape(b, s, q.shape[1] * cfg.hd)
+        return self._row_out(p, o, lp, rows, split)
 
-    def _mla_q(self, p, x):
-        """[B, S, D] -> q [B, H, S, qk_nope + qk_rope], before RoPE."""
+    def _mla_heads(self, lp):
+        """(first head, local heads, split, copy): this model rank's heads
+        and the identity forward / sum-over-`model` backward that a tensor
+        shared by the heads passes through when they split."""
+        h0, hl, split = lp.plan.split(self.cfg.n_heads)
+        return h0, hl, split, (lp.plan.copy if split else (lambda t: t))
+
+    def _mla_q(self, p, x, lp):
+        """[B, S, D] -> q [B, Hl, S, qk_nope + qk_rope] of this model rank's
+        heads, before RoPE (after the q-LoRA down-projection and its norm,
+        replicated)."""
         cfg = self.cfg
         b, s, _ = x.shape
+        h0, hl, split, copy = self._mla_heads(lp)
+        width = cfg.qk_nope_dim + cfg.qk_rope_dim
+        cols = (1, slice(h0 * width, (h0 + hl) * width)) if split else None
         if cfg.q_lora_rank:
-            cq = common.rms_norm(x @ p["attn_wq_a"], p["attn_q_a_norm"], cfg.norm_eps)
-            q = cq @ p["attn_wq_b"]
+            cq = common.rms_norm(x @ lp.w(p, "attn_wq_a"), p["attn_q_a_norm"],
+                                 cfg.norm_eps)
+            q = copy(cq) @ lp.w(p, "attn_wq_b", cols)
         else:
-            q = x @ p["attn_wq"]
-        return q.reshape(b, s, cfg.n_heads, cfg.qk_nope_dim + cfg.qk_rope_dim
-                         ).transpose(1, 2)
+            q = copy(x) @ lp.w(p, "attn_wq", cols)
+        return q.reshape(b, s, hl, width).transpose(1, 2)
 
-    def _mla_latent(self, p, x):
+    def _mla_latent(self, p, x, lp):
         """[B, S, D] -> (c_kv [B, S, r] normed, k_rope [B, S, dr] before
-        RoPE)."""
+        RoPE), shared by the heads: replicated over `model`."""
         cfg = self.cfg
-        kv_a = x @ p["attn_wkv_a"]                          # [B, S, r + dr]
+        kv_a = x @ lp.w(p, "attn_wkv_a")                     # [B, S, r + dr]
         c_kv = common.rms_norm(kv_a[..., :cfg.kv_lora_rank], p["attn_kv_a_norm"],
                                cfg.norm_eps)
         return c_kv, kv_a[..., cfg.kv_lora_rank:]
 
-    def _mla_attention(self, p, x, positions, kv_out=None):
+    def _mla_attention(self, p, x, positions, kv_out, lp):
         """MLA prefill and training (the JAX package's `_mla_qkv` and
         `_mla_attention`): q = [q_nope, q_rope], k = [k_nope, k_rope
         broadcast over the heads] of head dim qk_nope + qk_rope, v of
-        v_head_dim, through the kernel."""
+        v_head_dim, through the kernel. On a mesh the q projection, wkv_b's
+        up-projection of the latent and the output rows split over `model`
+        by heads."""
         cfg = self.cfg
         b, s, _ = x.shape
-        h, dn, dr, dv = cfg.n_heads, cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
-        q = self._mla_q(p, x)
-        c_kv, k_rope = self._mla_latent(p, x)
-        kv = (c_kv @ p["attn_wkv_b"]).reshape(b, s, h, dn + dv).transpose(1, 2)
+        dn, dr, dv = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+        h0, hl, split, copy = self._mla_heads(lp)
+        q = self._mla_q(p, x, lp)
+        c_kv, k_rope = self._mla_latent(p, x, lp)
+        cols = (1, slice(h0 * (dn + dv), (h0 + hl) * (dn + dv))) if split else None
+        kv = (copy(c_kv) @ lp.w(p, "attn_wkv_b", cols)).reshape(
+            b, s, hl, dn + dv).transpose(1, 2)
         k_nope, v = kv[..., :dn], kv[..., dn:]
         pos = positions[:, None, :]
         q_rope = common.apply_rope(q[..., dn:], pos, cfg.rope_theta)
-        k_rope = common.apply_rope(k_rope[:, None], pos, cfg.rope_theta)  # [B, 1, S, dr]
+        k_rope = common.apply_rope(copy(k_rope)[:, None], pos, cfg.rope_theta)  # [B, 1, S, dr]
         if kv_out is not None:  # prefill: the latent and the roped k_rope
             kv_out[0][:, :s] = c_kv
             kv_out[1][:, :s] = k_rope[:, 0]
         q = torch.cat([q[..., :dn], q_rope], dim=-1)
-        k = torch.cat([k_nope, k_rope.expand(b, h, s, dr)], dim=-1)
+        k = torch.cat([k_nope, k_rope.expand(b, hl, s, dr)], dim=-1)
         o = kops.attention(q, k, v, causal=True, window=None)
-        o = o.transpose(1, 2).reshape(b, s, h * dv)
-        return o @ p["attn_wo"]
+        o = o.transpose(1, 2).reshape(b, s, hl * dv)
+        return self._row_out(p, o, lp, slice(h0 * dv, (h0 + hl) * dv), split)
 
     # -------------------------------------------------------------------- MLP
-    def _mlp(self, p, x, prefix="mlp_"):
-        if self.cfg.mlp == "gelu":
-            return (common.gelu(x @ p[prefix + "w_in"] + p[prefix + "b_in"])
-                    @ p[prefix + "w_out"] + p[prefix + "b_out"])
-        return common.swiglu(x, p[prefix + "w_gate"], p[prefix + "w_up"],
-                             p[prefix + "w_down"])
+    def _mlp(self, p, x, prefix, lp):
+        """GELU with biases or SwiGLU. On a mesh, Megatron's pairing: the
+        input projections column-parallel over `model` (this rank's ff
+        columns), the output projection row-parallel, its partial sums
+        reduced over `model`; a bias of the output added once, after the
+        reduce (starcoder2's b_out)."""
+        gelu = self.cfg.mlp == "gelu"
+        w_in = prefix + ("w_in" if gelu else "w_gate")
+        n_ff = p[w_in].shape[1] * (lp.plan.M if lp.spec(w_in)[1] == "model" else 1)
+        f0, fl, split = lp.plan.split(n_ff)
+        cols, rows = ((1, slice(f0, f0 + fl)), (0, slice(f0, f0 + fl))) if split \
+            else (None, None)
+        xs = lp.plan.copy(x) if split else x
+        if gelu:
+            hidden = common.gelu(xs @ lp.w(p, prefix + "w_in", cols)
+                                 + lp.w(p, prefix + "b_in", rows))
+            y = hidden @ lp.w(p, prefix + "w_out", rows)
+        else:
+            y = common.swiglu(xs, lp.w(p, prefix + "w_gate", cols),
+                              lp.w(p, prefix + "w_up", cols),
+                              lp.w(p, prefix + "w_down", rows))
+        if split:
+            y = lp.plan.reduce(y)
+        return y + p[prefix + "b_out"] if gelu else y
 
     def _experts(self, p, xe, spec):
         """SwiGLU of every expert on its buffer rows (einsum `spec` over the
@@ -478,69 +650,114 @@ class Transformer(nn.Module):
             spec[0], xe, p["mlp_w_up"])
         return torch.einsum(spec[1], h, p["mlp_w_down"])
 
-    def _moe_block(self, p, x2d, dropless: bool = False):
-        """Routed experts (+ shared) on tokens [T, D] -> ([T, D], aux). The
-        expert products and the segment sum are plain PyTorch ops, as they
-        are plain XLA ops outside any Pallas kernel in the JAX package.
-        Dropless, the buffers hold the largest expert's load (read once from
-        the device) in place of T rows per expert: the same products of the
-        same rows, without E x T x D of zeros."""
+    def _moe_block(self, p, x2d, dropless: bool = False, lp=None):
+        """Routed experts (+ shared) on this data rank's tokens [T_l, D] ->
+        ([T_l, D], its share of the router aux loss). The expert products
+        and the segment sum are plain PyTorch ops, as they are plain XLA ops
+        outside any Pallas kernel in the JAX package. Dropless (serving),
+        the buffers hold the largest expert's load (read once from the
+        device) in place of T rows per expert: the same products of the same
+        rows, without E x T x D of zeros.
+
+        The global dispatch (moe_groups <= 1): on a mesh the tokens of every
+        data rank are gathered over `data` (the backward reduce-scatters
+        their cotangent), so every rank routes all T tokens identically and
+        every slot and capacity drop is the reference's global one; each
+        model rank runs only its own experts (EP: the expert axis split over
+        `model`) on its own slots, its gate-weighted combine is reduced over
+        `model`, and the data rank keeps its own rows. The aux loss is then
+        computed alike on every data rank: each counts 1/data of it (hazard
+        pp). The per-group dispatch (`moe_groups` = G > 1, T % G == 0, not
+        dropless): sort, capacity, scatter and gather within each group of
+        T / G tokens, the aux loss the mean over the groups; on a mesh each
+        data rank dispatches its own G/data groups (G a multiple of the
+        data ranks), and its aux loss is its groups' share of the mean."""
         cfg = self.cfg
-        t, d = x2d.shape
-        if cfg.moe_groups > 1 and not dropless and t % cfg.moe_groups == 0:
-            return self._moe_block_grouped(p, x2d)
-        e = cfg.n_routed
-        slot, token_of, keep, gate, aux, cap = moe_dispatch(
-            x2d, p["mlp_router"], cfg, dropless=dropless)
-        # every entry is kept: slot = expert * T + place. A meta tensor (the
-        # dry run) has no load to read and keeps the reference's T rows
-        if dropless and not x2d.is_meta:
-            expert, place = slot // cap, slot % cap
-            cap = int(place.max()) + 1
-            slot = expert * cap + place
-        xe = _dispatch(x2d, slot, token_of, keep, e * cap).reshape(e, cap, d)
-        ye = self._experts(p, xe, ("ecd,edf->ecf", "ecf,efd->ecd"))
-        y = _combine(ye.reshape(e * cap, d), slot, token_of, keep, gate, t)
+        lp = lp or self.local_plan().layer("moe_layers")
+        plan = lp.plan
+        mesh, t_local, d = plan.mesh, x2d.shape[0], x2d.shape[1]
+        n_data = mesh.size("data") if plan.batch_split else 1
+        t = t_local * n_data
+        e0, el, split = plan.split(cfg.n_routed)
+        want = (0, slice(e0, e0 + el)) if split else None
+        w = {k: lp.w(p, k, want) for k in ("mlp_w_gate", "mlp_w_up", "mlp_w_down")}
+        router = lp.w(p, "mlp_router")
+        copy = plan.copy if split else (lambda z: z)
+        grouped = cfg.moe_groups > 1 and not dropless and t % cfg.moe_groups == 0
+
+        def dispatch(x, slot, token_of, keep, gate, cap):
+            """This rank's experts' buffer [el, cap, D]; the other experts'
+            entries go to the trash slot, as a dropped entry does."""
+            if split:
+                own = (slot >= e0 * cap) & (slot < (e0 + el) * cap)
+                slot = torch.where(own, slot - e0 * cap, el * cap)
+                keep = keep & own
+            xe = _dispatch(copy(x), slot, token_of, keep, el * cap).reshape(el, cap, d)
+            return xe, (slot, token_of, keep, copy(gate))
+
+        if grouped:
+            g = cfg.moe_groups
+            if g % n_data:
+                raise ValueError(f"moe_groups={g} is not a multiple of the "
+                                 f"{n_data} data ranks the batch is split over")
+            gl, tl = g // n_data, t // g
+            xg = x2d.reshape(gl, tl, d)
+            bufs, metas, auxes = [], [], []
+            for i in range(gl):
+                slot, token_of, keep, gate, aux, cap = moe_dispatch(xg[i], router, cfg)
+                xe, meta = dispatch(xg[i], slot, token_of, keep, gate, cap)
+                bufs.append(xe)
+                metas.append(meta)
+                auxes.append(aux)
+            xe = torch.stack(bufs).transpose(0, 1)              # [el, G_l, C, D]
+            ye = self._experts(w, xe, ("egcd,edf->egcf", "egcf,efd->egcd")).transpose(0, 1)
+            y = torch.cat([_combine(ye[i].reshape(-1, d), *metas[i], tl)
+                           for i in range(gl)])
+            aux = torch.stack(auxes).mean()
+            if n_data > 1:
+                aux = aux * (gl / g)
+        else:
+            xa = rmesh.gather_data(x2d, mesh, 0, True) if n_data > 1 else x2d
+            slot, token_of, keep, gate, aux, cap = moe_dispatch(xa, router, cfg,
+                                                                dropless=dropless)
+            # every entry is kept: slot = expert * T + place. A meta tensor
+            # (the dry run) has no load to read and keeps the reference's T rows
+            if dropless and not xa.is_meta:
+                expert, place = slot // cap, slot % cap
+                cap = int(place.max()) + 1
+                slot = expert * cap + place
+            xe, meta = dispatch(xa, slot, token_of, keep, gate, cap)
+            ye = self._experts(w, xe, ("ecd,edf->ecf", "ecf,efd->ecd"))
+            y = _combine(ye.reshape(el * cap, d), *meta, t)
+            if n_data > 1:
+                aux = aux / n_data
+        if split:
+            y = plan.reduce(y)
+        if n_data > 1 and not grouped:
+            y = y.narrow(0, mesh.index("data") * t_local, t_local)
         if cfg.n_shared:
-            y = y + self._mlp(p, x2d, "mlp_shared_")
+            y = y + self._mlp(p, x2d, "mlp_shared_", lp)
         return y, aux
 
-    def _moe_block_grouped(self, p, x2d):
-        """The per-group dispatch (`moe_groups` = G > 1, T % G == 0): sort,
-        capacity, scatter and gather within each group of T / G tokens; the
-        aux loss is the mean over the groups. The JAX package's sharding
-        constraints (and `moe_gather_weights`) place nothing on one card."""
-        cfg = self.cfg
-        t, d = x2d.shape
-        e, g = cfg.n_routed, cfg.moe_groups
-        tl = t // g
-        xg = x2d.reshape(g, tl, d)
-        metas, bufs, auxes = [], [], []
-        for i in range(g):
-            slot, token_of, keep, gate, aux, cap = moe_dispatch(xg[i], p["mlp_router"], cfg)
-            bufs.append(_dispatch(xg[i], slot, token_of, keep, e * cap).reshape(e, cap, d))
-            metas.append((slot, token_of, keep, gate))
-            auxes.append(aux)
-        xe = torch.stack(bufs).transpose(0, 1)                  # [E, G, C, D]
-        ye = self._experts(p, xe, ("egcd,edf->egcf", "egcf,efd->egcd")).transpose(0, 1)
-        y = torch.cat([_combine(ye[i].reshape(-1, d), *metas[i], tl)
-                       for i in range(g)])
-        if cfg.n_shared:
-            y = y + self._mlp(p, x2d, "mlp_shared_")
-        return y, torch.stack(auxes).mean()
-
     # ---------------------------------------------------------------- forward
-    def _block(self, p, x, positions, moe=False, kv_out=None):
-        """One layer -> (x, its router aux loss, 0 for a dense layer). MoE
-        dispatches dropless when the layer fills a cache (serving)."""
+    def local_plan(self) -> MeshPlan:
+        """The `MeshPlan` of one process (a (1, 1) mesh), made once."""
+        if self._local_plan is None:
+            self._local_plan = MeshPlan(self)
+        return self._local_plan
+
+    def _block(self, p, x, positions, moe, kv_out, lp):
+        """One layer of this rank (`lp`, a `_LayerPlan`) -> (x, its router
+        aux loss, 0 for a dense layer). MoE dispatches dropless when the
+        layer fills a cache (serving)."""
         attend = self._mla_attention if self.cfg.attention == "mla" else self._gqa_attention
-        h = x + attend(p, self._norm(p, "ln1", x), positions, kv_out)
+        h = x + attend(p, self._norm(p, "ln1", x), positions, kv_out, lp)
         hn = self._norm(p, "ln2", h)
         if moe:
             b, s, d = hn.shape
-            y, aux = self._moe_block(p, hn.reshape(b * s, d), dropless=kv_out is not None)
+            y, aux = self._moe_block(p, hn.reshape(b * s, d), kv_out is not None, lp)
             return h + y.reshape(b, s, d), aux
-        return h + self._mlp(p, hn), torch.zeros((), device=x.device)
+        return h + self._mlp(p, hn, "mlp_", lp), torch.zeros((), device=x.device)
 
     def _cache_slices(self, cache, i):
         if cache is None:
@@ -550,10 +767,25 @@ class Transformer(nn.Module):
             return layers["ckv"][i], layers["kr"][i]
         return layers["k"][i], layers["v"][i]
 
+    def _embed(self, ids: torch.Tensor, plan: MeshPlan) -> torch.Tensor:
+        """The embedding rows of ids; on a mesh vocab-parallel: a masked
+        lookup in this model rank's vocabulary rows, reduced over
+        `model`."""
+        v0, vl, split = plan.split(self.cfg.vocab)
+        spec = plan.specs[(None, "embed")]
+        table = plan.use(self.params["embed"], spec, (0, slice(v0, v0 + vl)) if split else None)
+        if not split:
+            return table[ids.long()]
+        idx = ids.long() - v0
+        own = (idx >= 0) & (idx < vl)
+        rows = table[idx.clamp(0, vl - 1)]
+        return plan.reduce(torch.where(own[..., None], rows, torch.zeros(
+            (), dtype=rows.dtype, device=rows.device)))
+
     def forward_hidden(self, tokens: torch.Tensor,
                        positions: Optional[torch.Tensor] = None,
                        cache: Optional[dict] = None,
-                       remat=False):
+                       remat=False, plan: Optional[MeshPlan] = None):
         """Token ids [B, S] -> (final hidden states [B, S, D], the router aux
         loss summed over the layers). With `cache` (from `init_cache`), each
         layer's K and V (or MLA's latent) are written into it, and MoE
@@ -561,12 +793,14 @@ class Transformer(nn.Module):
         each layer in the backward from its input (`torch.utils.checkpoint`),
         "dots" / "dots_with_no_batch_dims" save the layer's matrix products
         without batch dimensions and recompute the rest; False keeps every
-        activation. The values are the same."""
+        activation. The values are the same. With `plan` (a `MeshPlan`),
+        tokens are this data rank's rows and the layers run on the mesh."""
+        plan = plan or self.local_plan()
         b, s = tokens.shape
         if positions is None:
             positions = torch.arange(s, dtype=torch.int32,
                                      device=tokens.device).expand(b, s)
-        x = self.params["embed"][tokens.long()]
+        x = self._embed(tokens, plan)
         block = self._block
         if remat in ("dots", "dots_with_no_batch_dims"):
             block = functools.partial(
@@ -579,8 +813,9 @@ class Transformer(nn.Module):
         aux_total = torch.zeros((), device=x.device)
         # the layers' tensors are taken here, so that a recompute in the
         # backward reads the ones this forward read
-        for i, (p, moe) in enumerate(self._layers()):
-            x, aux = block(p, x, positions, moe, self._cache_slices(cache, i))
+        for i, (p, moe, stack) in enumerate(self._layers()):
+            x, aux = block(p, x, positions, moe, self._cache_slices(cache, i),
+                           plan.layer(stack))
             aux_total = aux_total + aux
         return self._norm(self.params, "final_norm", x), aux_total
 
@@ -598,38 +833,66 @@ class Transformer(nn.Module):
         return self.logits_from_hidden(h), aux
 
     # ------------------------------------------------------------------- loss
-    def loss(self, batch, remat=False):
+    def _ce(self, h, labels, mask, plan: MeshPlan, fused: int = 0):
+        """The mean token CE of this data rank's rows, plain or blockwise
+        (`fused` > 0, `common.blockwise_cross_entropy`). On a mesh the head
+        is vocab-parallel (the logits stay split over `model`; the max, the
+        sum of exponentials and the target logit, from the rank that owns
+        it, are combined over `model`) and the masked sum is divided by the
+        mask count summed over `data` (`common.ce_denominator`), so that
+        the data ranks' terms sum to the reference's mean."""
+        cfg = self.cfg
+        v0, vl, split = plan.split(cfg.vocab)
+        if cfg.tie_embeddings:
+            head = plan.use(self.params["embed"], plan.specs[(None, "embed")],
+                            (0, slice(v0, v0 + vl)) if split else None).T
+        else:
+            head = plan.use(self.params["lm_head"], plan.specs[(None, "lm_head")],
+                            (1, slice(v0, v0 + vl)) if split else None)
+        denom = (common.ce_denominator(labels, mask, plan.mesh)
+                 if plan.batch_split else None)
+        hs = plan.copy(h) if split else h
+        if fused:
+            return common.blockwise_cross_entropy(
+                hs, head, labels, mask, block=fused, denom=denom,
+                mesh=plan.mesh if split else None, v0=v0)
+        if split:
+            return common.vocab_parallel_cross_entropy(
+                hs @ head, labels, mask,
+                common.ce_denominator(labels, mask) if denom is None else denom,
+                plan.mesh, v0)
+        return common.cross_entropy(h @ head, labels, mask, denom=denom)
+
+    def loss(self, batch, remat=False, plan: Optional[MeshPlan] = None):
         """Next-token CE over {"tokens", "labels"[, "mask"]}, + 0.3 x the
         MTP block's CE on the labels rolled by one (its last column masked),
         + router_aux_coef x the aux loss -> (loss, {"ce", "aux"}), "ce"
         with the MTP term, as the JAX package reports it. `cfg.fused_ce` > 0
-        streams the CE over vocabulary blocks of that size
-        (`common.blockwise_cross_entropy`)."""
+        streams the CE over vocabulary blocks of that size. With `plan` (a
+        `MeshPlan`), the batch holds this data rank's rows and the loss is
+        its share: the data ranks' losses sum to the reference's."""
         cfg = self.cfg
+        plan = plan or self.local_plan()
         tokens, labels = batch["tokens"], batch["labels"]
-        h, aux = self.forward_hidden(tokens, remat=remat)
-        if cfg.fused_ce:
-            head = self.params["embed"].T if cfg.tie_embeddings else self.params["lm_head"]
-            loss = common.blockwise_cross_entropy(
-                h, head, labels, batch.get("mask"), block=cfg.fused_ce)
-        else:
-            loss = common.cross_entropy(self.logits_from_hidden(h), labels,
-                                        batch.get("mask"))
+        h, aux = self.forward_hidden(tokens, remat=remat, plan=plan)
+        loss = self._ce(h, labels, batch.get("mask"), plan, cfg.fused_ce)
         if cfg.mtp:
             mp = self._group(("mtp",))
             # predict t+2: combine h_t with the embedding of the (t+1) label
-            emb_next = self.params["embed"][labels.long()]
+            emb_next = self._embed(labels, plan)
+            proj = plan.use(mp["proj"], plan.specs[(None, "mtp_proj")])
             comb = torch.cat([self._norm(mp, "norm_h", h),
-                              self._norm(mp, "norm_e", emb_next)], dim=-1) @ mp["proj"]
+                              self._norm(mp, "norm_e", emb_next)], dim=-1) @ proj
             b, s = tokens.shape
             positions = torch.arange(s, dtype=torch.int32,
                                      device=tokens.device).expand(b, s)
-            h2, _ = self._block(self._group(("mtp", "layer")), comb, positions)
-            logits2 = self.logits_from_hidden(self._norm(self.params, "final_norm", h2))
+            h2, _ = self._block(self._group(("mtp", "layer")), comb, positions,
+                                False, None, plan.layer("mtp_layer"))
             labels2 = torch.roll(labels, -1, dims=1)
             mask2 = torch.ones(labels2.shape, device=labels.device)
             mask2[:, -1:] = 0.0
-            loss = loss + MTP_WEIGHT * common.cross_entropy(logits2, labels2, mask2)
+            loss = loss + MTP_WEIGHT * self._ce(
+                self._norm(self.params, "final_norm", h2), labels2, mask2, plan)
         return loss + cfg.router_aux_coef * aux, {"ce": loss, "aux": aux}
 
     # ----------------------------------------------------------------- decode
@@ -652,7 +915,7 @@ class Transformer(nn.Module):
                       "v": torch.zeros(shape, dtype=dt, device=dev)}
         return {"layers": layers, "pos": 0}
 
-    def _gqa_decode(self, p, x, kcache, vcache, pos: int):
+    def _gqa_decode(self, p, x, kcache, vcache, pos: int, lp):
         """x [B, 1, D] -> [B, 1, D]; writes this token's K, V at `pos`, or
         at pos % s_cache in a sliding-window ring, masked by the JAX
         package's age rule."""
@@ -660,7 +923,7 @@ class Transformer(nn.Module):
         b, hd = x.shape[0], cfg.hd
         s_cache = kcache.shape[2]
         posb = torch.full((b, 1, 1), pos, dtype=torch.int32, device=x.device)
-        q, k, v = self._gqa_qkv(p, x, posb)             # [B, H, 1, hd]
+        q, k, v = self._gqa_qkv(p, x, posb, lp)[:3]     # [B, H, 1, hd]
         write = pos % s_cache if cfg.window else pos
         kcache[:, :, write] = k[:, :, 0]
         vcache[:, :, write] = v[:, :, 0]
@@ -683,7 +946,7 @@ class Transformer(nn.Module):
         o = o.reshape(b, 1, cfg.n_heads * hd).to(x.dtype)
         return o @ p["attn_wo"]
 
-    def _mla_decode(self, p, x, ckv, kr, pos: int):
+    def _mla_decode(self, p, x, ckv, kr, pos: int, lp):
         """Absorbed MLA over the latent cache (the JAX package's
         `_mla_decode_layer`): x [B, 1, D] -> [B, 1, D]; writes this token's
         normed latent and roped k_rope at `pos`. W_uk is absorbed into q and
@@ -694,9 +957,9 @@ class Transformer(nn.Module):
         h, dn, dr, dv = cfg.n_heads, cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
         r = cfg.kv_lora_rank
         posb = torch.full((b, 1, 1), pos, dtype=torch.int32, device=x.device)
-        q = self._mla_q(p, x)                                   # [B, H, 1, dn + dr]
+        q = self._mla_q(p, x, lp)                               # [B, H, 1, dn + dr]
         q_rope = common.apply_rope(q[..., dn:], posb, cfg.rope_theta)
-        c_new, kr_new = self._mla_latent(p, x)                  # [B, 1, r], [B, 1, dr]
+        c_new, kr_new = self._mla_latent(p, x, lp)              # [B, 1, r], [B, 1, dr]
         ckv[:, pos] = c_new[:, 0]
         kr[:, pos] = common.apply_rope(kr_new[:, None], posb, cfg.rope_theta)[:, 0, 0]
         wkv_b = p["attn_wkv_b"].reshape(r, h, dn + dv)
@@ -720,26 +983,29 @@ class Transformer(nn.Module):
         pos = int(cache["pos"])
         x = self.params["embed"][token.long()][:, None, :]   # [B, 1, D]
         b = x.shape[0]
-        for i, (p, moe) in enumerate(self._layers()):
+        plan = self.local_plan()
+        for i, (p, moe, stack) in enumerate(self._layers()):
+            lp = plan.layer(stack)
             hn = self._norm(p, "ln1", x)
             if self.cfg.attention == "mla":
-                o = self._mla_decode(p, hn, *self._cache_slices(cache, i), pos)
+                o = self._mla_decode(p, hn, *self._cache_slices(cache, i), pos, lp)
             else:
-                o = self._gqa_decode(p, hn, *self._cache_slices(cache, i), pos)
+                o = self._gqa_decode(p, hn, *self._cache_slices(cache, i), pos, lp)
             h = x + o
             hn2 = self._norm(p, "ln2", h)
             if moe:
-                y, _ = self._moe_block(p, hn2.reshape(b, -1), dropless=True)
+                y, _ = self._moe_block(p, hn2.reshape(b, -1), True, lp)
                 y = y.reshape(b, 1, -1)
             else:
-                y = self._mlp(p, hn2)
+                y = self._mlp(p, hn2, "mlp_", lp)
             x = h + y
         h = self._norm(self.params, "final_norm", x)
         cache["pos"] = pos + 1
         return self.logits_from_hidden(h)[:, 0], cache
 
 
-def loss_fn(model: Transformer, batch, remat=False):
+def loss_fn(model: Transformer, batch, remat=False, plan=None):
     """The training loss (the JAX package's `loss_fn(params, cfg, batch,
-    remat)`, with the model in place of params and cfg) -> (loss, metrics)."""
-    return model.loss(batch, remat=remat)
+    remat)`, with the model in place of params and cfg) -> (loss, metrics);
+    with `plan`, this rank's share on a mesh (`MeshPlan`)."""
+    return model.loss(batch, remat=remat, plan=plan)

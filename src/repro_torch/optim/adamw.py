@@ -33,10 +33,24 @@ class AdamWConfig:
     state_dtype: str = "float32"   # "float32" | "bfloat16"
 
 
-def global_norm(tree) -> torch.Tensor:
-    """sqrt of the sum over leaves of each leaf's f32 sum of squares."""
-    sq = [torch.sum(torch.square(x.float())) for x in leaves(tree)]
-    return torch.sqrt(torch.sum(torch.stack(sq)))
+def global_norm(tree, mesh=None, specs=None) -> torch.Tensor:
+    """sqrt of the sum over leaves of each leaf's f32 sum of squares. On a
+    mesh (`mesh`, a `launch/mesh.RankMesh`, with `specs` the leaves'
+    resolved specs), the leaves are this rank's blocks: a leaf's sum of
+    squares is summed over the mesh axes it is sharded on, and not over
+    those it is replicated on, so a replicated leaf counts once."""
+    sq = torch.stack([torch.sum(torch.square(x.float())) for x in leaves(tree)])
+    if mesh is not None:
+        from repro_torch.launch.mesh import all_reduce
+
+        from repro_torch.sharding import is_spec_leaf
+
+        flat = leaves(specs, is_leaf=is_spec_leaf)
+        for axis in mesh.shape.axis_names:
+            on = torch.tensor([axis in s for s in flat], device=sq.device)
+            if mesh.size(axis) > 1 and bool(on.any()):
+                sq = torch.where(on, all_reduce(sq, mesh, axis), sq)
+    return torch.sqrt(torch.sum(sq))
 
 
 def _clip_scale(norm: torch.Tensor, max_norm: float) -> torch.Tensor:
@@ -68,17 +82,22 @@ def init_state(params, cfg: AdamWConfig) -> Dict:
 
 
 @torch.no_grad()
-def update(grads, state, params, cfg: AdamWConfig, lr_scale=1.0, inplace=False):
+def update(grads, state, params, cfg: AdamWConfig, lr_scale=1.0, inplace=False,
+           mesh=None, specs=None):
     """Returns (new_params, new_state, metrics). The clipped gradient is
     `clip_by_global_norm`'s, formed a leaf at a time. The inputs are not
     modified, unless `inplace`: then each parameter and moment is
     overwritten with its new value (the reference's train step with its
     state donated), so that the old and the new state are never both
-    held, and the returned trees are `params` and `state`'s own."""
+    held, and the returned trees are `params` and `state`'s own. On a mesh
+    the leaves are this rank's blocks (`specs`, the parameters' resolved
+    specs): the update is elementwise on them, in the reference's order of
+    clip, decay and bias correction, with the norm of the whole gradient
+    (`global_norm`)."""
     metrics = {}
     scale = None
     if cfg.clip_norm is not None:
-        gnorm = global_norm(grads)
+        gnorm = global_norm(grads, mesh, specs)
         scale = _clip_scale(gnorm, cfg.clip_norm)
         metrics["grad_norm"] = gnorm
     count = state["count"] + 1

@@ -9,21 +9,24 @@ from __future__ import annotations
 from typing import Any, Callable, List, Tuple
 
 
-def keyed_leaves(tree, path: Tuple[str, ...] = ()) -> List[Tuple[str, Any]]:
+def keyed_leaves(tree, path: Tuple[str, ...] = (), is_leaf=None) -> List[Tuple[str, Any]]:
     """(key, leaf) pairs in `jax.tree.leaves` order, each key the leaf's
-    path as the JAX package's checkpoints spell it (`'opt'/'mu'/0`)."""
+    path as the JAX package's checkpoints spell it (`'opt'/'mu'/0`);
+    `is_leaf(node)` may stop the walk at a container (a spec tuple)."""
+    if is_leaf is not None and is_leaf(tree):
+        return [("/".join(path), tree)]
     if isinstance(tree, dict):
         return [p for k in sorted(tree)
-                for p in keyed_leaves(tree[k], path + (repr(k),))]
+                for p in keyed_leaves(tree[k], path + (repr(k),), is_leaf)]
     if isinstance(tree, (list, tuple)):
         return [p for i, v in enumerate(tree)
-                for p in keyed_leaves(v, path + (str(i),))]
+                for p in keyed_leaves(v, path + (str(i),), is_leaf)]
     return [("/".join(path), tree)]
 
 
-def leaves(tree) -> List[Any]:
+def leaves(tree, is_leaf=None) -> List[Any]:
     """The leaves in `jax.tree.leaves` order."""
-    return [x for _, x in keyed_leaves(tree)]
+    return [x for _, x in keyed_leaves(tree, is_leaf=is_leaf)]
 
 
 def tree_map(fn: Callable, tree, *rest):

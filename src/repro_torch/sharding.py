@@ -6,8 +6,13 @@ of *logical* axis names; `logical_to_physical` maps them onto mesh axes by a
 rule table. The port keeps the table and its resolution as data: a mesh is
 a `MeshShape` (axis names and sizes, no devices), and a resolved spec is a
 tuple with one entry per dimension (a mesh axis name, a tuple of them, or
-None), where the reference returns a `PartitionSpec`. On one card, the
-shape the port runs on, every rule resolves to None.
+None), where the reference returns a `PartitionSpec`. On one card every
+rule resolves to None.
+
+On a mesh of ranks (`launch/mesh.py`'s `RankMesh`), `shard_leaf` and
+`shard_tree` place a global tensor as `jax.device_put(x, NamedSharding)`
+does, keeping this rank's block, and `gather_leaf` and `gather_tree`
+rebuild the global tensor from every rank's block.
 
 Parallelism encoded by the default rules (on the reference's meshes):
   FSDP  -- parameter "embed"/"ff_in" dims sharded over the data axis(es)
@@ -173,6 +178,68 @@ class active_mesh:
 
 def constrain(x, *logical: Optional[str], rules=None):
     """Returns x unchanged. The reference applies a sharding constraint
-    against the active mesh here; the port has no GSPMD to take one, and on
-    one card every rule resolves to None, so there is nothing to apply."""
+    against the active mesh here and GSPMD realises it; the port has no
+    GSPMD: on a mesh of ranks the layout is realised by the model's explicit
+    collectives (`models/transformer.py` with `launch/mesh.py`), not by the
+    constraint."""
     return x
+
+
+# ------------------------------------------------- placing and gathering
+def _block_index(spec_entry, mesh) -> Tuple[int, int]:
+    """(this rank's block, the number of blocks) of a dimension sharded
+    over a mesh axis or a tuple of them (row-major over the tuple)."""
+    axes = (spec_entry,) if isinstance(spec_entry, str) else tuple(spec_entry)
+    idx, n = 0, 1
+    for a in axes:
+        idx = idx * mesh.size(a) + mesh.index(a)
+        n *= mesh.size(a)
+    return idx, n
+
+
+def shard_leaf(x, spec: Spec, mesh):
+    """This rank's block of the global tensor x under a resolved spec (the
+    counterpart of `jax.device_put(x, NamedSharding(mesh, spec))`): a view
+    of x, narrowed on each sharded dimension."""
+    for dim, entry in enumerate(spec):
+        if entry is None:
+            continue
+        idx, n = _block_index(entry, mesh)
+        if n > 1:
+            size = x.shape[dim] // n
+            x = x.narrow(dim, idx * size, size)
+    return x
+
+
+def gather_leaf(local, spec: Spec, mesh):
+    """The global tensor from every rank's block under a resolved spec
+    (collective: every rank of the mesh calls it)."""
+    from repro_torch.launch.mesh import all_gather
+
+    for dim, entry in enumerate(spec):
+        if entry is None:
+            continue
+        axes = (entry,) if isinstance(entry, str) else tuple(entry)
+        for a in reversed(axes):
+            local = all_gather(local, mesh, a, dim)
+    return local
+
+
+def _map_specs(fn, tree, specs):
+    if isinstance(tree, dict):
+        return {k: _map_specs(fn, v, specs[k]) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)) and not is_spec_leaf(specs):
+        return type(tree)(_map_specs(fn, v, s) for v, s in zip(tree, specs))
+    return fn(tree, specs)
+
+
+def shard_tree(tree, spec_tree, mesh):
+    """`shard_leaf` over a tree and its resolved specs (the structure of
+    `launch/abstract.shardings_for`'s)."""
+    return _map_specs(lambda x, s: shard_leaf(x, s, mesh), tree, spec_tree)
+
+
+def gather_tree(tree, spec_tree, mesh):
+    """`gather_leaf` over a tree and its resolved specs, leaf by leaf in the
+    tree's order on every rank."""
+    return _map_specs(lambda x, s: gather_leaf(x, s, mesh), tree, spec_tree)

@@ -22,6 +22,18 @@ arrives so) and the K microbatches run one after another, their gradients
 summed in f32 and divided by K, as the reference's scan does, so with K > 1
 even bf16 parameters get f32 gradients; the loss is the mean over the
 microbatches.
+
+On a mesh (`mesh=`, a `launch/mesh.RankMesh` of (data, model) ranks; the LM
+family), the state's leaves are this rank's blocks of the reference's specs
+(`state_shardings`, `shard_state`), each microbatch [micro, ...] is split
+over `data` as the reference's "batch" rule resolves it (replicated where
+`data` does not divide micro), and the model runs on this rank's rows
+(`transformer.MeshPlan`). A leaf's gradient ends up exactly as the leaf is
+placed: summed over `data` when the batch is split there (reduce-scattered
+by the FSDP gather's backward where the leaf is sharded on `data`,
+all-reduced here where it is replicated), never summed over `model`, whose
+ranks saw the same rows. AdamW then runs on the blocks, its global norm
+summed over the mesh (`adamw.global_norm`).
 """
 from __future__ import annotations
 
@@ -32,6 +44,9 @@ import numpy as np
 import torch
 from torch import nn
 
+from repro_torch import sharding
+from repro_torch.launch import abstract
+from repro_torch.launch import mesh as rmesh
 from repro_torch.models import bert4rec, gnn, transformer
 from repro_torch.models.common import nest, unnest
 from repro_torch.optim import adamw, compression, schedules
@@ -69,10 +84,14 @@ def param_tree(model: nn.Module) -> Dict:
     return nest(flat, model.param_paths())
 
 
-def init_state(model: nn.Module, tc: TrainConfig) -> Dict:
+def init_state(model: nn.Module, tc: TrainConfig, mesh=None) -> Dict:
     """The train state of `model`'s current parameters: step 0, zero
-    moments (and zero error feedback with compress_grads)."""
+    moments (and zero error feedback with compress_grads). With `mesh` (a
+    `RankMesh`), this rank's blocks (`shard_state` of the global state),
+    the moments made on the blocks alone."""
     params = param_tree(model)
+    if mesh is not None:
+        params = shard_state(params, state_shardings(model, tc, mesh)["params"], mesh)
     dev = leaves(params)[0].device
     state = {
         "params": params,
@@ -82,6 +101,37 @@ def init_state(model: nn.Module, tc: TrainConfig) -> Dict:
     if tc.compress_grads:
         state["ef"] = compression.init_error_feedback(params)
     return state
+
+
+def state_specs(model: nn.Module, tc: TrainConfig) -> Dict:
+    """The state's logical sharding specs (the second value of the
+    reference's `init_state`)."""
+    pspecs = model.param_specs()
+    specs = {"params": pspecs, "opt": adamw.state_specs(pspecs), "step": ()}
+    if tc.compress_grads:
+        specs["ef"] = pspecs
+    return specs
+
+
+def state_shardings(model: nn.Module, tc: TrainConfig, mesh) -> Dict:
+    """The state's specs resolved against `mesh` (a `RankMesh` or a
+    `MeshShape`) at the model's global shapes, with the divisibility guard
+    (`launch/abstract.shardings_for`)."""
+    shape = mesh.shape if isinstance(mesh, rmesh.RankMesh) else mesh
+    params = param_tree(model)
+    like = {"params": params, "opt": {"mu": params, "nu": params,
+                                      "count": torch.zeros(())},
+            "step": torch.zeros(())}
+    if tc.compress_grads:
+        like["ef"] = params
+    return abstract.shardings_for(like, state_specs(model, tc), shape)
+
+
+def shard_state(state: Mapping, shardings: Mapping, mesh) -> Dict:
+    """This rank's blocks of a global state (`sharding.shard_tree`), each
+    its own contiguous copy, so that the global leaves can be freed."""
+    return tree_map(lambda t: t.clone(memory_format=torch.contiguous_format),
+                    sharding.shard_tree(state, shardings, mesh))
 
 
 def _to_torch(x, like=None, device=None) -> torch.Tensor:
@@ -117,8 +167,8 @@ class _Loss(nn.Module):
         super().__init__()
         self.model, self.loss_fn, self.kw = model, loss_fn, kw
 
-    def forward(self, batch):
-        return self.loss_fn(self.model, batch, **self.kw)
+    def forward(self, batch, **more):
+        return self.loss_fn(self.model, batch, **self.kw, **more)
 
 
 def _microbatch(batch: Mapping, i: int) -> Dict:
@@ -126,7 +176,8 @@ def _microbatch(batch: Mapping, i: int) -> Dict:
             for key, v in batch.items()}
 
 
-def build_train_step(model: nn.Module, tc: TrainConfig, donate: bool = False) -> Callable:
+def build_train_step(model: nn.Module, tc: TrainConfig, donate: bool = False,
+                     mesh=None) -> Callable:
     """step(state, batch) -> (new state, metrics {"loss", "lr_scale",
     "grad_norm"}) for `model`'s family (its config is `model.cfg`).
 
@@ -134,21 +185,59 @@ def build_train_step(model: nn.Module, tc: TrainConfig, donate: bool = False) ->
     theirs (`donate_argnums=(0,)`): AdamW overwrites its parameters and
     moments (`adamw.update(inplace=True)`), so a step holds one state, not
     the old and the new; the caller keeps only the returned one. The
-    values are the same either way."""
+    values are the same either way.
+
+    With `mesh` (a `RankMesh`; LM only), every rank of the mesh calls the
+    step with its blocks of the state (`shard_state`) and the same global
+    batch; the loss and the metrics are the global ones on every rank."""
     kw = {"remat": tc.remat} if isinstance(model, transformer.Transformer) else {}
     wrapper = _Loss(model, _loss_for(model), kw)
     paths = model.param_paths()
     names = ["model." + k for k in paths]
     k = tc.microbatches
+    if mesh is not None:
+        if not isinstance(model, transformer.Transformer):
+            raise NotImplementedError("the train step on a mesh is the LM's")
+        if tc.compress_grads:
+            # int8 with one scale per leaf: a block's scale is not the leaf's
+            raise NotImplementedError("compress_grads on a mesh")
+        pspecs = state_shardings(model, tc, mesh)["params"]
+        flat_specs = unnest(pspecs, paths)
+        # the leaves replicated over `data`
+        data_free = {n: "data" not in flat_specs[n] for n in paths}
+        plans = {}
+
+    def local_rows(mb):
+        """This data rank's rows of a microbatch -> (rows, batch split)."""
+        spec = sharding.resolve_axis_spec(tuple(mb["tokens"].shape), ("batch",),
+                                          mesh.shape)
+        split = spec[0] is not None
+        return ({key: (sharding.shard_leaf(v, spec[:1], mesh)
+                       if isinstance(v, torch.Tensor) else v)
+                 for key, v in mb.items()}, split)
 
     def value_and_grad(params, mb):
         named = unnest(params, paths)
         xs = [named[n[len("model."):]].detach().requires_grad_(True) for n in names]
+        call_kw = {}
+        if mesh is not None:
+            mb, split = local_rows(mb)
+            if split not in plans:
+                plans[split] = transformer.MeshPlan(model, mesh, split)
+            call_kw = {"plan": plans[split]}
         with torch.enable_grad():
-            loss, _ = torch.func.functional_call(wrapper, dict(zip(names, xs)), (mb,))
+            loss, _ = torch.func.functional_call(wrapper, dict(zip(names, xs)), (mb,),
+                                                 call_kw)
             gs = torch.autograd.grad(loss, xs, allow_unused=True)
         gs = [torch.zeros_like(x) if g is None else g for x, g in zip(xs, gs)]
-        return loss.detach(), nest(dict(zip(paths, gs)), paths)
+        loss = loss.detach()
+        if mesh is not None and split:
+            # the leaves replicated over `data`: their gradient summed there
+            # (the FSDP gathers' backwards summed the others already)
+            gs = [rmesh.all_reduce(g, mesh, "data") if data_free[n] else g
+                  for n, g in zip(paths, gs)]
+            loss = rmesh.all_reduce(loss, mesh, "data")
+        return loss, nest(dict(zip(paths, gs)), paths)
 
     def train_step(state, batch):
         params = state["params"]
@@ -182,7 +271,8 @@ def build_train_step(model: nn.Module, tc: TrainConfig, donate: bool = False) ->
         lr_scale = schedules.warmup_cosine(
             state["step"], warmup_steps=tc.warmup_steps, total_steps=tc.total_steps)
         new_params, new_opt, om = adamw.update(
-            grads, state["opt"], params, tc.optimizer, lr_scale=lr_scale, inplace=donate)
+            grads, state["opt"], params, tc.optimizer, lr_scale=lr_scale, inplace=donate,
+            mesh=mesh, specs=None if mesh is None else pspecs)
         new_state["params"] = new_params
         new_state["opt"] = new_opt
         new_state["step"] = state["step"] + 1

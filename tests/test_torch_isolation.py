@@ -31,7 +31,9 @@ IMPORT_RE = re.compile(r"^\s*(import|from)\s+(jax|repro)\b")
 # the oracle, counts, generators, configs and recsys scorer helpers, and
 # perf_iter of the
 # distributed cell on the meta device under the cost counter (cells,
-# abstract, op_cost, roofline, kernels.cost), then checks that nothing of JAX or the JAX package was loaded, and that the
+# abstract, op_cost, roofline, kernels.cost), the LM train step on a (1, 1)
+# mesh of one gloo rank with its checkpoint saved, restored and resumed by
+# the trainer (launch.mesh, sharding's placing and gathering), then checks that nothing of JAX or the JAX package was loaded, and that the
 # default device is CUDA (which raises where there is none).
 SCRIPT = textwrap.dedent("""
     import sys
@@ -226,6 +228,31 @@ SCRIPT = textwrap.dedent("""
     with op_cost.OpCounter() as counter:
         torch.ones(2, 3) @ torch.ones(3, 4)
     assert counter.flops_f32 == 48
+
+    import torch.distributed as dist
+    from repro_torch.launch import mesh as rmesh
+    from repro_torch.sharding import gather_tree
+    from repro_torch.train.step import shard_state, state_shardings
+    with tempfile.TemporaryDirectory() as d:
+        rmesh.make_shard_group(1, backend="gloo", init_method=f"file://{d}/rdv", rank=0)
+        one = rmesh.make_rank_mesh((1, 1))
+        ltc = TrainConfig(microbatches=2, remat=True)
+        sh = state_shardings(moe, ltc, one)
+        st = shard_state(init_state(moe, ltc), sh, one)
+        st, m = build_train_step(moe, ltc, mesh=one)(
+            st, {"tokens": torch.zeros((2, 6), dtype=torch.int32),
+                 "labels": torch.ones((2, 6), dtype=torch.int32)})
+        assert float(m["loss"]) > 0
+        ckpt.save_checkpoint(d, 1, st, mesh=one, specs=sh)
+        back, meta = ckpt.restore_checkpoint(d, st, device="cpu", mesh=one, specs=sh)
+        assert int(meta["step"]) == 1 and torch.equal(
+            gather_tree(back, sh, one)["params"]["embed"], st["params"]["embed"])
+        rep = trainer.run(st, build_train_step(moe, ltc, mesh=one), lambda i: {
+            "tokens": torch.zeros((2, 6), dtype=torch.int32),
+            "labels": torch.ones((2, 6), dtype=torch.int32)}, num_steps=2,
+            ckpt_dir=d, mesh=one, specs=sh)
+        assert rep.steps_run == 1
+        dist.destroy_process_group()
     loaded = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "repro"))
     assert not loaded, loaded

@@ -1,6 +1,6 @@
 """The port's MoE dispatch and blocks against the JAX package, on the CPU
-(models/transformer.py: `moe_dispatch`, `_moe_block`, the per-group
-`_moe_block_grouped`). Both packages get the same router logits as numpy
+(models/transformer.py: `moe_dispatch`, and `_moe_block` with its global
+and per-group dispatch). Both packages get the same router logits as numpy
 arrays (the tokens themselves, routed through an identity router, whose
 f32 product changes no bit), so the top-k, the stable sort by expert, the
 capacity, the slots, the tokens and the keep mask are compared bit for bit:
@@ -169,10 +169,10 @@ def test_grouped_moe_block_matches_the_reference():
         got, aux = model._moe_block(flat, torch.from_numpy(x), dropless=dropless)
         np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
         np.testing.assert_allclose(float(aux), float(want_aux), rtol=1e-6)
-    # the grouped path itself, against the reference's
+    # the grouped path itself (T = 96, a multiple of 4), against the reference's
     x = (np.random.default_rng(5).standard_normal((96, cfg.d_model)) * 0.5).astype(np.float32)
     want, want_aux = _r_grouped(mlp, rcfg, jnp.asarray(x))
-    got, aux = model._moe_block_grouped(flat, torch.from_numpy(x))
+    got, aux = model._moe_block(flat, torch.from_numpy(x))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
     np.testing.assert_allclose(float(aux), float(want_aux), rtol=1e-6)
 

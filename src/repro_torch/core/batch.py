@@ -48,6 +48,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.graph.structs import Graph, DeviceGraph
 from repro_torch.core.state import (PruneState, as_int32_bits, pack_bits,
                                     unpack_bits)
@@ -119,7 +120,8 @@ class _LaneBridge:
             max_rows=self.tds_max_rows, stats=cstats,
             annotate=(c.complete and self.guarantee_precision),
             dedup=self.work_aggregation)
-        changed = bool(_state_changed(state, new))
+        with tracing.read("batch.tds_changed"):
+            changed = bool(_state_changed(state, new))
         if changed:
             self.scatter_lane(lane, new)
         if cstats is not None:
@@ -153,8 +155,10 @@ class BatchedEngine(_LaneBridge):
         # an undirected graph holds both arcs of every edge: arc k of the
         # reversed graph is arc k here, so its index here is k's twin
         _, twin = dg.reversed()
-        if not (torch.equal(dg.src[twin], dg.dst)
-                and torch.equal(dg.dst[twin], dg.src)):
+        with tracing.read("batch.twins"):
+            undirected = (torch.equal(dg.src[twin], dg.dst)
+                          and torch.equal(dg.dst[twin], dg.src))
+        if not undirected:
             raise ValueError("graph is not undirected (missing twin arcs)")
         self.twin = twin
         self.templates = list(templates)
@@ -276,7 +280,10 @@ class BatchedEngine(_LaneBridge):
         live = list(range(self.Bq)) if lanes is None else [int(b) for b in lanes]
         it = 0
         while live and it < LCC_MAX_ITERS:
-            changed = self._sweep(live).tolist()  # the sweep's host read
+            with tracing.span("lcc.sweep"):
+                changed = self._sweep(live)
+                with tracing.read("batch.sweep"):
+                    changed = changed.tolist()
             it += 1
             live = [b for b, ch in zip(live, changed) if ch]
         iters = LCC_MAX_ITERS if live else min(max(it, 1) + 1, LCC_MAX_ITERS)
@@ -315,8 +322,9 @@ class BatchedEngine(_LaneBridge):
                  for _, c, direction in lane_constraints]
         head = torch.stack(
             [self.omega_b[lane, :, w[0]]
-             for (lane, _, _), ws in zip(lane_constraints, walks) for w in ws]
-        ).cpu().numpy()                                        # bool[jobs, n]
+             for (lane, _, _), ws in zip(lane_constraints, walks) for w in ws])
+        with tracing.read("batch.heads"):
+            head = head.cpu().numpy()                          # bool[jobs, n]
         sources = np.array([np.count_nonzero(h) for h in head])
         rounds = -(-sources // self.wave)                      # per job
         groups: Dict[Tuple[int, bool], List[int]] = {}
@@ -715,52 +723,56 @@ def prune_batch(
     cancelled at the next phase boundary (masked inert, never a batch
     abort; under `mesh=` rank 0's clock decides); `clock` defaults to
     time.monotonic."""
-    common = dict(wave=wave, tds_chunk=tds_chunk, tds_max_rows=tds_max_rows,
-                  work_aggregation=work_aggregation,
-                  guarantee_precision=guarantee_precision, device=device,
-                  dg=dg)
-    if partition is not None or mesh is not None:
-        eng = ShardedBatchedEngine(graph, templates, partition=partition,
-                                   mesh=mesh, **common)
-    else:
-        eng = BatchedEngine(graph, templates, **common)
-    if label_freq is None:
-        label_freq = graph.label_frequency()
-    cons = [generate_constraints(t, label_freq=label_freq,
-                                 guarantee_precision=guarantee_precision)
-            for t in templates]
-    # per-lane plans: a tuned plan reorders a lane's phases; with no plans
-    # in the active policy every lane runs the heuristic order
-    phase_lists: List[List[planner_mod.PlanPhase]] = []
-    plan_sources: List[str] = []
-    policy = registry.get_policy()
-    if policy is not None and policy.plans:
-        from repro_torch.graph.stats import collect_graph_stats
+    with tracing.span("batch.init") as init_span:
+        common = dict(wave=wave, tds_chunk=tds_chunk,
+                      tds_max_rows=tds_max_rows,
+                      work_aggregation=work_aggregation,
+                      guarantee_precision=guarantee_precision, device=device,
+                      dg=dg)
+        if partition is not None or mesh is not None:
+            eng = ShardedBatchedEngine(graph, templates, partition=partition,
+                                       mesh=mesh, **common)
+        else:
+            eng = BatchedEngine(graph, templates, **common)
+        if label_freq is None:
+            label_freq = graph.label_frequency()
+        cons = [generate_constraints(t, label_freq=label_freq,
+                                     guarantee_precision=guarantee_precision)
+                for t in templates]
+        # per-lane plans: a tuned plan reorders a lane's phases; with no
+        # plans in the active policy every lane runs the heuristic order
+        phase_lists: List[List[planner_mod.PlanPhase]] = []
+        plan_sources: List[str] = []
+        policy = registry.get_policy()
+        if policy is not None and policy.plans:
+            from repro_torch.graph.stats import collect_graph_stats
 
-        gstat = collect_graph_stats(graph)
-        for t, cs in zip(templates, cons):
-            qp = planner_mod.resolve_query_plan(
-                t, cs, gstat, backend=eng.dg.device.type)
-            if qp is None:
-                qp = planner_mod.heuristic_plan(cs)
-            phase_lists.append(qp.phases)
-            plan_sources.append(qp.source)
-    else:
-        for cs in cons:
-            phase_lists.append(planner_mod.heuristic_plan(cs).phases)
-            plan_sources.append("heuristic")
-    if deadlines is not None and len(deadlines) != len(templates):
-        raise ValueError("deadlines must align with templates")
-    clock = clock or time.monotonic
-    status = [STATUS_OK] * eng.Bq
-    stats: Dict = {
-        "n_constraints": [len(c) for c in cons],
-        "plan": {"sources": plan_sources},
-        "batched": {
-            "B": eng.Bq, "P": eng.P, "backend": eng.name,
-            "bucket": registry.bucket_key(eng.route_bucket()),
-        },
-    }
+            gstat = collect_graph_stats(graph)
+            for t, cs in zip(templates, cons):
+                qp = planner_mod.resolve_query_plan(
+                    t, cs, gstat, backend=eng.dg.device.type)
+                if qp is None:
+                    qp = planner_mod.heuristic_plan(cs)
+                phase_lists.append(qp.phases)
+                plan_sources.append(qp.source)
+        else:
+            for cs in cons:
+                phase_lists.append(planner_mod.heuristic_plan(cs).phases)
+                plan_sources.append("heuristic")
+        if deadlines is not None and len(deadlines) != len(templates):
+            raise ValueError("deadlines must align with templates")
+        clock = clock or time.monotonic
+        status = [STATUS_OK] * eng.Bq
+        stats: Dict = {
+            "n_constraints": [len(c) for c in cons],
+            "plan": {"sources": plan_sources},
+            "batched": {
+                "B": eng.Bq, "P": eng.P, "backend": eng.name,
+                "bucket": registry.bucket_key(eng.route_bucket()),
+            },
+        }
+        t0 = time.perf_counter()
+        init_span.at(end=t0)
 
     def cancel_expired():
         if deadlines is None:
@@ -775,10 +787,10 @@ def prune_batch(
                 stats["deadline_cancelled"] = (
                     stats.get("deadline_cancelled", 0) + 1)
 
-    t0 = time.perf_counter()
-    eng.init(stats)
-    cancel_expired()
-    eng.lcc(stats)
+    with tracing.span("batch.lcc"):
+        eng.init(stats)
+        cancel_expired()
+        eng.lcc(stats)
     # lockstep over the planned phase lists: lane i's phase k is
     # phase_lists[i][k], so differently ordered lanes share one batch
     for k in range(max((len(pl) for pl in phase_lists), default=0)):
@@ -794,12 +806,17 @@ def prune_batch(
                 tds_lanes.append((i, p.constraint))
         changed = np.zeros(eng.Bq, dtype=bool)
         if wave_lanes:  # the phase's one host read: which lanes changed
-            changed |= eng.nlcc_phase(wave_lanes, stats).cpu().numpy()
+            with tracing.span("batch.nlcc"):
+                flags = eng.nlcc_phase(wave_lanes, stats)
+                with tracing.read("batch.changed"):
+                    changed |= flags.cpu().numpy()
         for i, c in tds_lanes:
-            changed[i] |= eng.tds_lane(i, c, stats)
+            with tracing.span("batch.tds", lane=i):
+                changed[i] |= eng.tds_lane(i, c, stats)
         if changed.any():
             # the lanes the phase left unchanged sit at their fixpoint
-            eng.lcc(stats, lanes=np.flatnonzero(changed))
+            with tracing.span("batch.lcc"):
+                eng.lcc(stats, lanes=np.flatnonzero(changed))
     eng.sync()
     stats["batched"]["seconds"] = time.perf_counter() - t0
     if isinstance(eng, ShardedBatchedEngine) and eng.group_stats:

@@ -52,6 +52,7 @@ from typing import Callable, Dict, NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.graph.structs import Graph, DeviceGraph, resolve_device
 from repro_torch.graph.partition import EdgePartition, partition_graph
 from repro_torch.graph import segment_ops
@@ -171,11 +172,15 @@ class LocalBackend:
             # python loop to count per-iteration messages (active arcs at send time)
             state, it = self.state, 0
             while True:
-                stats["lcc_messages"] = stats.get("lcc_messages", 0) + int(
-                    torch.sum(state.edge_active))
-                state, changed = lcc_iteration(self.dg, self.tdev, state)
+                with tracing.span("lcc.sweep"):
+                    with tracing.read("lcc.messages"):
+                        n_msgs = int(torch.sum(state.edge_active))
+                    stats["lcc_messages"] = stats.get("lcc_messages", 0) + n_msgs
+                    state, changed = lcc_iteration(self.dg, self.tdev, state)
+                    with tracing.read("lcc.sweep"):
+                        changed = bool(changed)
                 it += 1
-                if not bool(changed) or it > 1000:
+                if not changed or it > 1000:
                     break
             stats["lcc_iterations"] = stats.get("lcc_iterations", 0) + it
             self.state = state
@@ -190,15 +195,20 @@ class LocalBackend:
 
         dg, state, it = self.dg, self.state, 0
         while True:
-            new_state, _ = lcc_iteration(dg, self.tdev, state)
-            vact = torch.any(new_state.omega, dim=1)
-            ea = vact[dg.src.long()] & vact[dg.dst.long()]
-            new_state = PruneState(omega=new_state.omega, edge_active=ea)
-            changed = _state_changed(state, new_state)
-            state = new_state
+            with tracing.span("lcc.sweep"):
+                new_state, _ = lcc_iteration(dg, self.tdev, state)
+                vact = torch.any(new_state.omega, dim=1)
+                ea = vact[dg.src.long()] & vact[dg.dst.long()]
+                new_state = PruneState(omega=new_state.omega, edge_active=ea)
+                changed = _state_changed(state, new_state)
+                state = new_state
+                with tracing.read("lcc.messages"):
+                    stats["lcc_messages"] = (stats.get("lcc_messages", 0)
+                                             + int(torch.sum(ea)))
+                with tracing.read("lcc.sweep"):
+                    changed = bool(changed)
             it += 1
-            stats["lcc_messages"] = stats.get("lcc_messages", 0) + int(torch.sum(ea))
-            if not bool(changed) or it > 1000:
+            if not changed or it > 1000:
                 break
         stats["lcc_iterations"] = stats.get("lcc_iterations", 0) + it
         return state

@@ -38,6 +38,7 @@ from typing import Dict, Iterator, Optional
 
 import numpy as np
 
+from repro_torch import tracing
 from repro_torch.core.state import PruneState
 from repro_torch.core.template import Template, _edge_cover_walk
 from repro_torch.core.tds import compact_active, TdsOverflow
@@ -191,6 +192,7 @@ def _run_engine(engine, chunk: int, max_rows: int, count_only: bool,
     return total, blocks
 
 
+@tracing.traced("count.join")
 def enumerate_matches(
     dg,
     state: Optional[PruneState] = None,
@@ -218,7 +220,8 @@ def enumerate_matches(
         raise ValueError(f"unknown enumeration mode {mode!r}")
     aut = count_automorphisms(template)
     if template.n0 == 1:
-        verts = np.flatnonzero(state.omega[:, 0].cpu().numpy())
+        with tracing.read("enumerate.omega"):
+            verts = np.flatnonzero(state.omega[:, 0].cpu().numpy())
         emb = verts.astype(np.int32).reshape(-1, 1)
         if mode == MODE_COUNT:
             return EnumerationResult(

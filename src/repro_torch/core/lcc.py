@@ -25,6 +25,7 @@ from typing import Callable, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.graph.structs import DeviceGraph
 from repro_torch.graph import segment_ops
 from repro_torch.core.template import Template
@@ -118,8 +119,10 @@ def _fixpoint(iter_fn: Callable, state: PruneState, max_iters: int,
     included."""
     changed, it = True, 0
     while changed and it < max_iters:
-        state, ch = iter_fn(state)
-        changed = bool(ch)
+        with tracing.span("lcc.sweep"):
+            state, ch = iter_fn(state)
+            with tracing.read("lcc.sweep"):
+                changed = bool(ch)
         it += 1
     if stats is not None:
         stats["lcc_iterations"] = stats.get("lcc_iterations", 0) + it

@@ -35,6 +35,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.graph.structs import DeviceGraph
 from repro_torch.graph import segment_ops
 from repro_torch.core.template import NonLocalConstraint
@@ -374,7 +375,8 @@ def _edge_prune_pass(
     walk = list(constraint.walk)
     L = len(walk) - 1
     omega = state.omega
-    sources = np.flatnonzero(omega[:, walk[0]].cpu().numpy())
+    with tracing.read("nlcc.edge_prune"):
+        sources = np.flatnonzero(omega[:, walk[0]].cpu().numpy())
     if sources.size == 0:
         return state
     ea = state.edge_active
@@ -398,8 +400,9 @@ def _edge_prune_pass(
                             & omega[:, qb].index_select(0, dg.dst))
     new_ea = ea & support
     if stats is not None:
-        stats["nlcc_edges_pruned"] = stats.get("nlcc_edges_pruned", 0) + int(
-            ea.sum() - new_ea.sum())
+        with tracing.read("nlcc.edges_pruned"):
+            stats["nlcc_edges_pruned"] = stats.get(
+                "nlcc_edges_pruned", 0) + int(ea.sum() - new_ea.sum())
     return PruneState(omega=omega, edge_active=new_ea)
 
 
@@ -451,7 +454,8 @@ def verify_constraint(
     heads = [w[0] for w in walks]
     host_syncs = 0
     if head_cols is None:
-        head_cols = omega[:, heads].cpu().numpy()
+        with tracing.read("nlcc.heads"):
+            head_cols = omega[:, heads].cpu().numpy()
         host_syncs = 1
     # amax scatter: pads clip onto vertex 0 with survived=False, so repeated
     # indices can only ever leave a set bit set
@@ -488,7 +492,9 @@ def verify_constraint(
         omega[:, q0] &= keep[wi] > 0
     if stats is not None:
         if count_messages:
-            stats["nlcc_messages"] = stats.get("nlcc_messages", 0) + int(total_msgs)
+            with tracing.read("nlcc.messages"):
+                stats["nlcc_messages"] = (stats.get("nlcc_messages", 0)
+                                          + int(total_msgs))
             host_syncs += 1
         stats["nlcc_constraints"] = stats.get("nlcc_constraints", 0) + 1
         stats["nlcc_waves"] = stats.get("nlcc_waves", 0) + n_waves

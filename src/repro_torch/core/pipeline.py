@@ -41,6 +41,7 @@ from typing import Dict, List, Optional, Tuple, Union
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.graph.structs import Graph, DeviceGraph
 from repro_torch.core.template import Template, generate_constraints, NonLocalConstraint
 from repro_torch.core.state import PruneState
@@ -99,6 +100,7 @@ class PruneResult:
         }
 
 
+@tracing.traced("pipeline.prune")
 def prune(
     graph: Union[Graph, DeviceGraph],
     template: Template,
@@ -312,37 +314,44 @@ class _Driver:
         self._plain0 = registry.plain_counts()
 
     # -- phase bodies -------------------------------------------------------
-    def _phase_initial(self):
-        t0 = time.perf_counter()
-        self.backend.lcc(self.stats)
-        self._snap("LCC", None, t0, {})
+    def _phase_lcc(self):
+        """Phase 0, and a constraint's conditional LCC re-run."""
+        with tracing.span("prune.lcc") as sp:
+            t0 = time.perf_counter()
+            self.backend.lcc(self.stats)
+            sp.at(t0, self._snap("LCC", None, t0, {}))
 
     def _phase_constraint(self, k: int):
         p = self.phases[k - 1]
         c = p.constraint
-        t0 = time.perf_counter()
-        cstats: Dict = {}
-        if p.engine == planner_mod.ENGINE_NLCC:
-            changed = self.backend.nlcc(c, cstats, direction=p.direction)
-        else:
-            changed = self.backend.tds(c, cstats)
-        self._snap(f"NLCC-{c.kind}", str(c.walk), t0, cstats)
+        nlcc = p.engine == planner_mod.ENGINE_NLCC
+        with tracing.span("prune.nlcc" if nlcc else "prune.tds") as sp:
+            t0 = time.perf_counter()
+            cstats: Dict = {}
+            if nlcc:
+                changed = self.backend.nlcc(c, cstats, direction=p.direction)
+            else:
+                changed = self.backend.tds(c, cstats)
+            sp.at(t0, self._snap(f"NLCC-{c.kind}", str(c.walk), t0, cstats))
         # assigned, not added: a replayed phase records its committed attempt
         self.stats["plan"]["phases"][k - 1]["actual_s"] = (
             time.perf_counter() - t0)
         # ONE device bool decides the re-run
-        if bool(changed):
-            t0 = time.perf_counter()
-            self.backend.lcc(self.stats)
-            self._snap("LCC", None, t0, {})
+        with tracing.read("pipeline.changed"):
+            changed = bool(changed)
+        if changed:
+            self._phase_lcc()
 
-    def _snap(self, phase, cname, t0, extra):
+    def _snap(self, phase, cname, t0, extra) -> float:
+        """Stage the phase's entry; -> the clock read that ends its
+        seconds."""
         # the phase's wall time includes its device work
         self.backend.sync()
-        secs = time.perf_counter() - t0
+        t1 = time.perf_counter()
         counts = (self.backend.counts_host() if self.collect_stats
                   else self.backend.counts_dev())
-        self._stage.append((phase, cname, secs, extra, counts))
+        self._stage.append((phase, cname, t1 - t0, extra, counts))
+        return t1
 
     # -- driver loop --------------------------------------------------------
     def run(self):
@@ -368,7 +377,7 @@ class _Driver:
         if self.inj is not None:
             self.inj.begin_phase(k)
         if k == 0:
-            body = self._phase_initial
+            body = self._phase_lcc
         else:
             body = functools.partial(self._phase_constraint, k)
 

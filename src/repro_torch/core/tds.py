@@ -27,6 +27,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.graph.structs import DeviceGraph
 from repro_torch.core.state import PruneState
 from repro_torch.core.template import NonLocalConstraint
@@ -48,11 +49,12 @@ class ActiveSubgraph:
 
 
 def compact_active(dg: DeviceGraph, state: PruneState) -> ActiveSubgraph:
-    omega = state.omega.cpu().numpy()
-    vact = state.omega.any(dim=1)
-    keep = state.edge_active & vact[dg.src.long()] & vact[dg.dst.long()]
-    s = dg.src[keep].cpu().numpy()
-    d = dg.dst[keep].cpu().numpy()
+    with tracing.read("tds.compact_active"):
+        omega = state.omega.cpu().numpy()
+        vact = state.omega.any(dim=1)
+        keep = state.edge_active & vact[dg.src.long()] & vact[dg.dst.long()]
+        s = dg.src[keep].cpu().numpy()
+        d = dg.dst[keep].cpu().numpy()
     order = np.lexsort((d, s))
     s, d = s[order], d[order]
     n = dg.n
@@ -185,6 +187,7 @@ def tds_walk(
     return survived, (rows if collect_rows else None), seen_q
 
 
+@tracing.traced("tds.join")
 def verify_tds_constraint(
     dg: DeviceGraph,
     state: PruneState,

@@ -39,6 +39,7 @@ from typing import Dict, Iterator, List, Optional, Sequence, Union
 
 import numpy as np
 
+from repro_torch import tracing
 from repro_torch.graph.partition import partition_graph
 from repro_torch.graph.structs import DeviceGraph, Graph
 from repro_torch.core.template import Template
@@ -66,6 +67,8 @@ class GraphQuery:
     # plan group; "heuristic" when the policy holds no tuned plan for this
     # (template, graph-stats) bucket
     plan_group: str = "heuristic"
+    # admission on the span recorder's clock, None while it is off
+    traced_at: Optional[int] = None
 
 
 @dataclasses.dataclass
@@ -107,15 +110,16 @@ class GraphQueryEngine:
         # built once per engine: every batch shares the partition (and its
         # device arrays) and the staged graph
         self.partition = partition
-        self.dg = DeviceGraph.from_host(
-            graph, device,
-            order=partition.dst_order(graph) if partition is not None else None)
+        with tracing.span("engine.stage"):
+            self.dg = DeviceGraph.from_host(
+                graph, device, order=(partition.dst_order(graph)
+                                      if partition is not None else None))
+            self._label_freq = graph.label_frequency()
         self.wave = wave
         self.max_batch = max_batch
         self.max_wait_s = max_wait_s
         self.clock = clock
         self.prune_kw = prune_kw
-        self._label_freq = graph.label_frequency()
         self._gstats = None  # graph stats, computed once iff plans are tuned
         self._queue: deque = deque()
         self._done: Dict[int, QueryResult] = {}
@@ -145,7 +149,7 @@ class GraphQueryEngine:
             query_id=next(self._ids), template=template, mode=mode,
             deadline=(now + timeout_s) if timeout_s is not None else None,
             submitted_at=now, bucket=registry.shape_bucket(template.n0),
-            plan_group=self._plan_group(template))
+            plan_group=self._plan_group(template), traced_at=tracing.stamp())
         self._queue.append(q)
         self.stats["n_submitted"] += 1
         return q.query_id
@@ -253,34 +257,44 @@ class GraphQueryEngine:
     def _execute(self, batch: Sequence[GraphQuery]) -> List[QueryResult]:
         batch_id = next(self._batch_ids)
         now = self.clock()
-        bres: BatchedPruneResult = prune_batch(
-            self.graph, [q.template for q in batch],
-            partition=self.partition, mesh=self.mesh, wave=self.wave,
-            label_freq=self._label_freq,
-            deadlines=[q.deadline for q in batch], clock=self.clock,
-            dg=self.dg, **self.prune_kw)
-        seconds = bres.stats["batched"]["seconds"]
-        self.stats["n_batches"] += 1
-        self.stats.setdefault("batches", []).append({
-            "batch_id": batch_id, "B": len(batch),
-            "bucket": bres.stats["batched"]["bucket"], "seconds": seconds,
-            "query_ids": [q.query_id for q in batch],
-            "status": list(bres.status)})
-        out = []
-        for q, lane_res, status in zip(batch, bres.results, bres.status):
-            n_emb = None
-            if status == STATUS_OK and q.mode == MODE_COUNT:
-                n_emb = int(count_matches(
-                    lane_res.dg, lane_res.state, q.template,
-                    label_freq=self._label_freq).n_embeddings)
-            qr = QueryResult(
-                query_id=q.query_id, status=status, mode=q.mode,
-                result=lane_res if status == STATUS_OK else None,
-                n_embeddings=n_emb, batch_id=batch_id,
-                batch_size=len(batch), wait_s=now - q.submitted_at,
-                seconds=seconds)
-            self._finish(qr)
-            out.append(qr)
+        attrs = {}
+        launch = tracing.stamp()
+        if launch is not None:  # each query's wait, from submit to here
+            for q in batch:
+                if q.traced_at is not None:
+                    tracing.record("serve.queue", q.traced_at, launch,
+                                   f"query/{q.query_id}", query_id=q.query_id)
+            attrs = {"batch_id": batch_id,
+                     "query_ids": [q.query_id for q in batch]}
+        with tracing.span("serve.batch", **attrs):
+            bres: BatchedPruneResult = prune_batch(
+                self.graph, [q.template for q in batch],
+                partition=self.partition, mesh=self.mesh, wave=self.wave,
+                label_freq=self._label_freq,
+                deadlines=[q.deadline for q in batch], clock=self.clock,
+                dg=self.dg, **self.prune_kw)
+            seconds = bres.stats["batched"]["seconds"]
+            self.stats["n_batches"] += 1
+            self.stats.setdefault("batches", []).append({
+                "batch_id": batch_id, "B": len(batch),
+                "bucket": bres.stats["batched"]["bucket"], "seconds": seconds,
+                "query_ids": [q.query_id for q in batch],
+                "status": list(bres.status)})
+            out = []
+            for q, lane_res, status in zip(batch, bres.results, bres.status):
+                n_emb = None
+                if status == STATUS_OK and q.mode == MODE_COUNT:
+                    n_emb = int(count_matches(
+                        lane_res.dg, lane_res.state, q.template,
+                        label_freq=self._label_freq).n_embeddings)
+                qr = QueryResult(
+                    query_id=q.query_id, status=status, mode=q.mode,
+                    result=lane_res if status == STATUS_OK else None,
+                    n_embeddings=n_emb, batch_id=batch_id,
+                    batch_size=len(batch), wait_s=now - q.submitted_at,
+                    seconds=seconds)
+                self._finish(qr)
+                out.append(qr)
         return out
 
     def _finish_cancelled(self, q: GraphQuery) -> QueryResult:

@@ -365,7 +365,8 @@ from repro_torch.core.exploratory import exploratory_search  # noqa: E402
 from repro_torch.core.incremental import IncrementalSession  # noqa: E402
 from repro_torch.core.lcc import TemplateDev, lcc_fixpoint  # noqa: E402
 from repro_torch.core.pipeline import prune  # noqa: E402
-from repro_torch.core.state import init_state, pack_bits, unpack_bits  # noqa: E402
+from repro_torch.core.state import (  # noqa: E402
+    init_state, pack_bits, seeded_frontier, unpack_bits)
 from repro_torch.core.template import Template, generate_constraints  # noqa: E402
 from repro_torch.data.graphs import (  # noqa: E402
     PatternFilteredDataset, SampledBatchStream, full_graph_batch)
@@ -652,11 +653,8 @@ def first_wave_inputs(dg, template, state, label_freq):
     check(sources.size > 0, "no wave sources after the initial LCC")
     ids, _ = next(nlcc.wave_batches(sources, WAVE))
     ids = torch.from_numpy(ids.astype(np.int64)).to(omega.device)
-    safe = ids.clamp(0, dg.n - 1)
     cand_bool = torch.stack([omega[:, q] for q in walk], dim=0)
-    packed = nlcc._initial_frontier_packed(dg.n, cand_bool[0], ids, safe)
-    cand = torch.where(cand_bool[1:], -1, 0).to(torch.int32)
-    return packed, cand
+    return seeded_frontier(ids, cand_bool[0], dg.n), nlcc.hop_words(cand_bool)
 
 
 # ------------------------------------------------------------------- phases

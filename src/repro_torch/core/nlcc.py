@@ -17,11 +17,13 @@ Path constraints: token must reach a *different* vertex with the same label
 `verify_constraint` runs every walk of a constraint (all rotations of a
 cycle, both directions of a path) against one candidacy stack built from the
 constraint-entry omega, accumulates per-wave survivors into a device-side
-`keep` plane, and applies the head-column eliminations on the device. Three
-routes execute a wave: `unpacked` boolean planes, `packed` per-hop
+`keep` plane, and applies the head-column eliminations on the device. A
+walk's source ids go to the device in one copy, which its waves slice.
+Three routes execute a wave: `unpacked` boolean planes, `packed` per-hop
 `bitset_spmm` launches, and `fused` (`bitset_wave`: all hops in one wrapper
-call). The packed routes build the packed frontier directly and read the
-survivors from packed words, so no [n, wave] boolean plane exists on them.
+call). The packed routes build the packed int32 frontier directly from the
+wave's source ids and read the survivors from packed words, so no [n, wave]
+boolean plane exists on them.
 
 `verify_constraint(edge_prune=True)` first runs the forward-backward
 frontier edge-prune pass (`_edge_prune_pass`): forward and backward packed
@@ -39,7 +41,7 @@ from repro_torch import tracing
 from repro_torch.graph.structs import DeviceGraph
 from repro_torch.graph import segment_ops
 from repro_torch.core.template import NonLocalConstraint
-from repro_torch.core.state import PruneState, as_int32_bits
+from repro_torch.core.state import PruneState, seeded_frontier, source_bits
 from repro_torch.kernels import registry
 
 NLCC_ROUTE = "prune.nlcc"
@@ -165,29 +167,10 @@ def check_walk_constraint(
 
 
 # ------------------------------------------------------------ packed words
-def _bit_values(cols: torch.Tensor) -> torch.Tensor:
-    """int64 value of bit (col % 32) of a packed word."""
-    return torch.ones_like(cols) << (cols % 32)
-
-
-def _source_bits(n: int, safe_src: torch.Tensor, bits: torch.Tensor
-                 ) -> torch.Tensor:
-    """int32[n, S/32] with bit j of row safe_src[j] set where bits[j]. Each
-    column names one (row, bit), so the scattered bit values sum to their
-    OR."""
-    S = safe_src.shape[0]
-    W = S // 32
-    cols = torch.arange(S, device=safe_src.device)
-    words = torch.zeros(n * W, dtype=torch.int64, device=safe_src.device)
-    words.scatter_add_(0, safe_src * W + cols // 32,
-                       bits.to(torch.int64) * _bit_values(cols))
-    return as_int32_bits(words).reshape(n, W)
-
-
-def _initial_frontier_packed(n, cand0, source_ids, safe_src) -> torch.Tensor:
-    """F_0 in packed words int32[n, S/32]: bit j of row safe_src[j] set for
-    every seeded source."""
-    return _source_bits(n, safe_src, (source_ids >= 0) & cand0[safe_src])
+def hop_words(walk_candidacy: torch.Tensor) -> torch.Tensor:
+    """The wave kernels' candidacy words of hops 1..L, int32[L, n] of 0 /
+    -1, from bool[L+1, n]."""
+    return -walk_candidacy[1:].to(torch.int32)
 
 
 def _column_any(packed: torch.Tensor) -> torch.Tensor:
@@ -205,7 +188,7 @@ def _wave_survivors_packed(packed, source_ids, safe_src, is_cyclic: bool):
         survived = arrived_self
     else:
         # clear every source's own bit, then ask whether any row still has it
-        own = _source_bits(packed.shape[0], safe_src, arrived_self)
+        own = source_bits(packed.shape[0], safe_src, arrived_self)
         survived = _column_any(packed ^ own)
     return survived & (source_ids >= 0)
 
@@ -217,20 +200,24 @@ def check_walk_constraint_packed(
     is_cyclic: bool,
     source_ids: torch.Tensor,      # int64[S], -1 = pad; S % 32 == 0
     fused: bool,
+    *,
+    hops: Optional[torch.Tensor] = None,   # hop_words(walk_candidacy)
 ) -> torch.Tensor:
     """One CC/PC wave on packed words -> survived bool[S]. `fused` runs all
     hops in one `bitset_wave` call; otherwise each hop is a `bitset_spmm`
-    launch followed by the candidacy mask."""
+    launch followed by the candidacy mask. A caller running many waves of
+    one walk may pass the fused route's candidacy words, made once."""
     from repro_torch.kernels import ops as kops
 
     n = state.omega.shape[0]
     if source_ids.shape[0] % 32:
         raise ValueError("packed frontier needs a word-aligned wave size")
     safe_src = source_ids.clamp(0, n - 1)
-    packed = _initial_frontier_packed(n, walk_candidacy[0], source_ids, safe_src)
+    packed = seeded_frontier(source_ids, walk_candidacy[0], n)
     if fused:
-        cand = torch.where(walk_candidacy[1:], -1, 0).to(torch.int32)
-        packed = kops.bitset_wave(packed, dg, state.edge_active, cand)
+        packed = kops.bitset_wave(
+            packed, dg, state.edge_active,
+            hop_words(walk_candidacy) if hops is None else hops)
     else:
         for r in range(1, walk_candidacy.shape[0]):
             agg = kops.bitset_or_aggregate(packed, dg, state.edge_active)
@@ -284,18 +271,18 @@ def _wave_live_arcs(dg, rev, edge_active, edge_active_rev, walk_candidacy,
     n = dg.n
     L = walk_candidacy.shape[0] - 1
     safe_src = source_ids.clamp(0, n - 1)
-    cand = torch.where(walk_candidacy[1:], -1, 0).to(torch.int32)
-    fwd = [_initial_frontier_packed(n, walk_candidacy[0], source_ids, safe_src)]
+    cand = hop_words(walk_candidacy)
+    fwd = [seeded_frontier(source_ids, walk_candidacy[0], n)]
     for r in range(1, L + 1):
         fwd.append(kops.bitset_wave(fwd[-1], dg, edge_active, cand[r - 1: r]))
     survived = _wave_survivors_packed(fwd[L], source_ids, safe_src, is_cyclic)
     if is_cyclic:
         # the walk must end at its own source
-        B = _source_bits(n, safe_src, survived)
+        B = source_bits(n, safe_src, survived)
     else:
         # at a surviving source's columns, and never at the source itself
-        keep = _source_bits(1, torch.zeros_like(safe_src), survived)
-        own = _source_bits(n, safe_src, torch.ones_like(survived))
+        keep = source_bits(1, torch.zeros_like(safe_src), survived)
+        own = source_bits(n, safe_src, torch.ones_like(survived))
         B = fwd[L] & keep & ~own
     src, dst = dg.src[arcs], dg.dst[arcs]
     fwd_live = torch.empty((L, arcs.shape[0]), dtype=torch.bool,
@@ -311,6 +298,21 @@ def _wave_live_arcs(dg, rev, edge_active, edge_active_rev, walk_candidacy,
             live_u = torch.where((f != 0).any(dim=1), -1, 0).to(torch.int32)
             B = kops.bitset_wave(B, rev, edge_active_rev, live_u[None]) & f
     return survived, fwd_live, rev_live
+
+
+def _upload_sources(sources: np.ndarray, wave: int,
+                    device: torch.device) -> torch.Tensor:
+    """A walk's source ids padded with -1 to whole waves, on `device` in one
+    copy: int64[waves * wave], wave k at [k * wave, (k + 1) * wave). On the
+    card the copy leaves from pinned memory and does not wait for the
+    stream, so the host queues the walk's waves while earlier work runs."""
+    pad = -sources.size % wave
+    ids = torch.from_numpy(np.concatenate(
+        [sources.astype(np.int64), np.full(pad, -1, np.int64)]))
+    tracing.count("nlcc.source_uploads")
+    if device.type == "cuda":
+        return ids.pin_memory().to(device, non_blocking=True)
+    return ids.to(device)
 
 
 def _pad_sources(source_ids: torch.Tensor) -> torch.Tensor:
@@ -454,12 +456,16 @@ def verify_constraint(
     heads = [w[0] for w in walks]
     host_syncs = 0
     if head_cols is None:
+        # read as rows, so that each walk's column below is contiguous: a
+        # strided column of n bools costs np.flatnonzero a copy of it
         with tracing.read("nlcc.heads"):
-            head_cols = omega[:, heads].cpu().numpy()
+            head_cols = omega[:, heads].T.contiguous().cpu().numpy().T
         host_syncs = 1
     # amax scatter: pads clip onto vertex 0 with survived=False, so repeated
     # indices can only ever leave a set bit set
     keep = torch.zeros((len(walks), n), dtype=torch.int32, device=dev)
+    fused = route == registry.ROUTE_FUSED
+    hops = None
     total_msgs = 0
     n_waves = 0
     for wi, walk in enumerate(walks):
@@ -468,8 +474,12 @@ def verify_constraint(
             continue
         cand = torch.stack([omega[:, q] for q in walk], dim=0)  # bool[L+1, n]
         is_cyclic = walk[0] == walk[-1]
-        for ids_padded, n_real in wave_batches(sources, wave):
-            ids_dev = torch.from_numpy(ids_padded.astype(np.int64)).to(dev)
+        if fused:
+            hops = hop_words(cand)  # the same for every wave of the walk
+        ids_walk = _upload_sources(sources, wave, dev)
+        for off in range(0, sources.size, wave):
+            ids_dev = ids_walk[off: off + wave]
+            n_real = min(wave, sources.size - off)
             if route == registry.ROUTE_UNPACKED:
                 survived, n_msgs = check_walk_constraint(
                     dg, state, cand, is_cyclic, ids_dev,
@@ -477,8 +487,8 @@ def verify_constraint(
                 total_msgs += n_msgs
             else:
                 survived = check_walk_constraint_packed(
-                    dg, state, cand, is_cyclic, ids_dev,
-                    fused=(route == registry.ROUTE_FUSED))
+                    dg, state, cand, is_cyclic, ids_dev, fused=fused,
+                    hops=hops)
             keep[wi].scatter_reduce_(0, ids_dev.clamp(0, n - 1),
                                      survived.to(torch.int32), "amax",
                                      include_self=True)

@@ -30,6 +30,31 @@ def as_int32_bits(x: torch.Tensor) -> torch.Tensor:
     return torch.where(x >= 2**31, x - 2**32, x).to(torch.int32)
 
 
+def source_bits(n: int, rows: torch.Tensor, bits: torch.Tensor
+                ) -> torch.Tensor:
+    """int32[n, S/32] (S % 32 == 0) with bit j % 32 of word j // 32 of row
+    rows[j] (int64[S]) set where bits[j] (bool[S]), all else 0. Each column
+    names one (row, word, bit), so the values scattered into one word are
+    distinct bits: their int32 sum stays within int32 at every step (the
+    bits below 31 sum to under 2^31, bit 31 is -2^31) and is their OR."""
+    S = rows.shape[0]
+    W = S // 32
+    cols = torch.arange(S, device=rows.device)
+    one = torch.ones(S, dtype=torch.int32, device=rows.device)
+    words = torch.zeros(n * W, dtype=torch.int32, device=rows.device)
+    words.scatter_add_(0, rows * W + cols // 32,
+                       bits.to(torch.int32) * (one << (cols % 32).to(torch.int32)))
+    return words.view(n, W)
+
+
+def seeded_frontier(seeds: torch.Tensor, cand0: torch.Tensor, n: int
+                    ) -> torch.Tensor:
+    """A wave's hop-0 frontier -> int32[n, S/32]: bit j of row seeds[j] set
+    where seeds[j] >= 0 (-1 = a pad) and cand0[seeds[j]] (bool[n])."""
+    safe = seeds.long().clamp(0, n - 1)
+    return source_bits(n, safe, (seeds >= 0) & cand0[safe])
+
+
 def pack_bits(bits: torch.Tensor) -> torch.Tensor:
     """bool[..., n0] -> int32[..., W]; bit b of word w is column 32*w + b.
     One word at a time, so the int64 intermediate is 32 columns wide."""

@@ -17,7 +17,9 @@ from repro.graph.blocked import build_blocked_structure  # noqa: E402
 from repro.graph.structs import DeviceGraph as RDeviceGraph  # noqa: E402
 from repro.kernels import ops as rops  # noqa: E402
 from repro.kernels import ref as rref  # noqa: E402
-from repro_torch.core.state import pack_bits, unpack_bits  # noqa: E402
+from repro_torch.core.state import (as_int32_bits, pack_bits,  # noqa: E402
+                                    seeded_frontier, source_bits,
+                                    unpack_bits)
 from repro_torch.graph import segment_ops  # noqa: E402
 from repro_torch.graph.structs import DeviceGraph, Graph  # noqa: E402
 from repro_torch.kernels import ops, ref, registry  # noqa: E402
@@ -269,6 +271,116 @@ def test_wave_schedule_equals_reference(w, hops):
     np.testing.assert_array_equal(got, np.asarray(want))
     if hops > 1:
         assert (np.asarray(want) != 0).any()
+
+
+# --------------------------------------------------------- seeded_frontier
+def _dense_seed(seeds, cand0, n, w):
+    """uint32[n, W]: bit j of row seeds[j] for each seed >= 0 with
+    cand0[seeds[j]], built bit by bit."""
+    u = np.zeros((n, w), np.uint32)
+    for j, v in enumerate(seeds):
+        if v >= 0 and cand0[v]:
+            u[v, j // 32] |= np.uint32(1) << np.uint32(j % 32)
+    return u
+
+
+def _seed_list(rng, n, S, k, must=()):
+    """int32[S]: k distinct real ids (those in `must` among them) at random
+    positions, -1 elsewhere."""
+    rest = np.setdiff1d(np.arange(n), must)
+    real = np.concatenate([np.asarray(must, np.int64),
+                           rng.choice(rest, k - len(must), replace=False)])
+    seeds = np.full(S, -1, np.int64)
+    seeds[rng.choice(S, k, replace=False)] = real
+    return seeds.astype(np.int32)
+
+
+def _seeded_case(case, rng):
+    """(host graph, seeds int32[S], cand0 bool[n], hops) of one case."""
+    if case == "hub":
+        g = _hub_graph(rng)
+        seeds = _seed_list(rng, g.n, 64, 40, must=[0])
+        cand0 = rng.random(g.n) < 0.7
+        cand0[0] = True
+        return g, seeds, cand0, 3
+    g = rgen.rmat_graph(11, edge_factor=4, seed=7)
+    cand0 = rng.random(g.n) < 0.8
+    if case.startswith("pads-"):
+        S = int(case.split("-")[1])
+        return g, _seed_list(rng, g.n, S, 3 * S // 4), cand0, 3
+    if case == "vertex0":
+        # vertex 0 a real source at column 37, pads (which clip onto it in
+        # the dense builds) around it
+        seeds = np.full(64, -1, np.int32)
+        seeds[37] = 0
+        seeds[[3, 50]] = [5, 9]
+        cand0[[0, 5, 9]] = True
+        return g, seeds, cand0, 4
+    # a real source that is not a candidate of the walk's head
+    seeds = _seed_list(rng, g.n, 32, 20)
+    cand0[seeds[seeds >= 0][:3]] = False
+    return g, seeds, cand0, 3
+
+
+@pytest.mark.parametrize("case", ["pads-32", "pads-64", "pads-1024", "vertex0",
+                                  "not-candidate", "hub"])
+def test_seeded_frontier_wave_equals_reference_on_the_dense_seed(case):
+    """A wave's int32 hop-0 frontier made from its source ids equals the
+    one built bit by bit, and the port's wave from it equals the
+    reference's wave from that one."""
+    rng = np.random.default_rng(sum(map(ord, case)))
+    g, seeds, cand0, hops = _seeded_case(case, rng)
+    rdg, dg = _graphs(g)
+    w = seeds.size // 32
+    u = _dense_seed(seeds, cand0, g.n, w)
+    active = rng.random(dg.m) < 0.8
+    cu, cand = _cand(rng, hops, g.n, p=0.6)
+    seed0 = seeded_frontier(torch.from_numpy(seeds), torch.from_numpy(cand0), g.n)
+    assert seed0.dtype == torch.int32 and seed0.shape == (g.n, w)
+    np.testing.assert_array_equal(_u32(seed0), u)
+    got = ops.bitset_wave(seed0, dg, torch.from_numpy(active), cand)
+    want = rref.bitset_wave_ref(jnp.asarray(u), rdg.src, rdg.dst, g.n,
+                                jnp.asarray(active), jnp.asarray(cu))
+    np.testing.assert_array_equal(_u32(got), np.asarray(want))
+    if case == "vertex0":
+        assert _u32(seed0)[0, 1] == 1 << 5  # column 37 alone in row 0
+    if case == "not-candidate":
+        off = seeds.copy()
+        off[(seeds >= 0) & ~cand0[np.maximum(seeds, 0)]] = -1
+        assert torch.equal(seed0, seeded_frontier(
+            torch.from_numpy(off), torch.from_numpy(cand0), g.n))
+    assert (np.asarray(want) != 0).any()
+
+
+def _source_bits_int64(n, rows, bits):
+    """The int64 build that `source_bits` replaced: S values scattered into
+    an int64 [n W] plane, then cut to int32."""
+    S = rows.shape[0]
+    W = S // 32
+    cols = torch.arange(S)
+    words = torch.zeros(n * W, dtype=torch.int64)
+    words.scatter_add_(0, rows * W + cols // 32,
+                       bits.to(torch.int64) * (torch.ones_like(cols) << (cols % 32)))
+    return as_int32_bits(words).reshape(n, W)
+
+
+@pytest.mark.parametrize("S", [32, 64, 1024])
+def test_source_bits_equals_the_int64_build(S):
+    """The int32 `source_bits` equals the int64 build word for word, with
+    rows repeated (pads clipped onto vertex 0) and bit 31 set."""
+    rng = np.random.default_rng(S)
+    n = 97
+    rows = torch.from_numpy(rng.integers(0, n, S))
+    rows[rng.random(S) < 0.2] = 0
+    bits = torch.from_numpy(rng.random(S) < 0.7)
+    bits[31] = True
+    got = source_bits(n, rows, bits)
+    assert got.dtype == torch.int32 and got.shape == (n, S // 32)
+    assert torch.equal(got, _source_bits_int64(n, rows, bits))
+    assert bool((got < 0).any())
+    ones = torch.ones(S, dtype=torch.bool)
+    assert torch.equal(source_bits(n, rows, ones),
+                       _source_bits_int64(n, rows, ones))
 
 
 def test_bitset_wave_ref_equals_iterated_spmm_ref():

@@ -109,6 +109,25 @@ def test_prune_matches_reference_on_every_route(name, lcc_route, nlcc_route,
     assert res.counts() == ref.counts()
 
 
+@pytest.mark.parametrize("wave", [32, 1024])
+@pytest.mark.parametrize("name", ["fig2a", "triangle_er", "path_constraint",
+                                  "needles", "hex"])
+def test_fused_waves_match_reference_at_any_wave_width(name, wave, reference):
+    """The fused route's waves, each seeded from its slice of the walk's one
+    upload of source ids: at 32 sources a wave and at 1,024 (one wave,
+    mostly pads) omega, the edge mask and the trajectory equal the
+    reference's, which the wave width does not move."""
+    g, (labels, edges) = SCENARIOS[name]
+    ref, _ = reference(name)
+    res = prune(_port_graph(g), Template(labels, edges), device="cpu",
+                wave=wave, nlcc_route="fused")
+    assert sum(p.extra.get("nlcc_fused_waves", 0) for p in res.phases) > 0
+    np.testing.assert_array_equal(res.omega, np.asarray(ref.state.omega))
+    np.testing.assert_array_equal(res.edge_mask, ref.edge_mask)
+    assert _trajectory(res) == _trajectory(ref)
+    assert res.counts() == ref.counts()
+
+
 @pytest.mark.parametrize("name", list(SCENARIOS))
 def test_enumeration_matches_reference_and_oracle(name, reference):
     g, (labels, edges) = SCENARIOS[name]

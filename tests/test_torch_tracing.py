@@ -16,10 +16,13 @@ torch = pytest.importorskip("torch")
 from torch_train_util import few_torch_threads  # noqa: E402,F401
 
 from repro_torch import tracing  # noqa: E402
-from repro_torch.core import pipeline  # noqa: E402
+from repro_torch.core import nlcc, pipeline  # noqa: E402
 from repro_torch.core.enumerate import count_matches  # noqa: E402
-from repro_torch.core.template import Template  # noqa: E402
+from repro_torch.core.lcc import TemplateDev, lcc_fixpoint  # noqa: E402
+from repro_torch.core.state import init_state  # noqa: E402
+from repro_torch.core.template import Template, generate_constraints  # noqa: E402
 from repro_torch.graph import generators as gen  # noqa: E402
+from repro_torch.graph.structs import DeviceGraph  # noqa: E402
 from repro_torch.serve.graph_query import (MODE_COUNT,  # noqa: E402
                                           GraphQueryEngine)
 
@@ -115,7 +118,10 @@ def test_spans_nest_inside_their_roots(graph, collect_stats):
         assert s["trace_id"] == p["trace_id"]
         assert p["start_ns"] <= s["start_ns"] <= s["end_ns"] <= p["end_ns"]
     reads = [s for s in snap["spans"] if s["name"] == tracing.READ]
-    assert sum(snap["counters"].values()) == len(reads)
+    read_counts = {k: v for k, v in snap["counters"].items()
+                   if k.startswith(f"{tracing.READ}/")}
+    assert set(snap["counters"]) - set(read_counts) <= {"nlcc.source_uploads"}
+    assert sum(read_counts.values()) == len(reads)
     for s in reads:
         assert snap["counters"][f"host.read/{s['attrs']['site']}"] >= 1
 
@@ -137,6 +143,24 @@ def test_phase_spans_last_their_phase_seconds(graph, template, collect_stats):
     assert sum(snap["counters"].get(k, 0) for k in NLCC_READS) == syncs
     sweeps = [s for s in snap["spans"] if s["name"] == "lcc.sweep"]
     assert len(sweeps) == res.stats["lcc_iterations"]
+
+
+def test_one_source_upload_per_walk(graph):
+    """A walk's source ids go up once however many waves it runs: on the
+    cycle constraints of the square after LCC at 32 sources a wave."""
+    tracing.enable()
+    dg = DeviceGraph.from_host(graph, "cpu")
+    state = lcc_fixpoint(dg, TemplateDev(SQ, dg.device), init_state(dg, SQ))
+    stats, walks = {}, 0
+    for c in generate_constraints(SQ, label_freq=graph.label_frequency()):
+        if c.kind != "cycle":
+            continue
+        heads = [w[0] for w in nlcc.expand_walks(c)]
+        walks += int(state.omega[:, heads].any(dim=0).sum())
+        nlcc.verify_constraint(dg, state, c, wave=32, stats=stats)
+    snap = tracing.snapshot()
+    assert walks > 0 and stats["nlcc_fused_waves"] > walks
+    assert snap["counters"]["nlcc.source_uploads"] == walks
 
 
 def test_batched_head_reads_are_its_nlcc_host_syncs(graph):

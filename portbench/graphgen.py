@@ -25,6 +25,8 @@ import dataclasses
 
 import torch
 
+from portbench import spec
+
 PRESETS = {
     "graph500": (0.57, 0.19, 0.19, 0.05),
     "chakrabarti": (0.45, 0.15, 0.15, 0.25),
@@ -134,9 +136,14 @@ def rmat_graph(scale: int, edge_factor: int = 16, preset: str = "graph500",
                 labels=degree_labels(deg))
 
 
-def from_config(cfg: dict, seed: int, device) -> Arcs:
+def from_config(cfg: dict, seed: int, device, root=spec.ROOT) -> Arcs:
     """The graph a configuration's recipe names, its vertices permuted by
-    the run's seed."""
+    the run's seed. The generator `rmat` is the recipe above; any other
+    brings its maker as a file, `portbench/graphs/<generator>.py`, whose
+    `make(cfg, seed, device) -> Arcs` owns its labels and keeps the rule
+    that the seed only permutes the vertex ids."""
+    if cfg["generator"] != "rmat":
+        return spec.graph_maker(cfg["generator"], root).make(cfg, seed, device)
     return rmat_graph(scale=int(cfg["scale"]),
                       edge_factor=int(cfg["edge_factor"]),
                       preset=cfg["preset"], noise=float(cfg["noise"]),

@@ -2,7 +2,8 @@
 trace of a traced run.
 
 Spans are recorded from the benchmark's own code: `prune`, `count`,
-`engine.submit` and `engine.pump`, inside a `window` span. With tracing on,
+`engine.submit` and `engine.pump`, inside a `window` span, and the spans
+that a run path names in its `SPANS`. With tracing on,
 each is also a `record_function` range in `torch.profiler`'s trace, so the
 device's idle gaps can be labelled by the span the host was in. The
 profiler runs from the start of the window for at most `cap_s` seconds
@@ -41,22 +42,23 @@ def _ident(name: str) -> str:
     return head.split()[-1].split("::")[-1] if head else ""
 
 
-def _annotation(e) -> bool:
+def _annotation(e, spans=SPANS) -> bool:
     """A span's range as the profiler mirrors it onto the device's
     timeline, not an operation the device ran."""
     if hasattr(e, "is_user_annotation") and e.is_user_annotation():
         return True
     kind = e.activity_type() if hasattr(e, "activity_type") else ""
-    return "annotation" in str(kind).lower() or e.name() in SPANS
+    return "annotation" in str(kind).lower() or e.name() in spans
 
 
 class Tracer:
-    """The traced window of a run: the profiler, the spans, and the launch
-    counts the program made meanwhile."""
+    """The traced window of a run: the profiler, the spans (`SPANS` and a
+    run path's own), and the launch counts the program made meanwhile."""
 
     def __init__(self, enabled: bool, cap_s: float, device: torch.device,
-                 launch_counts):
+                 launch_counts, path_spans: Tuple[str, ...] = ()):
         self.enabled = enabled and device.type == "cuda"
+        self.spans = SPANS + tuple(path_spans)
         self.cap_s = cap_s
         self.device = device
         self._launch_counts = launch_counts
@@ -117,14 +119,14 @@ class Tracer:
             name = e.name()
             start, end = _start_ns(e), _end_ns(e)
             if e.device_type() == torch.autograd.DeviceType.CUDA:
-                if end <= start or _annotation(e):
+                if end <= start or _annotation(e, self.spans):
                     continue
                 dev_iv.append((start, end))
                 op = _short(name)
                 by_op[op] = by_op.get(op, 0.0) + (end - start) * 1e-9
                 if _ident(name) in kernel_names:
                     seen += 1
-            elif name in SPANS:
+            elif name in self.spans:
                 spans.append((start, end, name))
         win = [s for s in spans if s[2] == "window"]
         if not win:
